@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels (``pcmi_tpu_torch/csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, bound with :mod:`ctypes`. The
+build runs at first use, from the sources in the checkout only, into
+``build/pcmi_tpu_torch/`` beside the package; the file name carries a hash
+of the sources and flags, so an edited source rebuilds and an unchanged
+one loads the library already there.
+
+``-fmad=false`` keeps every multiply and add separately rounded, as the
+plain PyTorch versions compute them; there is no ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "pcmi_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIB: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin:"
+        " the CUDA toolkit is needed to build the pcmi_tpu_torch kernels")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpcmi_kernels_{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+
+
+def build() -> Path:
+    """Compile the library unless a build of these sources exists.
+
+    The compiler's output (``-Xptxas -v``: registers and shared memory per
+    kernel) is kept beside the library as ``<name>.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = nvcc_command(tmp, find_nvcc())
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's signature declared."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build()))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, p]
+    lib.pcmi_sgm_dir.restype = i
+    lib.pcmi_sgm_dir_max_disp.argtypes = []
+    lib.pcmi_sgm_dir_max_disp.restype = i
+    lib.pcmi_wta.argtypes = [p, p, i, i, i, f, f, f, i, p, p, p, p]
+    lib.pcmi_wta.restype = i
+    lib.pcmi_derive_right.argtypes = [p, p, i, i, i, i, i, f, p]
+    lib.pcmi_derive_right.restype = i
+    _LIB = lib
+    return lib

@@ -1,0 +1,318 @@
+"""Dense stereo matcher: census+AD cost, SGM, WTA, L/R check (port of
+``pcmi_tpu/ops/stereo/matching.py``).
+
+:func:`compute_disparity` is written once, in the structure of the
+reference's TPU branch:
+
+* left view: 4 SGM directions (K1 ``sgm_dir``; lr+rl and tb+bt each
+  accumulated into one volume) -> combine ``(h + v) * 0.25`` + WTA with
+  parabola and margin (K2 ``wta``);
+* right view: derive the right volume (K3 ``derive_right``) -> the 2
+  horizontal directions -> integer argmin (K2);
+* the census cross-checker's WTA (K2).
+
+Which device runs a step is decided only inside the kernel wrappers
+(:mod:`pcmi_tpu_torch.ops.stereo.kernels`): CUDA tensors launch the
+kernels, CPU tensors run their plain versions. Volumes are float32 on both
+devices; ``StereoConfig.sgm_backend`` and ``cost_dtype`` select TPU paths
+and are not read. The cost volume is plain PyTorch on every device, as the
+reference builds it outside any Pallas kernel.
+
+Where the reference scans a static disparity range to avoid gathers on its
+chip (L/R check), this port gathers: the result is the same element.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from pcmi_tpu_torch.config import StereoConfig
+from pcmi_tpu_torch.ops.stereo import kernels as K
+
+
+class DisparityResult(NamedTuple):
+    disparity: torch.Tensor        # (H, W) float32, signed px
+    valid: torch.Tensor            # (H, W) bool, passed L/R check & masks
+    cost: torch.Tensor             # (H, W) float32 best aggregated cost
+    disparity_right: torch.Tensor  # (H, W) float32 right-image disparity
+    # WTA uniqueness: (best cost outside +-1 px of the winner) - (best)
+    margin: torch.Tensor | None = None
+    # independent cross-matcher estimate (band recovery); the reference's
+    # check_margin belongs to the vertical checker, which is not ported
+    check_disparity: torch.Tensor | None = None
+
+
+def _popcount24(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int32 values below 2**24 (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x + (x >> 8) + (x >> 16)) & 0xFF
+
+
+def _edge_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
+    """Edge-replicate ``r`` elements on both ends of ``axis`` (-1 or -2) of
+    an (..., H, W) tensor."""
+    shape = x.shape
+    x3 = x.reshape(-1, shape[-2], shape[-1])
+    widths = (r, r, 0, 0) if axis == -1 else (0, 0, r, r)
+    out = F.pad(x3, widths, mode="replicate")
+    return out.reshape(*shape[:-2], *out.shape[-2:])
+
+
+def census_transform(img: torch.Tensor, window: int = 7):
+    """Census transform into two int32 planes of 24 neighbour bits each
+    (the reference's uint32 planes, same bit order)."""
+    if window > 7 or window < 3 or window % 2 == 0:
+        raise ValueError(
+            f"census_window must be an odd value in [3, 7] (got {window}): "
+            f"two 24-bit planes hold at most 48 neighbour bits")
+    h, w = img.shape
+    r = window // 2
+    padded = _edge_pad(_edge_pad(img, r, -1), r, -2)
+    bits0 = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+    bits1 = torch.zeros_like(bits0)
+    idx = 0
+    for dy in range(window):
+        for dx in range(window):
+            if dy == r and dx == r:
+                continue
+            bit = (padded[dy:dy + h, dx:dx + w] < img).to(torch.int32)
+            if idx < 24:
+                bits0 = bits0 | (bit << idx)
+            else:
+                bits1 = bits1 | (bit << (idx - 24))
+            idx += 1
+    return bits0, bits1
+
+
+def _sliding_sum(padded: torch.Tensor, k: int, axis: int,
+                 out_len: int) -> torch.Tensor:
+    """Length-``k`` sliding sum along ``axis`` by log-doubling, with the
+    reference's add order: ``out[i] = sum_{j<k} padded[i+j]``."""
+    sums = {1: padded}
+    w = 1
+    while 2 * w <= k:
+        a = sums[w]
+        n = a.shape[axis]
+        sums[2 * w] = a.narrow(axis, 0, n - w) + a.narrow(axis, w, n - w)
+        w *= 2
+    acc = None
+    off = 0
+    for w in sorted(sums, reverse=True):
+        while off + w <= k:
+            sl = sums[w].narrow(axis, off, out_len)
+            acc = sl if acc is None else acc + sl
+            off += w
+    return acc
+
+
+def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
+    """Edge-padded mean filter over the last two axes (rows, then
+    columns)."""
+    r = block // 2
+    out = img
+    for axis in (-2, -1):
+        padded = _edge_pad(out, r, axis)
+        out = _sliding_sum(padded, block, axis, out.shape[axis]) / block
+    return out
+
+
+_COST_CHUNK = 16
+
+
+def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
+                      valid_l: torch.Tensor, valid_r: torch.Tensor,
+                      cfg: StereoConfig) -> torch.Tensor:
+    """(D, H, W) float32 box-aggregated census+AD matching cost; slice i
+    holds disparity ``min_disparity + i * disp_stride``. Disparities are
+    processed ``_COST_CHUNK`` at a time into a preallocated volume, which
+    bounds the temporaries to a few chunk-sized tensors."""
+    h, w = left.shape
+    dev = left.device
+    n_census = cfg.census_window ** 2 - 1
+    cl0, cl1 = census_transform(left, cfg.census_window)
+    cr0, cr1 = census_transform(right, cfg.census_window)
+    pad = cfg.max_disp // 2 + 1
+
+    def windows(plane):
+        """(H, 2*pad+1, W) view: window j is plane shifted by pad - j."""
+        return F.pad(plane, (pad, pad)).unfold(1, w, 1)
+
+    rp, vp = windows(right), windows(valid_r.to(torch.uint8))
+    c0p, c1p = windows(cr0), windows(cr1)
+    valid_l = valid_l.bool()
+    ds = torch.arange(0, cfg.max_disp, cfg.disp_stride,
+                      device=dev) + cfg.min_disparity
+    vol = torch.empty((len(ds), h, w), dtype=torch.float32, device=dev)
+    for i0 in range(0, len(ds), _COST_CHUNK):
+        starts = pad - ds[i0:i0 + _COST_CHUNK]
+
+        def take(p):
+            return p[:, starts].transpose(0, 1)   # (k, H, W)
+
+        ham = (_popcount24(cl0 ^ take(c0p))
+               + _popcount24(cl1 ^ take(c1p))).float()
+        census_cost = ham / n_census
+        ad = torch.clamp((left - take(rp)).abs(), max=0.5) / 0.5
+        cost = (1.0 - cfg.ad_weight) * census_cost + cfg.ad_weight * ad
+        cost = torch.where(valid_l & take(vp).bool(), cost,
+                           torch.ones_like(cost))
+        vol[i0:i0 + len(starts)] = _box_edge(cost, cfg.block_size)
+    return vol
+
+
+def sgm_aggregate(vol: torch.Tensor, cfg: StereoConfig,
+                  dirs: str = "4") -> torch.Tensor:
+    """Semi-global aggregation of a (D, H, W) volume: the mean of the 4
+    paths, of the 2 horizontal ("h") or the 2 vertical ("v") ones. Off the
+    main path (which combines inside the WTA); kept as the volume-level
+    form of the reference's ``sgm_aggregate``."""
+    p1, p2 = cfg.sgm_p1, cfg.sgm_p2
+    horiz = vert = None
+    if dirs in ("4", "h"):
+        horiz = K.sgm_pair(vol, p1, p2, horizontal=True)
+        if dirs == "h":
+            return horiz / 2.0
+    vert = K.sgm_pair(vol, p1, p2, horizontal=False)
+    if dirs == "v":
+        return vert / 2.0
+    return (horiz + vert) / cfg.sgm_paths
+
+
+def wta_disparity(vol: torch.Tensor, d_min: int, with_margin: bool = False,
+                  subpixel: bool = True, stride: int = 1):
+    """Argmin over D + parabola sub-pixel (K2 on one volume). Returns
+    ``(disp, best)``, or ``(disp, best, margin)`` with ``with_margin``."""
+    disp, best, margin = K.wta(vol, None, 1.0, d_min, stride, subpixel,
+                               with_margin)
+    return (disp, best, margin) if with_margin else (disp, best)
+
+
+def lr_consistency(disp_l: torch.Tensor, disp_r: torch.Tensor, thresh: float,
+                   d_min: int, d_max: int, stride: int = 1) -> torch.Tensor:
+    """``|dL(x) - dR(x - round(dL))| <= t``, with the lookup shift rounded
+    to the ``stride`` grid; shifts outside [d_min, d_max] or the image
+    fail."""
+    h, w = disp_l.shape
+    d_round = torch.round(disp_l / stride) * stride
+    xs = torch.arange(w, dtype=torch.float32, device=disp_l.device)
+    x2 = xs - d_round
+    inb = (x2 >= 0) & (x2 < w) & (d_round >= d_min) & (d_round <= d_max)
+    idx = torch.where(inb, x2, torch.zeros_like(x2)).long()
+    dr = torch.gather(disp_r, 1, idx)
+    return inb & ((disp_l - dr).abs() <= thresh)
+
+
+def derive_right_volume(vol: torch.Tensor, d_min: int, fill: float = 1.0,
+                        stride: int = 1) -> torch.Tensor:
+    """Right-view volume ``C_R(d, y, x) = C_L(d, y, x + d)`` (K3)."""
+    return K.derive_right(vol, d_min, fill=fill, stride=stride)
+
+
+def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
+    unsupported = {
+        "aggregation": aggregation != "sgm",
+        "right_sgm": cfg.right_sgm != "horizontal",
+        "right_subpixel": cfg.right_subpixel,
+        "band_check_mode": cfg.band_check_mode != "census",
+        "adapt_band_rows": cfg.adapt_band_rows > 0,
+        "hierarchical": cfg.hierarchical,
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"compute_disparity: {bad} select matcher variants that are not "
+            f"ported yet (see ROADMAP.md)")
+
+
+def compute_disparity(left: torch.Tensor, right: torch.Tensor,
+                      valid_l: torch.Tensor, valid_r: torch.Tensor,
+                      cfg: StereoConfig = StereoConfig(),
+                      aggregation: str = "sgm",
+                      noise_ratio: torch.Tensor | None = None
+                      ) -> DisparityResult:
+    """Full two-direction matcher (``aggregation="sgm"``, the default
+    right view and cross-checker). ``noise_ratio`` is the scene's SNR
+    proxy (:func:`pcmi_tpu_torch.ops.normalize.snr_ratio`), derived from
+    ``left`` when not given."""
+    _check_supported(cfg, aggregation)
+    left = left.float()
+    right = right.float()
+    stride = cfg.disp_stride
+    d_min = cfg.min_disparity
+    p1, p2 = cfg.sgm_p1, cfg.sgm_p2
+
+    vol_l = build_cost_volume(left, right, valid_l, valid_r, cfg)
+    # left view: 4 directions -> (h + v) * 0.25 -> WTA + parabola + margin
+    horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
+    vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
+    disp_l, cost_l, margin = K.wta(horiz, vert, 0.25, d_min, stride,
+                                   subpixel=True, with_margin=True)
+    del horiz, vert
+    # right view: derive -> 2 horizontal directions -> integer argmin (the
+    # two-path mean's x0.5 is kept, so the best cost is the reference's)
+    vol_r = derive_right_volume(vol_l, d_min, fill=1.0, stride=stride)
+    del vol_l
+    horiz_r = K.sgm_pair(vol_r, p1, p2, horizontal=True)
+    del vol_r
+    disp_r, _, _ = K.wta(horiz_r, None, 0.5, d_min, stride, subpixel=False,
+                         with_margin=False)
+    del horiz_r
+
+    ok = lr_consistency(disp_l, disp_r, cfg.lr_threshold_eff, d_min=d_min,
+                        d_max=d_min + cfg.max_disp - 1, stride=stride)
+
+    check = None
+    if cfg.band_recover:
+        # small-window, no-SGM cross-matcher; its inputs blend toward a
+        # sigma=1 Gaussian smooth as the scene's noise ratio rises
+        cl, cr = left, right
+        if cfg.noise_adapt > 0:
+            from pcmi_tpu_torch.ops.filters import gaussian_filter
+            from pcmi_tpu_torch.ops.normalize import snr_ratio
+
+            if noise_ratio is None:
+                noise_ratio = snr_ratio(left, valid_l)
+            t = cfg.noise_adapt * torch.clamp((noise_ratio - 0.5) / 0.5,
+                                              0.0, 1.0)
+            cl = (1.0 - t) * left + t * gaussian_filter(left, sigma=1.0)
+            cr = (1.0 - t) * right + t * gaussian_filter(right, sigma=1.0)
+        cfg_s = dataclasses.replace(cfg, block_size=cfg.band_check_block,
+                                    census_window=cfg.band_check_census)
+        vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
+        check, _ = wta_disparity(vol_s, d_min, stride=stride)
+
+    return DisparityResult(disparity=disp_l, valid=ok & valid_l, cost=cost_l,
+                           disparity_right=disp_r, margin=margin,
+                           check_disparity=check)
+
+
+def refine_disparity(result: DisparityResult, guide: torch.Tensor,
+                     cfg: StereoConfig = StereoConfig()) -> DisparityResult:
+    """Edge-aware refinement: fill L/R-inconsistent pixels from confident
+    neighbours (masked guided filter), re-smooth ``wls_passes - 1`` times,
+    then re-admit filled pixels that pass the relaxed L/R threshold."""
+    from pcmi_tpu_torch.ops.filters import guided_filter, masked_guided_filter
+
+    disp = result.disparity
+    valid = result.valid
+    filled = masked_guided_filter(guide, disp, valid, radius=cfg.gf_radius,
+                                  eps=cfg.gf_eps)
+    disp = torch.where(valid, disp, filled)
+    for _ in range(max(cfg.wls_passes - 1, 0)):
+        smoothed = guided_filter(guide, disp, radius=cfg.gf_radius,
+                                 eps=cfg.gf_eps)
+        disp = torch.where(valid, disp, smoothed)
+    readmit = lr_consistency(
+        disp, result.disparity_right, cfg.lr_threshold_final_eff,
+        d_min=cfg.min_disparity, d_max=cfg.min_disparity + cfg.max_disp - 1,
+        stride=cfg.disp_stride)
+    return DisparityResult(
+        disparity=disp, valid=result.valid | readmit, cost=result.cost,
+        disparity_right=result.disparity_right, margin=result.margin,
+        check_disparity=result.check_disparity)

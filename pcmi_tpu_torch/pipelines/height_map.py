@@ -1,0 +1,253 @@
+"""Flagship pipeline: stereo pair -> disparity -> height map -> 3D points
+(port of ``pcmi_tpu/pipelines/height_map.py``).
+
+  RPCs --host float64--> affine rectification geometry (geometry.rectify)
+  images --device--> rectify warp -> robust normalise -> census/SGM
+                     disparity -> guided-filter refine -> photoconsistency
+                     -> blunder gates -> triangulate -> plane-relative heights
+
+:func:`pair_core` runs eagerly on the device of its inputs;
+:class:`HeightMapPipeline` takes that device as ``device=`` and moves the
+images there. Both gate profiles ("strict" and "lr") are ported; the banded
+and hierarchical matchers are not (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from pcmi_tpu_torch.config import PipelineConfig, StereoConfig
+from pcmi_tpu_torch.geometry.rectify import (
+    RectifiedGeometry, build_geometry_from_rpcs, rectify_arrays,
+    triangulate_from_operator, triangulation_operator)
+from pcmi_tpu_torch.ops.filters import gaussian_filter, separable_median_filter
+from pcmi_tpu_torch.ops.morphology import binary_dilation
+from pcmi_tpu_torch.ops.normalize import (
+    masked_median_grid, masked_quantile_grid, normalise_image, snr_ratio)
+from pcmi_tpu_torch.ops.pointcloud import fit_plane, plane_relative_height
+from pcmi_tpu_torch.ops.stereo.matching import (
+    compute_disparity, refine_disparity)
+
+
+class PairProduct(NamedTuple):
+    disparity: torch.Tensor   # (H, W) signed px, left-rectified frame
+    valid: torch.Tensor       # (H, W) bool
+    photo: torch.Tensor       # (H, W) photoconsistency in [0, 1] (0 = good)
+    xyz: torch.Tensor         # (H, W, 3) local-frame metres
+    height: torch.Tensor      # (H, W) absolute height z (NaN where invalid)
+    rel_height: torch.Tensor  # (H, W) plane-relative, ground-zeroed (m)
+    rect_left: torch.Tensor   # (H, W) normalised rectified left (-1 outside)
+    rect_right: torch.Tensor  # (H, W) normalised rectified right
+
+
+def required_max_disp(geoms: Sequence[RectifiedGeometry], h_range,
+                      margin_px: int = 16) -> int:
+    """Smallest /16 search width covering ``h_range`` for all geometries
+    (disparity is exactly ``disp_gain * (z - h_mid)``)."""
+    span = 0.0
+    for g in geoms:
+        half = max(abs(h_range[0] - g.h_mid), abs(h_range[1] - g.h_mid))
+        span = max(span, abs(g.disp_gain) * half)
+    total = 2 * (int(np.ceil(span)) + margin_px)
+    return ((total + 15) // 16) * 16
+
+
+def photoconsistency(left: torch.Tensor, right: torch.Tensor,
+                     disparity: torch.Tensor, d_min: int = -160,
+                     d_max: int = 160, stride: int = 1) -> torch.Tensor:
+    """``|right(y, x - d) - left(y, x)|`` with the right view linearly
+    interpolated on the ``stride``-px grid of shifts.
+
+    The reference sums triangle-weighted shifted copies of the right image
+    over every grid shift; a shift contributes only within ``stride`` of
+    ``d``, so this gathers the (at most three) neighbouring grid shifts and
+    adds their terms in the same ascending order: the same sum."""
+    h, w = left.shape
+    n_grid = len(range(d_min, d_max + stride, stride))
+    k_lo = torch.floor((disparity - d_min) / stride)
+    xs = torch.arange(w, dtype=torch.float32, device=left.device)
+    r = torch.zeros_like(left)
+    for dk in (-1, 0, 1):
+        k = k_lo + dk
+        s = d_min + k * stride
+        wgt = torch.clamp(1.0 - (disparity - s).abs() / stride, min=0.0)
+        src = xs - s
+        ok = (k >= 0) & (k < n_grid) & (src >= 0) & (src <= w - 1)
+        val = torch.gather(right, 1, torch.where(ok, src, 0.0).long())
+        r = r + torch.where(ok, wgt * val, torch.zeros_like(val))
+    x2 = xs - disparity
+    inb = (x2 >= 0) & (x2 <= w - 1) & (disparity >= d_min) & (disparity <= d_max)
+    return torch.where(inb, (r - left).abs(), torch.ones_like(left))
+
+
+def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
+              tri_b: torch.Tensor, cfg: StereoConfig,
+              ground_percentile: float = 2.0, cap_percentile: float = 98.0,
+              with_plane: bool = True) -> PairProduct:
+    """The per-pair compute core on the rectified canvas (see the
+    reference's ``pair_core`` for the gate design). The reference's
+    ``row0`` / ``pre_normalised`` serve its streaming band tiles, which are
+    not ported."""
+    if cfg.adapt_band_rows > 0 or cfg.hierarchical:
+        raise NotImplementedError("pair_core: the banded and hierarchical "
+                                  "matchers are not ported yet (ROADMAP.md)")
+    mask1 = rect1 >= 0
+    mask2 = rect2 >= 0
+    n1, _ = normalise_image(rect1, mask1, subsample=cfg.norm_subsample)
+    n2, _ = normalise_image(rect2, mask2, subsample=cfg.norm_subsample)
+    if cfg.presmooth_sigma > 0:
+        n1 = gaussian_filter(n1, sigma=cfg.presmooth_sigma)
+        n2 = gaussian_filter(n2, sigma=cfg.presmooth_sigma)
+
+    # shrink validity away from undefined borders
+    v1 = mask1 & ~binary_dilation(~mask1, iterations=cfg.margin_undefined)
+    v2 = mask2 & ~binary_dilation(~mask2, iterations=cfg.margin_undefined)
+
+    noise_ratio = None
+    if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
+        noise_ratio = snr_ratio(n1, mask1)
+
+    res0 = compute_disparity(n1, n2, v1, v2, cfg, aggregation="sgm",
+                             noise_ratio=noise_ratio)
+    res = refine_disparity(res0, n1, cfg)
+    photo = photoconsistency(n1, n2, res.disparity, d_min=cfg.min_disparity,
+                             d_max=cfg.min_disparity + cfg.max_disp - 1,
+                             stride=cfg.disp_stride)
+    if cfg.gate_profile == "lr":
+        return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
+                                 tri_b, with_plane, ground_percentile,
+                                 cap_percentile)
+
+    # blunder gates: speckle, discontinuity band, photoconsistency,
+    # uniqueness
+    med = separable_median_filter(res.disparity, cfg.speckle_median_size)
+    speckle_ok = (res.disparity - med).abs() <= cfg.speckle_threshold
+    gy, gx = torch.gradient(med)
+    edge = torch.hypot(gy, gx) > cfg.edge_grad_threshold
+    band = binary_dilation(edge, iterations=cfg.edge_dilation)
+    photo_thresh = torch.tensor(cfg.photo_threshold, dtype=torch.float32,
+                                device=photo.device)
+    if cfg.photo_adapt_factor > 0:
+        floor = masked_median_grid(photo, res.valid & v1, 0.0, 2.0)
+        photo_thresh = torch.maximum(photo_thresh,
+                                     cfg.photo_adapt_factor * floor)
+    photo_ok = photo < photo_thresh
+    unique_ok = res0.margin > cfg.min_margin
+    gated_valid = res.valid & speckle_ok & ~band & photo_ok & unique_ok
+
+    # band recovery: re-admit band pixels that pass independent checks
+    if cfg.band_recover and res0.check_disparity is not None:
+        agree_thr = torch.tensor(cfg.band_agree_threshold_eff,
+                                 dtype=torch.float32, device=photo.device)
+        band_margin = torch.tensor(cfg.band_margin_threshold,
+                                   dtype=torch.float32, device=photo.device)
+        if cfg.noise_adapt > 0 and noise_ratio is not None:
+            r01 = torch.clamp((noise_ratio - 0.5) / 0.5, 0.0, 1.0)
+            agree_thr = agree_thr + (cfg.noise_adapt * cfg.noise_agree_widen
+                                     * r01)
+            band_margin = band_margin + (
+                cfg.noise_adapt * cfg.noise_margin_ramp
+                * torch.clamp((noise_ratio - 0.8) / 0.2, 0.0, 1.0))
+        agree = (res.disparity - res0.check_disparity).abs() <= agree_thr
+        band_keep = (res0.valid & speckle_ok & photo_ok & band & agree
+                     & (res0.margin > band_margin)
+                     & (photo < cfg.band_photo_factor * photo_thresh))
+        if cfg.band_core_excl > 0:
+            band_keep = band_keep & ~binary_dilation(
+                edge, iterations=cfg.band_core_excl)
+        gated_valid = gated_valid | band_keep
+    res = res._replace(valid=gated_valid)
+    return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
+                             tri_b, with_plane, ground_percentile,
+                             cap_percentile)
+
+
+def _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M, tri_b,
+                      with_plane, ground_percentile, cap_percentile):
+    """Triangulation + plane-relative heights + product assembly."""
+    xyz = triangulate_from_operator(res.disparity, tri_M, tri_b)
+    valid = res.valid & v1
+    nan = torch.full_like(res.disparity, float("nan"))
+    height = torch.where(valid, xyz[..., 2], nan)
+    if with_plane:
+        plane = fit_plane(xyz, valid.float())
+        rel = plane_relative_height(xyz, plane)
+        inf = torch.tensor(float("inf"), device=rel.device)
+        rlo = torch.where(valid, rel, inf).amin()
+        rhi = torch.where(valid, rel, -inf).amax()
+        rlo = torch.where(torch.isfinite(rlo), rlo, torch.zeros_like(rlo))
+        rhi = torch.where(torch.isfinite(rhi), torch.maximum(rhi, rlo + 1e-6),
+                          torch.ones_like(rhi))
+        q0 = masked_quantile_grid(rel, valid, rlo, rhi,
+                                  ground_percentile / 100.0)
+        q1 = masked_quantile_grid(rel, valid, rlo, rhi,
+                                  cap_percentile / 100.0)
+        rel = torch.minimum(rel - q0, q1 - q0)
+        rel = torch.where(valid, rel, nan)
+    else:
+        rel = nan
+    return PairProduct(
+        disparity=res.disparity, valid=valid, photo=photo, xyz=xyz,
+        height=height, rel_height=rel,
+        rect_left=torch.where(mask1, n1, -1.0),
+        rect_right=torch.where(mask2, n2, -1.0))
+
+
+class HeightMapPipeline:
+    """Host orchestration: geometry on the host in float64, the per-pair
+    compute on ``device`` (``"cuda"`` runs the CUDA kernels, ``"cpu"``
+    their plain versions)."""
+
+    def __init__(self, cfg: PipelineConfig = PipelineConfig(),
+                 device: str | torch.device = "cpu"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    def build_geometry(self, rpc1, rpc2, lon_range, lat_range, shape1,
+                       shape2) -> RectifiedGeometry:
+        return build_geometry_from_rpcs(
+            rpc1, rpc2, lon_range, lat_range, self.cfg.rectify.height_range,
+            shape1, shape2, grid=self.cfg.rectify.probe_grid,
+            pad_multiple=self.cfg.tiling.pad_multiple)
+
+    def stereo_cfg_for(self, geoms: Sequence[RectifiedGeometry]) -> StereoConfig:
+        """Stereo config with the search range sized to the geometry and,
+        with ``cfg.metric_gates``, pixel gate thresholds derived from the
+        physical ones through the disparity gain (quantised to 5% log
+        steps, as in the reference, so nearby geometries share a config)."""
+        md = required_max_disp(geoms, self.cfg.rectify.height_range)
+        updates = dict(max_disp=md)
+        if self.cfg.metric_gates and geoms:
+            gain = max(abs(g.disp_gain) for g in geoms)
+
+            def _q(x: float) -> float:
+                return float(round(1.05 ** round(math.log(max(x, 1e-6))
+                                                 / math.log(1.05)), 4))
+
+            updates["speckle_threshold"] = _q(self.cfg.speckle_threshold_m * gain)
+            updates["edge_grad_threshold"] = _q(self.cfg.edge_step_m * gain)
+            updates["edge_dilation"] = self.cfg.stereo.block_size + 5
+        return dataclasses.replace(self.cfg.stereo, **updates)
+
+    def process_pair(self, img1, img2, geom: RectifiedGeometry,
+                     stereo_cfg: Optional[StereoConfig] = None,
+                     with_plane: bool = True) -> PairProduct:
+        """One stereo pair (images as arrays or tensors) -> pair product on
+        the pipeline's device."""
+        cfg = stereo_cfg or self.stereo_cfg_for([geom])
+        dev = self.device
+        img1 = torch.as_tensor(img1, dtype=torch.float32).to(dev)
+        img2 = torch.as_tensor(img2, dtype=torch.float32).to(dev)
+        H1 = torch.as_tensor(geom.H1, dtype=torch.float32)
+        H2 = torch.as_tensor(geom.H2, dtype=torch.float32)
+        r1, r2 = rectify_arrays(img1, img2, H1, H2, geom.out_shape)
+        M, b = triangulation_operator(geom)
+        return pair_core(r1, r2, M.to(dev), b.to(dev), cfg,
+                         ground_percentile=self.cfg.height_percentiles[0],
+                         cap_percentile=self.cfg.height_percentiles[1],
+                         with_plane=with_plane)

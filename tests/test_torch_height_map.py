@@ -1,0 +1,163 @@
+"""The slice as a whole: HeightMapPipeline.process_pair in pcmi_tpu_torch
+against pcmi_tpu on one scene, on the CPU.
+
+The scene is the reference's (seed 1, 128x128 images, 192x192 ground,
+heights 0-40 m, the bench headline's two views and StereoConfig), carried
+into the port through ``pcmi_tpu_torch.convert``: a 256x384 canvas at
+D = 80. Bounds were tightened to what this comparison measured (in the
+comments); the starting bounds were 99.9% mask agreement, 1e-3 px on 99.5%
+of commonly valid pixels and 0.01 m of RMSE.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pcmi_tpu.config import PipelineConfig, RectifyConfig, StereoConfig
+from pcmi_tpu.geometry.synthetic import aoi_lonlat_ranges, make_stereo_scene
+from pcmi_tpu.pipelines import height_map as jh
+from pcmi_tpu_torch import convert
+from pcmi_tpu_torch.geometry.synthetic import aoi_lonlat_ranges as port_aoi
+from pcmi_tpu_torch.pipelines import height_map as th
+
+torch.set_num_threads(1)
+
+CFG = PipelineConfig(
+    stereo=StereoConfig(block_size=9, census_window=5, margin_undefined=8),
+    rectify=RectifyConfig(height_range=(0.0, 40.0)))
+
+
+def _rmse(xyz, valid, height, terrain, origin, gsd):
+    """Height RMSE against the terrain under each point (bench.py's)."""
+    ox, oy = origin
+    gx = (xyz[..., 0] - ox) / gsd
+    gy = (xyz[..., 1] - oy) / gsd
+    inb = ((gx >= 0) & (gx < terrain.shape[1] - 1)
+           & (gy >= 0) & (gy < terrain.shape[0] - 1))
+    tt = terrain[np.clip(gy.astype(int), 0, terrain.shape[0] - 1),
+                 np.clip(gx.astype(int), 0, terrain.shape[1] - 1)]
+    m = valid & inb
+    return float(np.sqrt(np.mean((height[m] - tt[m]) ** 2)))
+
+
+@pytest.fixture(scope="module")
+def products():
+    scene = make_stereo_scene(seed=1, out_shape=(128, 128),
+                              ground_shape=(192, 192), h_range=(0.0, 40.0),
+                              views=((10.0, 80.0), (20.0, 250.0)))
+    jpipe = jh.HeightMapPipeline(CFG)
+    jgeom = jpipe.build_geometry(scene.rpcs[0], scene.rpcs[1],
+                                 *aoi_lonlat_ranges(scene),
+                                 scene.images[0].shape, scene.images[1].shape)
+    jprod = jpipe.process_pair(scene.images[0], scene.images[1], jgeom)
+    jprod = jh.PairProduct(*[np.asarray(v) for v in jprod])
+
+    port_scene = convert.scene_from_arrays(
+        [np.asarray(im) for im in scene.images], np.asarray(scene.terrain),
+        scene.ground_origin, scene.ground_gsd,
+        (float(scene.frame.lon0), float(scene.frame.lat0)),
+        [r._f64 for r in scene.rpcs], scene.h_range)
+    tpipe = th.HeightMapPipeline(CFG, device="cpu")
+    tgeom = tpipe.build_geometry(port_scene.rpcs[0], port_scene.rpcs[1],
+                                 *port_aoi(port_scene),
+                                 tuple(port_scene.images[0].shape),
+                                 tuple(port_scene.images[1].shape))
+    tprod = tpipe.process_pair(port_scene.images[0], port_scene.images[1],
+                               tgeom)
+    tprod = th.PairProduct(*[v.numpy() for v in tprod])
+    return dict(scene=scene, jgeom=jgeom, tgeom=tgeom, jprod=jprod,
+                tprod=tprod, jpipe=jpipe, tpipe=tpipe)
+
+
+def test_geometry_and_search_range(products):
+    jg, tg = products["jgeom"], products["tgeom"]
+    assert tg.out_shape == jg.out_shape == (256, 384)
+    np.testing.assert_allclose(tg.H1, jg.H1, atol=1e-9, rtol=0)
+    np.testing.assert_allclose(tg.H2, jg.H2, atol=1e-9, rtol=0)
+    jcfg = products["jpipe"].stereo_cfg_for([jg])
+    tcfg = products["tpipe"].stereo_cfg_for([tg])
+    assert tcfg == jcfg and tcfg.max_disp == 80
+    assert th.required_max_disp([tg], (0.0, 40.0)) == \
+        jh.required_max_disp([jg], (0.0, 40.0))
+
+
+def test_valid_masks_agree(products):
+    jv, tv = products["jprod"].valid, products["tprod"].valid
+    # measured: identical masks (1.0), 5.5% of the canvas valid
+    assert (jv == tv).mean() >= 0.9999
+    assert tv.mean() > 0.03
+
+
+def test_disparity_agrees(products):
+    jp, tp = products["jprod"], products["tprod"]
+    both = jp.valid & tp.valid
+    diff = np.abs(jp.disparity - tp.disparity)[both]
+    # measured: max 1.5e-5 px over commonly valid pixels
+    assert (diff <= 1e-4).mean() >= 0.9999
+    # every pixel, valid or not: measured max 1.8e-4 px
+    assert (np.abs(jp.disparity - tp.disparity) <= 1e-3).mean() >= 0.999
+
+
+def test_height_rmse_matches_reference(products):
+    scene = products["scene"]
+    terr = np.asarray(scene.terrain)
+    r = [_rmse(p.xyz, p.valid, p.height, terr, scene.ground_origin,
+               scene.ground_gsd)
+         for p in (products["jprod"], products["tprod"])]
+    # measured: 0.42446 m both, |difference| 3e-7 m
+    assert abs(r[0] - r[1]) <= 1e-4
+    assert r[1] <= 1.0
+
+
+@pytest.mark.parametrize("field,tol", [("photo", 1e-4), ("rel_height", 1e-3),
+                                       ("rect_left", 1e-4),
+                                       ("rect_right", 1e-4), ("xyz", 1e-3)])
+def test_product_fields_agree(products, field, tol):
+    a = getattr(products["jprod"], field)
+    b = getattr(products["tprod"], field)
+    assert (np.isfinite(a) == np.isfinite(b)).all()
+    fin = np.isfinite(a)
+    # measured: photo 2.3e-5, rel_height 2.8e-5, rect 2.3e-5
+    assert (np.abs(a - b)[fin] <= tol).mean() >= 0.9999
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_photoconsistency(rng, stride):
+    left = rng.uniform(0, 1, (16, 48)).astype(np.float32)
+    right = rng.uniform(0, 1, (16, 48)).astype(np.float32)
+    disp = rng.uniform(-12, 12, (16, 48)).astype(np.float32)
+    disp[0, :6] = [-20.0, 20.0, -8.0, 7.0, 4.0, 0.0]  # out of range, on grid
+    args = dict(d_min=-8, d_max=7, stride=stride)
+    ref = jh.photoconsistency(jnp.asarray(left), jnp.asarray(right),
+                              jnp.asarray(disp), **args)
+    got = th.photoconsistency(torch.from_numpy(left),
+                              torch.from_numpy(right),
+                              torch.from_numpy(disp), **args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+
+
+def test_pair_core_lr_profile(products):
+    """The multi-date "lr" gate profile on the same rectified pair."""
+    tg = products["tgeom"]
+    scene = products["scene"]
+    cfg = products["jpipe"].stereo_cfg_for([products["jgeom"]])
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, gate_profile="lr")
+    r1, r2 = jh._rectify_pair(
+        scene.images[0], scene.images[1],
+        jnp.asarray(tg.H1, jnp.float32), jnp.asarray(tg.H2, jnp.float32),
+        tg.out_shape)
+    M, b = jh.triangulation_operator(products["jgeom"])
+    ref = jh.pair_core(r1, r2, M, b, cfg, with_plane=False)
+    got = th.pair_core(torch.from_numpy(np.array(r1)),
+                       torch.from_numpy(np.array(r2)),
+                       torch.from_numpy(np.array(M)),
+                       torch.from_numpy(np.array(b)), cfg, with_plane=False)
+    jax.block_until_ready(ref.valid)
+    assert (got.valid.numpy() == np.asarray(ref.valid)).mean() >= 0.9999
+    assert got.valid.float().mean() > products["tprod"].valid.mean()
+    assert torch.isnan(got.rel_height).all()

@@ -1,0 +1,148 @@
+"""The port's image ops (pcmi_tpu_torch.ops) against pcmi_tpu on the CPU.
+
+Inputs are made with numpy from a seed and fed to both packages; each
+check states its tolerance. Float32 filters may round differently in the
+last bits (the reference's compiler may fuse multiply-adds), hence the
+1e-5/1e-6 bounds where the arithmetic is not exactly the same.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pcmi_tpu.ops import filters as jf
+from pcmi_tpu.ops import morphology as jmo
+from pcmi_tpu.ops import normalize as jn
+from pcmi_tpu.ops import pointcloud as jp
+from pcmi_tpu.ops import warp as jw
+from pcmi_tpu_torch.ops import filters as tf
+from pcmi_tpu_torch.ops import morphology as tmo
+from pcmi_tpu_torch.ops import normalize as tn
+from pcmi_tpu_torch.ops import pointcloud as tp
+from pcmi_tpu_torch.ops import warp as tw
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def _image(rng, shape=(40, 56)):
+    img = rng.uniform(0, 1, shape).astype(np.float32)
+    mask = rng.uniform(0, 1, shape) > 0.2
+    return img, mask
+
+
+def test_normalise_image_grid_path(rng):
+    img, mask = _image(rng)
+    img = img * 3.0 + 0.5
+    ref, _ = jn.normalise_image(jnp.asarray(img), jnp.asarray(mask),
+                                subsample=2)
+    got, _ = tn.normalise_image(_t(img), _t(mask), subsample=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("q,stages", [(0.5, 2), (0.02, 2), (0.98, 1)])
+def test_masked_quantile_grid(rng, q, stages):
+    x, mask = _image(rng)
+    x = x ** 2 * 5.0 - 1.0
+    args = (-1.0, 4.0, q)
+    ref = jn.masked_quantile_grid(jnp.asarray(x), jnp.asarray(mask), *args,
+                                  stages=stages)
+    got = tn.masked_quantile_grid(_t(x), _t(mask), *args, stages=stages)
+    np.testing.assert_allclose(float(got), float(ref), atol=1e-6, rtol=1e-6)
+    # the grid's counts are exact: empty and all-masked inputs agree too
+    none = np.zeros_like(mask)
+    np.testing.assert_allclose(
+        float(tn.masked_quantile_grid(_t(x), _t(none), *args)),
+        float(jn.masked_quantile_grid(jnp.asarray(x), jnp.asarray(none),
+                                      *args)), atol=1e-6)
+
+
+@pytest.mark.parametrize("geometric", [True, False])
+def test_masked_median_grid(rng, geometric):
+    x, mask = _image(rng)
+    x = x ** 3 * 2.0
+    ref = jn.masked_median_grid(jnp.asarray(x), jnp.asarray(mask), 0.0, 2.0,
+                                geometric=geometric)
+    got = tn.masked_median_grid(_t(x), _t(mask), 0.0, 2.0,
+                                geometric=geometric)
+    np.testing.assert_allclose(float(got), float(ref), atol=1e-6, rtol=1e-5)
+
+
+def test_snr_ratio(rng):
+    img, mask = _image(rng, (48, 64))
+    ref = jn.snr_ratio(jnp.asarray(img), jnp.asarray(mask))
+    got = tn.snr_ratio(_t(img), _t(mask))
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("iterations", [1, 3, 8])
+def test_binary_dilation_exact(rng, iterations):
+    mask = rng.uniform(0, 1, (40, 56)) > 0.97
+    ref = jmo.binary_dilation(jnp.asarray(mask), iterations=iterations)
+    got = tmo.binary_dilation(_t(mask), iterations=iterations)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("name", ["gaussian", "box", "guided", "masked_guided",
+                                  "median"])
+def test_filters(rng, name):
+    img, mask = _image(rng)
+    src = rng.normal(0, 3, img.shape).astype(np.float32)
+    j, t = jnp.asarray, _t
+    ref, got, tol = {
+        "gaussian": lambda: (jf.gaussian_filter(j(img), 2.0),
+                             tf.gaussian_filter(t(img), 2.0), 1e-6),
+        "box": lambda: (jf.box_filter(j(img), 4), tf.box_filter(t(img), 4),
+                        1e-6),
+        "guided": lambda: (jf.guided_filter(j(img), j(src), 4, 1e-3),
+                           tf.guided_filter(t(img), t(src), 4, 1e-3), 1e-4),
+        "masked_guided": lambda: (
+            jf.masked_guided_filter(j(img), j(src), j(mask), 4, 1e-3),
+            tf.masked_guided_filter(t(img), t(src), t(mask), 4, 1e-3), 1e-4),
+        # min/max network: the same element, exactly
+        "median": lambda: (jf.separable_median_filter(j(src), 13),
+                           tf.separable_median_filter(t(src), 13), 0.0),
+    }[name]()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol,
+                               rtol=0)
+
+
+def test_fit_plane_and_relative_height(rng):
+    h, w = 30, 40
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = 0.05 * xs - 0.02 * ys + 3.0 + rng.normal(0, 0.1, (h, w))
+    xyz = np.stack([xs, ys, z], -1).astype(np.float32)
+    wts = (rng.uniform(0, 1, (h, w)) > 0.3).astype(np.float32)
+    ref = jp.fit_plane(jnp.asarray(xyz), jnp.asarray(wts))
+    got = tp.fit_plane(_t(xyz), _t(wts))
+    np.testing.assert_allclose(got.normal.numpy(), np.asarray(ref.normal),
+                               atol=1e-5)
+    np.testing.assert_allclose(got.centroid.numpy(), np.asarray(ref.centroid),
+                               atol=1e-5)
+    assert got.normal[2] > 0
+    rel_ref = jp.plane_relative_height(jnp.asarray(xyz), ref)
+    rel = tp.plane_relative_height(_t(xyz), got)
+    np.testing.assert_allclose(rel.numpy(), np.asarray(rel_ref), atol=1e-4)
+
+
+def test_warps(rng):
+    img = rng.uniform(0, 1, (30, 40)).astype(np.float32)
+    ys = rng.uniform(-2, 32, (17, 23)).astype(np.float32)
+    xs = rng.uniform(-2, 42, (17, 23)).astype(np.float32)
+    np.testing.assert_allclose(
+        tw.map_coordinates(_t(img), _t(ys), _t(xs), -1.0).numpy(),
+        np.asarray(jw.map_coordinates(jnp.asarray(img), jnp.asarray(ys),
+                                      jnp.asarray(xs), -1.0)), atol=1e-6)
+    H = np.array([[0.9, 0.1, 2.5], [-0.15, 1.05, -1.25]], np.float32)
+    inv_ref = np.asarray(jw.invert_affine(jnp.asarray(H)))
+    inv = tw.invert_affine(_t(H))
+    np.testing.assert_allclose(inv.numpy(), inv_ref, atol=1e-6)
+    np.testing.assert_allclose(
+        tw.affine_warp(_t(img), inv, (36, 44), fill=-1.0).numpy(),
+        np.asarray(jw.affine_warp(jnp.asarray(img), jnp.asarray(inv_ref),
+                                  (36, 44), fill=-1.0)), atol=1e-5)

@@ -1,0 +1,78 @@
+"""The port's package boundary and kernel plumbing (no card needed)."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pcmi_tpu_torch.ops.stereo import _build
+from pcmi_tpu_torch.ops.stereo import kernels as K
+
+torch.set_num_threads(1)
+
+PKG = Path(__file__).resolve().parents[1] / "pcmi_tpu_torch"
+MODULES = [
+    "pcmi_tpu_torch", "pcmi_tpu_torch.config", "pcmi_tpu_torch.convert",
+    "pcmi_tpu_torch.pipelines.height_map",
+    "pcmi_tpu_torch.ops.stereo.matching", "pcmi_tpu_torch.ops.stereo._build",
+    "pcmi_tpu_torch.geometry.synthetic",
+]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "assert 'jax' not in sys.modules, 'jax imported'\n"
+            + "assert not any(m.startswith('pcmi_tpu.') and m not in "
+              "('pcmi_tpu.config', 'pcmi_tpu.interface') for m in sys.modules)"
+              ", sorted(m for m in sys.modules if m.startswith('pcmi_tpu.'))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=PKG.parent, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_file_imports_jax():
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")), \
+                f"{path}: {s}"
+
+
+def test_nvcc_command_names_sm90a_and_every_source():
+    srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+    assert srcs == ["derive_right.cu", "sgm_dir.cu", "wta.cu"]
+    cmd = _build.nvcc_command(_build.library_path(), "nvcc")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
+    assert sorted(Path(c).name for c in cmd if c.endswith(".cu")) == srcs
+    lib = _build.library_path()
+    assert lib.parent == PKG.parent / "build" / "pcmi_tpu_torch"
+    assert lib.name.startswith("libpcmi_kernels_") and lib.suffix == ".so"
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero():
+    K.reset_launches()
+    vol = torch.rand(6, 5, 7, generator=torch.Generator().manual_seed(0))
+    h = K.sgm_pair(vol, 0.03, 0.48, horizontal=True)
+    v = K.sgm_pair(vol, 0.03, 0.48, horizontal=False)
+    K.wta(h, v, 0.25, -3, 1, True, True)
+    K.wta(vol, None, 1.0, -3, 1, False, False)
+    K.derive_right(vol, -3, 1.0, 1)
+    assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA card raises, and mixed devices raise."""
+    meta = torch.empty(4, 3, 5, device="meta")
+    with pytest.raises(ValueError):
+        K.sgm_dir(meta, 0.03, 0.48, True, False)
+    with pytest.raises(ValueError):
+        K.wta(meta, None, 1.0, -2)
+    with pytest.raises(ValueError):
+        K.derive_right(meta, -2)
+    with pytest.raises(ValueError):
+        K.wta(torch.zeros(4, 3, 5), meta, 1.0, -2)
