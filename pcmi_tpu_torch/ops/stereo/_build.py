@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``pcmi_tpu_torch/csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, bound with :mod:`ctypes`. The
-build runs at first use, from the sources in the checkout only, into
-``build/pcmi_tpu_torch/`` beside the package; the file name carries a hash
-of the sources and flags, so an edited source rebuilds and an unchanged
-one loads the library already there.
+Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects are linked into one shared library with
+a plain C interface, bound with :mod:`ctypes`. The build runs at first use,
+from the sources in the checkout only, into ``build/pcmi_tpu_torch/``
+beside the package; the file name carries a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one loads the library
+already there.
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions compute them; there is no ``--use_fast_math``.
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "pcmi_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: ctypes.CDLL | None = None
@@ -62,8 +63,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpcmi_kernels_{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(out: Path, nvcc: str = "nvcc"):
+    """One compile command per source (each writes ``<out>.<name>.o``) and
+    the link command that joins the objects into ``out``."""
+    objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+    return compiles, link
 
 
 def build() -> Path:
@@ -76,14 +83,25 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp, find_nvcc())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    compiles, link = nvcc_commands(tmp, find_nvcc())
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    outs = [p.communicate()[0] for p in procs]
+    log, failed = [], False
+    for cmd, p, out in zip(compiles, procs, outs):
+        log.append(" ".join(cmd) + "\n" + out)
+        failed |= p.returncode != 0
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
+    for cmd in compiles:
+        Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(log))
     os.replace(tmp, lib)
     return lib
 
@@ -103,5 +121,15 @@ def load() -> ctypes.CDLL:
     lib.pcmi_wta.restype = i
     lib.pcmi_derive_right.argtypes = [p, p, i, i, i, i, i, f, p]
     lib.pcmi_derive_right.restype = i
+    lib.pcmi_sgm_hwd.argtypes = [p, p, i, i, i, i, i, i, f, f, p]
+    lib.pcmi_sgm_hwd.restype = i
+    lib.pcmi_sgm_hwd_max_disp.argtypes = []
+    lib.pcmi_sgm_hwd_max_disp.restype = i
+    lib.pcmi_sgm_blocked.argtypes = [p, p, p, i, i, i, f, f, i, p]
+    lib.pcmi_sgm_blocked.restype = i
+    lib.pcmi_sgm_blocked_max_disp.argtypes = []
+    lib.pcmi_sgm_blocked_max_disp.restype = i
+    lib.pcmi_derive_right_wdh.argtypes = [p, p, i, i, i, i, i, i, i, f, p]
+    lib.pcmi_derive_right_wdh.restype = i
     _LIB = lib
     return lib

@@ -1,29 +1,37 @@
-"""The matcher's three hand-written Hopper kernels, their plain versions and
+"""The matcher's hand-written Hopper kernels, their plain versions and
 their wrappers.
 
-=================  ==========================================================
-K1 ``sgm_dir``     one SGM direction; replaces ``_dir_call_sub`` /
-                   ``_make_dir_kernel_sub`` (``pcmi_tpu/ops/stereo/
-                   pallas_kernels.py``). Source ``csrc/sgm_dir.cu``.
-K2 ``wta``         combine + winner-takes-all; replaces
-                   ``sgm4_wta_fused_pallas`` / ``_make_wta3_kernel``,
-                   ``right_disparity_fused_pallas`` / ``_make_wta2_kernel``
-                   and ``wta_fused_pallas`` / ``_make_wta_kernel``. Source
-                   ``csrc/wta.cu``.
-K3 ``derive_right`` right-view volume; replaces ``derive_right_pallas`` /
-                   ``_make_derive_kernel``. Source ``csrc/derive_right.cu``.
-=================  ==========================================================
+* K1 ``sgm_dir``: one SGM direction over (D, H, W); replaces
+  ``_dir_call_sub`` / ``_make_dir_kernel_sub``
+  (``pcmi_tpu/ops/stereo/pallas_kernels.py``). Source ``csrc/sgm_dir.cu``.
+* K2 ``wta``: combine + winner-takes-all; replaces
+  ``sgm4_wta_fused_pallas`` / ``_make_wta3_kernel``,
+  ``right_disparity_fused_pallas`` / ``_make_wta2_kernel`` and
+  ``wta_fused_pallas`` / ``_make_wta_kernel``. Source ``csrc/wta.cu``.
+* K3 ``derive_right``: right-view volume; replaces ``derive_right_pallas``
+  / ``_make_derive_kernel``. Source ``csrc/derive_right.cu``.
+* K4 ``sgm_hwd``: one SGM direction over (H, W, D); replaces ``_dir_call``
+  / ``_make_dir_kernel``. Source ``csrc/sgm_hwd.cu``.
+* K5 ``sgm_blocked``: one SGM direction over a blocked (nb, S, Dp, 128)
+  volume, optionally adding a second input; replaces ``_blocked_dir_sum``
+  / ``_make_blocked_kernel``. Source ``csrc/sgm_blocked.cu``.
+* K6 ``derive_right_wdh``: right-view volume in the padded (Wp, Dp, Hp)
+  layout; replaces ``derive_right_wdh_pallas`` /
+  ``_make_derive_wdh_kernel``. Source ``csrc/derive_right_wdh.cu``.
 
-Each wrapper takes float32, contiguous tensors. A tensor on the CPU goes
-through the kernel's plain PyTorch version; a CUDA tensor launches the
-kernel on the current stream, or raises (wrong dtype, shape, layout, a
-failed build or a refused launch). There is no fallback from the card to
-the plain version. :data:`LAUNCHES` counts kernel launches per kernel; only
-a launch adds to it.
+Each wrapper takes float32, contiguous tensors, on any device, and raises
+(``TypeError`` for another dtype, ``ValueError`` for a wrong shape or
+layout) before it runs anything. A tensor on the CPU then goes through the
+kernel's plain PyTorch version; a CUDA tensor launches the kernel on the
+current stream, or raises (a failed build or a refused launch). There is
+no fallback from the card to the plain version. :data:`LAUNCHES` counts
+kernel launches per kernel; only a launch adds to it.
 
 Volumes are float32 on every device: ``StereoConfig.cost_dtype`` and
 ``sgm_backend`` select TPU paths and are not read here. Each source file
 notes what bounds its kernel on the card and what its design does about it.
+K1-K3 run on the matcher's main path; K4-K6 behind the alternative-layout
+entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import torch
 
 BIG = 1e9  # the reference's "no neighbour" / "never wins" value
 
-LAUNCHES = {"sgm_dir": 0, "wta": 0, "derive_right": 0}
+LAUNCHES = {"sgm_dir": 0, "wta": 0, "derive_right": 0, "sgm_hwd": 0,
+            "sgm_blocked": 0, "derive_right_wdh": 0}
 
 
 def reset_launches() -> None:
@@ -41,22 +50,21 @@ def reset_launches() -> None:
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor | None) -> bool:
-    """True for CUDA tensors (after checking them), False for CPU ones."""
+    """True for CUDA tensors, False for CPU ones, after checking that all
+    lie on one device and are float32 and contiguous."""
     ts = [t for t in tensors if t is not None]
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     for t in ts:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    return True
+    return dev.type == "cuda"
 
 
 def _check(name: str, rc: int) -> None:
@@ -73,27 +81,26 @@ def _stream() -> int:
 # ---------------------------------------------------------------------------
 
 
-def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
-                  reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
-    """One SGM direction over a (D, H, W) volume (``matching._sgm_scan``).
-
-    ``horizontal`` scans along W (state (D, H)), else along H (state
-    (D, W)); ``reverse`` scans from the far end. With ``out`` given the
-    direction is added into it (in place), else a new volume is returned.
-    The output is preallocated and written step by step."""
-    axis = 2 if horizontal else 1
+def _scan_plain(cost: torch.Tensor, axis: int, d_axis: int, p1: float,
+                p2: float, reverse: bool,
+                out: torch.Tensor | None) -> torch.Tensor:
+    """One SGM direction along ``axis`` of ``cost`` (``matching._sgm_scan``);
+    ``d_axis`` is the disparity axis of a scan step's state. With ``out``
+    given the direction is added into it (in place), else a new volume is
+    returned. The output is preallocated and written step by step."""
     n = cost.shape[axis]
     acc = out is not None
     if out is None:
         out = torch.empty_like(cost)
     prev = torch.zeros_like(cost.select(axis, 0))
-    big = torch.full_like(prev[:1], BIG)
+    nd = prev.shape[d_axis]
+    big = torch.full_like(prev.narrow(d_axis, 0, 1), BIG)
     for t in range(n):
         s = n - 1 - t if reverse else t
         c = cost.select(axis, s)
-        m = prev.amin(0, keepdim=True)
-        up = torch.cat([big, prev[:-1]], 0)
-        dn = torch.cat([prev[1:], big], 0)
+        m = prev.amin(d_axis, keepdim=True)
+        up = torch.cat([big, prev.narrow(d_axis, 0, nd - 1)], d_axis)
+        dn = torch.cat([prev.narrow(d_axis, 1, nd - 1), big], d_axis)
         best = torch.minimum(torch.minimum(prev, m + p2),
                              torch.minimum(up + p1, dn + p1))
         prev = c + best - m
@@ -102,6 +109,16 @@ def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
         else:
             out.select(axis, s).copy_(prev)
     return out
+
+
+def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
+                  reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One SGM direction over a (D, H, W) volume (``matching._sgm_scan``).
+
+    ``horizontal`` scans along W (state (D, H)), else along H (state
+    (D, W)); ``reverse`` scans from the far end. With ``out`` given the
+    direction is added into it (in place), else a new volume is returned."""
+    return _scan_plain(cost, 2 if horizontal else 1, 0, p1, p2, reverse, out)
 
 
 def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
@@ -233,4 +250,139 @@ def derive_right(vol: torch.Tensor, d_min: int, fill: float = 1.0,
                                int(d_min), int(stride), float(fill), _stream())
     _check("derive_right", rc)
     LAUNCHES["derive_right"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4 sgm_hwd
+# ---------------------------------------------------------------------------
+
+
+def sgm_hwd_plain(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
+                  reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One SGM direction over an (H, W, D) volume: ``scan_axis`` 0 scans H
+    (state (W, D)), 1 scans W (state (H, D)). ``reverse`` and ``out`` as in
+    :func:`sgm_dir_plain`."""
+    return _scan_plain(cost, scan_axis, 1, p1, p2, reverse, out)
+
+
+def sgm_hwd(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
+            reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K4 wrapper: see :func:`sgm_hwd_plain` for the semantics."""
+    if cost.dim() != 3:
+        raise ValueError(f"sgm_hwd: expected (H, W, D), got {tuple(cost.shape)}")
+    if scan_axis not in (0, 1):
+        raise ValueError(f"sgm_hwd: scan_axis must be 0 or 1, got {scan_axis}")
+    if out is not None and out.shape != cost.shape:
+        raise ValueError("sgm_hwd: out must have the cost volume's shape")
+    if not _on_cuda("sgm_hwd", cost, out):
+        return sgm_hwd_plain(cost, p1, p2, scan_axis, reverse, out)
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    H, W, D = cost.shape
+    if D > lib.pcmi_sgm_hwd_max_disp():
+        raise ValueError(f"sgm_hwd: D={D} above the kernel's "
+                         f"{lib.pcmi_sgm_hwd_max_disp()}")
+    acc = out is not None
+    if out is None:
+        out = torch.empty_like(cost)
+    rc = lib.pcmi_sgm_hwd(cost.data_ptr(), out.data_ptr(), H, W, D,
+                          int(scan_axis), int(reverse), int(acc), float(p1),
+                          float(p2), _stream())
+    _check("sgm_hwd", rc)
+    LAUNCHES["sgm_hwd"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5 sgm_blocked
+# ---------------------------------------------------------------------------
+
+BAND = 128  # lanes per band of the blocked layout
+
+
+def sgm_blocked_plain(cost: torch.Tensor, p1: float, p2: float,
+                      reverse: bool,
+                      prev: torch.Tensor | None = None) -> torch.Tensor:
+    """One SGM direction over a blocked (nb, S, Dp, 128) volume, scanning S
+    (state (nb, Dp, 128)); with ``prev`` the output is that direction plus
+    ``prev`` (the reference's ``with_prev`` backward pass)."""
+    out = prev.clone() if prev is not None else None
+    return _scan_plain(cost, 1, 1, p1, p2, reverse, out)
+
+
+def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
+                prev: torch.Tensor | None = None) -> torch.Tensor:
+    """K5 wrapper: see :func:`sgm_blocked_plain` for the semantics."""
+    if cost.dim() != 4 or cost.shape[3] != BAND:
+        raise ValueError(f"sgm_blocked: expected (nb, S, Dp, {BAND}), got "
+                         f"{tuple(cost.shape)}")
+    if prev is not None and prev.shape != cost.shape:
+        raise ValueError("sgm_blocked: prev must have the cost volume's shape")
+    if not _on_cuda("sgm_blocked", cost, prev):
+        return sgm_blocked_plain(cost, p1, p2, reverse, prev)
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    nb, S, Dp, _ = cost.shape
+    if Dp > lib.pcmi_sgm_blocked_max_disp():
+        raise ValueError(f"sgm_blocked: Dp={Dp} above the kernel's "
+                         f"{lib.pcmi_sgm_blocked_max_disp()}")
+    if any(t.data_ptr() % 16 for t in (cost, prev) if t is not None):
+        raise ValueError("sgm_blocked: inputs must be 16-byte aligned")
+    out = torch.empty_like(cost)
+    rc = lib.pcmi_sgm_blocked(cost.data_ptr(),
+                              prev.data_ptr() if prev is not None else None,
+                              out.data_ptr(), nb, S, Dp, float(p1), float(p2),
+                              int(reverse), _stream())
+    _check("sgm_blocked", rc)
+    LAUNCHES["sgm_blocked"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6 derive_right_wdh
+# ---------------------------------------------------------------------------
+
+
+def derive_right_wdh_plain(vol: torch.Tensor, d_real: int, w: int, d_min: int,
+                           stride: int = 1, fill: float = 1.0) -> torch.Tensor:
+    """Right-view volume in the padded (Wp, Dp, Hp) layout:
+    ``out[x, d, y] = vol[x + d_min + d*stride, d, y]`` for ``x < w`` and
+    ``d < d_real``, ``fill`` where that column lies outside ``[0, w)``,
+    ``BIG`` for ``d >= d_real`` and 0 for ``x >= w`` (which wins)."""
+    wp, dp, hp = vol.shape
+    out = torch.zeros_like(vol)
+    out[:w, d_real:] = BIG
+    for d in range(d_real):
+        o = d_min + d * stride
+        out[:w, d] = fill
+        x0, x1 = max(0, -o), min(w, w - o)
+        if x1 > x0:
+            out[x0:x1, d] = vol[x0 + o:x1 + o, d]
+    return out
+
+
+def derive_right_wdh(vol: torch.Tensor, d_real: int, w: int, d_min: int,
+                     stride: int = 1, fill: float = 1.0) -> torch.Tensor:
+    """K6 wrapper: see :func:`derive_right_wdh_plain` for the semantics."""
+    if vol.dim() != 3:
+        raise ValueError(f"derive_right_wdh: expected (Wp, Dp, Hp), got "
+                         f"{tuple(vol.shape)}")
+    wp, dp, hp = vol.shape
+    if not (1 <= d_real <= dp and 1 <= w <= wp):
+        raise ValueError(f"derive_right_wdh: d_real={d_real}, w={w} outside "
+                         f"the padded volume {tuple(vol.shape)}")
+    if not _on_cuda("derive_right_wdh", vol):
+        return derive_right_wdh_plain(vol, d_real, w, d_min, stride, fill)
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    out = torch.empty_like(vol)
+    rc = lib.pcmi_derive_right_wdh(vol.data_ptr(), out.data_ptr(), wp, dp, hp,
+                                   int(d_real), int(w), int(d_min),
+                                   int(stride), float(fill), _stream())
+    _check("derive_right_wdh", rc)
+    LAUNCHES["derive_right_wdh"] += 1
     return out

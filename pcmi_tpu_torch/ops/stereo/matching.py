@@ -1,15 +1,22 @@
 """Dense stereo matcher: census+AD cost, SGM, WTA, L/R check (port of
 ``pcmi_tpu/ops/stereo/matching.py``).
 
-:func:`compute_disparity` is written once, in the structure of the
-reference's TPU branch:
+:func:`compute_disparity` follows the reference's structure. The default
+(``aggregation="sgm"``, ``right_sgm="horizontal"``) runs its TPU branch:
 
 * left view: 4 SGM directions (K1 ``sgm_dir``; lr+rl and tb+bt each
   accumulated into one volume) -> combine ``(h + v) * 0.25`` + WTA with
   parabola and margin (K2 ``wta``);
 * right view: derive the right volume (K3 ``derive_right``) -> the 2
-  horizontal directions -> integer argmin (K2);
+  horizontal directions -> integer argmin (K2), in
+  :func:`pcmi_tpu_torch.ops.stereo.layouts.right_disparity_fused`;
 * the census cross-checker's WTA (K2).
+
+The variants follow the reference's other branch, on the same kernels:
+``right_sgm="derived"`` / ``"diagonal"`` (the materialised left aggregate,
+shifted into the right frame), ``"full"`` (4-path SGM on the right
+volume), ``right_subpixel``, ``aggregation="box"`` and the vertical
+cross-checker (``band_check_mode="vertical"``).
 
 Which device runs a step is decided only inside the kernel wrappers
 (:mod:`pcmi_tpu_torch.ops.stereo.kernels`): CUDA tensors launch the
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 
 from pcmi_tpu_torch.config import StereoConfig
 from pcmi_tpu_torch.ops.stereo import kernels as K
+from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
 
 
 class DisparityResult(NamedTuple):
@@ -41,9 +49,10 @@ class DisparityResult(NamedTuple):
     disparity_right: torch.Tensor  # (H, W) float32 right-image disparity
     # WTA uniqueness: (best cost outside +-1 px of the winner) - (best)
     margin: torch.Tensor | None = None
-    # independent cross-matcher estimate (band recovery); the reference's
-    # check_margin belongs to the vertical checker, which is not ported
+    # independent cross-matcher estimate (band recovery)
     check_disparity: torch.Tensor | None = None
+    # the vertical cross-checker's own WTA uniqueness margin
+    check_margin: torch.Tensor | None = None
 
 
 def _popcount24(x: torch.Tensor) -> torch.Tensor:
@@ -111,6 +120,13 @@ def _sliding_sum(padded: torch.Tensor, k: int, axis: int,
     return acc
 
 
+def _vertical_box(vol: torch.Tensor, k: int) -> torch.Tensor:
+    """Edge-padded mean over the H axis of a (D, H, W) volume: the
+    aggregation of the vertical-support cross-checker."""
+    padded = _edge_pad(vol, k // 2, -2)
+    return _sliding_sum(padded, k, 1, vol.shape[1]) / k
+
+
 def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
     """Edge-padded mean filter over the last two axes (rows, then
     columns)."""
@@ -169,9 +185,10 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
 def sgm_aggregate(vol: torch.Tensor, cfg: StereoConfig,
                   dirs: str = "4") -> torch.Tensor:
     """Semi-global aggregation of a (D, H, W) volume: the mean of the 4
-    paths, of the 2 horizontal ("h") or the 2 vertical ("v") ones. Off the
-    main path (which combines inside the WTA); kept as the volume-level
-    form of the reference's ``sgm_aggregate``."""
+    paths, of the 2 horizontal ("h") or the 2 vertical ("v") ones: the
+    volume-level form of the reference's ``sgm_aggregate``, which the
+    derived and diagonal right views materialise (the main path combines
+    inside the WTA)."""
     p1, p2 = cfg.sgm_p1, cfg.sgm_p2
     horiz = vert = None
     if dirs in ("4", "h"):
@@ -215,11 +232,10 @@ def derive_right_volume(vol: torch.Tensor, d_min: int, fill: float = 1.0,
 
 
 def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
+    if aggregation not in ("sgm", "box"):
+        raise ValueError(f"compute_disparity: unknown aggregation "
+                         f"{aggregation!r} (expected sgm/box)")
     unsupported = {
-        "aggregation": aggregation != "sgm",
-        "right_sgm": cfg.right_sgm != "horizontal",
-        "right_subpixel": cfg.right_subpixel,
-        "band_check_mode": cfg.band_check_mode != "census",
         "adapt_band_rows": cfg.adapt_band_rows > 0,
         "hierarchical": cfg.hierarchical,
     }
@@ -236,41 +252,65 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
                       aggregation: str = "sgm",
                       noise_ratio: torch.Tensor | None = None
                       ) -> DisparityResult:
-    """Full two-direction matcher (``aggregation="sgm"``, the default
-    right view and cross-checker). ``noise_ratio`` is the scene's SNR
-    proxy (:func:`pcmi_tpu_torch.ops.normalize.snr_ratio`), derived from
-    ``left`` when not given."""
+    """Full two-direction matcher. ``aggregation`` is ``"sgm"`` (4-path
+    semi-global smoothing before the WTA) or ``"box"`` (the box-aggregated
+    cost alone). ``noise_ratio`` is the scene's SNR proxy
+    (:func:`pcmi_tpu_torch.ops.normalize.snr_ratio`), derived from ``left``
+    when not given."""
     _check_supported(cfg, aggregation)
     left = left.float()
     right = right.float()
     stride = cfg.disp_stride
     d_min = cfg.min_disparity
     p1, p2 = cfg.sgm_p1, cfg.sgm_p2
+    # the diagonal right view is an integer argmin by construction
+    sub_r = cfg.right_subpixel and cfg.right_sgm != "diagonal"
 
     vol_l = build_cost_volume(left, right, valid_l, valid_r, cfg)
-    # left view: 4 directions -> (h + v) * 0.25 -> WTA + parabola + margin
-    horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
-    vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
-    disp_l, cost_l, margin = K.wta(horiz, vert, 0.25, d_min, stride,
-                                   subpixel=True, with_margin=True)
-    del horiz, vert
-    # right view: derive -> 2 horizontal directions -> integer argmin (the
-    # two-path mean's x0.5 is kept, so the best cost is the reference's)
-    vol_r = derive_right_volume(vol_l, d_min, fill=1.0, stride=stride)
-    del vol_l
-    horiz_r = K.sgm_pair(vol_r, p1, p2, horizontal=True)
-    del vol_r
-    disp_r, _, _ = K.wta(horiz_r, None, 0.5, d_min, stride, subpixel=False,
-                         with_margin=False)
-    del horiz_r
+    if aggregation == "box" or cfg.right_sgm in ("derived", "diagonal"):
+        # one volume for both views: the left one, shifted into the right
+        # frame (an SGM aggregate is filled above any aggregated cost, so
+        # padding never wins the right WTA)
+        if aggregation == "box":
+            agg_l, fill = vol_l, 1.0
+        else:
+            agg_l, fill = sgm_aggregate(vol_l, cfg), 1e4
+        del vol_l
+        disp_l, cost_l, margin = K.wta(agg_l, None, 1.0, d_min, stride)
+        agg_r = derive_right_volume(agg_l, d_min, fill=fill, stride=stride)
+        del agg_l
+        disp_r, _, _ = K.wta(agg_r, None, 1.0, d_min, stride,
+                             subpixel=sub_r, with_margin=False)
+        del agg_r
+    else:
+        # left view: 4 directions -> (h + v) * 0.25 -> WTA + parabola +
+        # margin
+        horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
+        vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
+        disp_l, cost_l, margin = K.wta(horiz, vert, 0.25, d_min, stride,
+                                       subpixel=True, with_margin=True)
+        del horiz, vert
+        if cfg.right_sgm == "full":
+            vol_r = derive_right_volume(vol_l, d_min, stride=stride)
+            del vol_l
+            horiz = K.sgm_pair(vol_r, p1, p2, horizontal=True)
+            vert = K.sgm_pair(vol_r, p1, p2, horizontal=False)
+            del vol_r
+            disp_r, _, _ = K.wta(horiz, vert, 0.25, d_min, stride,
+                                 subpixel=sub_r, with_margin=False)
+            del horiz, vert
+        else:
+            disp_r = right_disparity_fused(vol_l, p1, p2, d_min,
+                                           stride=stride, subpixel=sub_r)
+            del vol_l
 
     ok = lr_consistency(disp_l, disp_r, cfg.lr_threshold_eff, d_min=d_min,
                         d_max=d_min + cfg.max_disp - 1, stride=stride)
 
-    check = None
+    check = check_margin = None
     if cfg.band_recover:
-        # small-window, no-SGM cross-matcher; its inputs blend toward a
-        # sigma=1 Gaussian smooth as the scene's noise ratio rises
+        # independent cross-matcher; its inputs blend toward a sigma=1
+        # Gaussian smooth as the scene's noise ratio rises
         cl, cr = left, right
         if cfg.noise_adapt > 0:
             from pcmi_tpu_torch.ops.filters import gaussian_filter
@@ -282,14 +322,27 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
                                               0.0, 1.0)
             cl = (1.0 - t) * left + t * gaussian_filter(left, sigma=1.0)
             cr = (1.0 - t) * right + t * gaussian_filter(right, sigma=1.0)
-        cfg_s = dataclasses.replace(cfg, block_size=cfg.band_check_block,
-                                    census_window=cfg.band_check_census)
-        vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
-        check, _ = wta_disparity(vol_s, d_min, stride=stride)
+        if cfg.band_check_mode == "vertical":
+            # census 3, a vertical-only box and the 2 vertical SGM
+            # directions: ~1 px of horizontal fattening
+            cfg_s = dataclasses.replace(cfg, block_size=1,
+                                        census_window=cfg.band_check_census)
+            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
+            vol_s = _vertical_box(vol_s, cfg.band_check_vbox)
+            vert = K.sgm_pair(vol_s, p1, p2, horizontal=False)
+            del vol_s
+            check, _, check_margin = K.wta(vert, None, 0.5, d_min, stride)
+            del vert
+        else:
+            # small-window, no-SGM cross-matcher
+            cfg_s = dataclasses.replace(cfg, block_size=cfg.band_check_block,
+                                        census_window=cfg.band_check_census)
+            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
+            check, _ = wta_disparity(vol_s, d_min, stride=stride)
 
     return DisparityResult(disparity=disp_l, valid=ok & valid_l, cost=cost_l,
                            disparity_right=disp_r, margin=margin,
-                           check_disparity=check)
+                           check_disparity=check, check_margin=check_margin)
 
 
 def refine_disparity(result: DisparityResult, guide: torch.Tensor,

@@ -85,6 +85,24 @@ def photoconsistency(left: torch.Tensor, right: torch.Tensor,
     return torch.where(inb, (r - left).abs(), torch.ones_like(left))
 
 
+def matcher_inputs(rect1: torch.Tensor, rect2: torch.Tensor,
+                   cfg: StereoConfig):
+    """What :func:`pair_core` hands the matcher: both rectified images
+    normalised (and pre-smoothed), their validity masks shrunk away from
+    undefined borders, and the raw masks: ``(n1, n2, v1, v2, mask1,
+    mask2)``."""
+    mask1 = rect1 >= 0
+    mask2 = rect2 >= 0
+    n1, _ = normalise_image(rect1, mask1, subsample=cfg.norm_subsample)
+    n2, _ = normalise_image(rect2, mask2, subsample=cfg.norm_subsample)
+    if cfg.presmooth_sigma > 0:
+        n1 = gaussian_filter(n1, sigma=cfg.presmooth_sigma)
+        n2 = gaussian_filter(n2, sigma=cfg.presmooth_sigma)
+    v1 = mask1 & ~binary_dilation(~mask1, iterations=cfg.margin_undefined)
+    v2 = mask2 & ~binary_dilation(~mask2, iterations=cfg.margin_undefined)
+    return n1, n2, v1, v2, mask1, mask2
+
+
 def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
               tri_b: torch.Tensor, cfg: StereoConfig,
               ground_percentile: float = 2.0, cap_percentile: float = 98.0,
@@ -96,18 +114,7 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
     if cfg.adapt_band_rows > 0 or cfg.hierarchical:
         raise NotImplementedError("pair_core: the banded and hierarchical "
                                   "matchers are not ported yet (ROADMAP.md)")
-    mask1 = rect1 >= 0
-    mask2 = rect2 >= 0
-    n1, _ = normalise_image(rect1, mask1, subsample=cfg.norm_subsample)
-    n2, _ = normalise_image(rect2, mask2, subsample=cfg.norm_subsample)
-    if cfg.presmooth_sigma > 0:
-        n1 = gaussian_filter(n1, sigma=cfg.presmooth_sigma)
-        n2 = gaussian_filter(n2, sigma=cfg.presmooth_sigma)
-
-    # shrink validity away from undefined borders
-    v1 = mask1 & ~binary_dilation(~mask1, iterations=cfg.margin_undefined)
-    v2 = mask2 & ~binary_dilation(~mask2, iterations=cfg.margin_undefined)
-
+    n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg)
     noise_ratio = None
     if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
         noise_ratio = snr_ratio(n1, mask1)
@@ -157,6 +164,10 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
         band_keep = (res0.valid & speckle_ok & photo_ok & band & agree
                      & (res0.margin > band_margin)
                      & (photo < cfg.band_photo_factor * photo_thresh))
+        if res0.check_margin is not None and cfg.band_check_margin > 0:
+            # the vertical checker's own uniqueness margin
+            band_keep = band_keep & (res0.check_margin
+                                     > cfg.band_check_margin)
         if cfg.band_core_excl > 0:
             band_keep = band_keep & ~binary_dilation(
                 edge, iterations=cfg.band_core_excl)

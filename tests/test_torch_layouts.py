@@ -1,0 +1,124 @@
+"""The port's alternative-layout entry points (pcmi_tpu_torch.ops.stereo.
+layouts, kernels K4-K6) against pcmi_tpu on the CPU.
+
+Inputs are made with numpy from a seed and fed to both packages. Pallas
+kernels run in interpret mode, as tests/test_pallas_kernels.py runs them.
+On the CPU the port's kernel wrappers run their plain versions.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pcmi_tpu.config import StereoConfig
+from pcmi_tpu.ops.stereo import pallas_kernels as jpk
+from pcmi_tpu_torch.ops.stereo import kernels as K
+from pcmi_tpu_torch.ops.stereo import layouts as L
+from pcmi_tpu_torch.ops.stereo import matching as tm
+
+torch.set_num_threads(1)
+
+CFG = StereoConfig(max_disp=32)
+SHAPES = [(16, 24, 40), (20, 19, 33)]
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sgm_aggregate_hwd_matches_pallas(rng, shape):
+    """K4's entry point vs sgm_aggregate_pallas: <= 1e-4 asked; measured
+    bit-exact, also against the port's K1 sgm_aggregate."""
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    vol_hwd = np.ascontiguousarray(np.moveaxis(vol, 0, -1))
+    ref = np.asarray(jpk.sgm_aggregate_pallas(
+        jnp.asarray(vol_hwd), CFG.sgm_p1, CFG.sgm_p2, band=8, chunk=8))
+    got = L.sgm_aggregate_hwd(_t(vol_hwd), CFG.sgm_p1, CFG.sgm_p2).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+    np.testing.assert_array_equal(got, ref)
+    k1 = tm.sgm_aggregate(_t(vol), CFG).permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(got, k1)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sgm_aggregate_blocked_matches_pallas(rng, shape):
+    """K5's entry point vs sgm_aggregate_pallas_blocked(chunk=8): <= 1e-4
+    asked; measured bit-exact, also against the port's K1 sgm_aggregate."""
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    ref = np.asarray(jpk.sgm_aggregate_pallas_blocked(
+        jnp.asarray(vol), CFG.sgm_p1, CFG.sgm_p2, chunk=8))
+    got = L.sgm_aggregate_blocked(_t(vol), CFG.sgm_p1, CFG.sgm_p2,
+                                  chunk=8).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, tm.sgm_aggregate(_t(vol), CFG).numpy())
+
+
+@pytest.mark.parametrize("d_min,stride,fill", [(0, 1, 1.0), (-4, 2, 1.0),
+                                               (-12, 1, 1e4)])
+def test_derive_right_wdh_exact(rng, d_min, stride, fill):
+    """K6 on a padded (Wp, Dp, Hp) volume (Wp > w, Dp > d_real) vs
+    derive_right_wdh_pallas: bit-exact, padding rules included."""
+    d_real, w = 13, 37
+    vol_h = rng.uniform(0, 1, (48, 16, 20)).astype(np.float32)
+    ref = np.asarray(jpk.derive_right_wdh_pallas(
+        jnp.asarray(vol_h), d_real, w, d_min, stride=stride, fill=fill))
+    got = K.derive_right_wdh(_t(vol_h), d_real, w, d_min, stride, fill)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,stride,d_min", [((16, 24, 40), 1, 0),
+                                                ((16, 19, 33), 2, -4)])
+def test_right_disparity_fused_wdh_matches_pallas(rng, shape, stride, d_min):
+    """The (W, Dp, H)-derive right view vs right_disparity_fused_pallas(
+    use_wdh_derive=True) and vs the port's default chain: exact."""
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    args = (CFG.sgm_p1, CFG.sgm_p2, d_min)
+    ref = np.asarray(jpk.right_disparity_fused_pallas(
+        jnp.asarray(vol), *args, stride=stride, band=8, chunk=8,
+        use_wdh_derive=True))
+    got = L.right_disparity_fused(_t(vol), *args, stride=stride, band=8,
+                                  chunk=8, use_wdh_derive=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    default = L.right_disparity_fused(_t(vol), *args, stride=stride)
+    np.testing.assert_array_equal(got.numpy(), default.numpy())
+
+
+_BAD = {
+    "sgm_hwd dims": (ValueError, lambda: K.sgm_hwd(
+        torch.zeros(4, 5), 0.03, 0.48, 0, False)),
+    "sgm_hwd axis": (ValueError, lambda: K.sgm_hwd(
+        torch.zeros(4, 5, 6), 0.03, 0.48, 2, False)),
+    "sgm_hwd dtype": (TypeError, lambda: K.sgm_hwd(
+        torch.zeros(4, 5, 6, dtype=torch.float64), 0.03, 0.48, 0, False)),
+    "sgm_hwd layout": (ValueError, lambda: K.sgm_hwd(
+        torch.zeros(6, 5, 4).permute(2, 1, 0), 0.03, 0.48, 1, True)),
+    "sgm_blocked band": (ValueError, lambda: K.sgm_blocked(
+        torch.zeros(1, 4, 8, 64), 0.03, 0.48, False)),
+    "sgm_blocked prev": (ValueError, lambda: K.sgm_blocked(
+        torch.zeros(1, 4, 8, 128), 0.03, 0.48, True,
+        prev=torch.zeros(1, 4, 16, 128))),
+    "sgm_blocked dtype": (TypeError, lambda: K.sgm_blocked(
+        torch.zeros(1, 4, 8, 128, dtype=torch.float16), 0.03, 0.48, False)),
+    "wdh d_real": (ValueError, lambda: K.derive_right_wdh(
+        torch.zeros(8, 4, 6), 5, 8, 0)),
+    "wdh dtype": (TypeError, lambda: K.derive_right_wdh(
+        torch.zeros(8, 4, 6, dtype=torch.int32), 4, 8, 0)),
+    "blocked dims": (ValueError, lambda: L.sgm_aggregate_blocked(
+        torch.zeros(4, 5), 0.03, 0.48)),
+    "fused dims": (ValueError, lambda: L.right_disparity_fused(
+        torch.zeros(4, 5), 0.03, 0.48, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD))
+def test_wrappers_reject_bad_inputs_on_cpu(case):
+    """A wrong shape, layout or dtype raises before any plain version runs:
+    no silent conversion, no fallback."""
+    exc, call = _BAD[case]
+    K.reset_launches()
+    with pytest.raises(exc):
+        call()
+    assert not any(K.LAUNCHES.values())

@@ -17,6 +17,7 @@ MODULES = [
     "pcmi_tpu_torch", "pcmi_tpu_torch.config", "pcmi_tpu_torch.convert",
     "pcmi_tpu_torch.pipelines.height_map",
     "pcmi_tpu_torch.ops.stereo.matching", "pcmi_tpu_torch.ops.stereo._build",
+    "pcmi_tpu_torch.ops.stereo.layouts",
     "pcmi_tpu_torch.geometry.synthetic",
 ]
 
@@ -43,11 +44,18 @@ def test_no_file_imports_jax():
 
 def test_nvcc_command_names_sm90a_and_every_source():
     srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert srcs == ["derive_right.cu", "sgm_dir.cu", "wta.cu"]
-    cmd = _build.nvcc_command(_build.library_path(), "nvcc")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
-    assert sorted(Path(c).name for c in cmd if c.endswith(".cu")) == srcs
+    assert srcs == ["derive_right.cu", "derive_right_wdh.cu", "sgm_blocked.cu",
+                    "sgm_dir.cu", "sgm_hwd.cu", "wta.cu"]
+    compiles, link = _build.nvcc_commands(_build.library_path(), "nvcc")
+    for cmd in compiles:  # one nvcc per source, each for sm_90a
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd and "--use_fast_math" not in cmd
+        assert "-c" in cmd
+    assert sorted(Path(c).name for cmd in compiles for c in cmd
+                  if c.endswith(".cu")) == srcs
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and sorted(objs) == sorted(
+        c for c in link if c.endswith(".o"))
     lib = _build.library_path()
     assert lib.parent == PKG.parent / "build" / "pcmi_tpu_torch"
     assert lib.name.startswith("libpcmi_kernels_") and lib.suffix == ".so"
@@ -61,7 +69,14 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     K.wta(h, v, 0.25, -3, 1, True, True)
     K.wta(vol, None, 1.0, -3, 1, False, False)
     K.derive_right(vol, -3, 1.0, 1)
-    assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0}
+    hwd = vol.permute(1, 2, 0).contiguous()
+    K.sgm_hwd(hwd, 0.03, 0.48, 0, False, out=K.sgm_hwd(hwd, 0.03, 0.48, 1, True))
+    blocked = torch.rand(1, 5, 8, 128, generator=torch.Generator().manual_seed(1))
+    K.sgm_blocked(blocked, 0.03, 0.48, True, prev=blocked)
+    K.derive_right_wdh(hwd, 3, 4, -2, 1, 1.0)
+    assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0,
+                          "sgm_hwd": 0, "sgm_blocked": 0,
+                          "derive_right_wdh": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -74,5 +89,12 @@ def test_wrappers_refuse_other_devices():
         K.wta(meta, None, 1.0, -2)
     with pytest.raises(ValueError):
         K.derive_right(meta, -2)
+    with pytest.raises(ValueError):
+        K.sgm_hwd(meta, 0.03, 0.48, 0, False)
+    with pytest.raises(ValueError):
+        K.sgm_blocked(torch.empty(1, 4, 8, 128, device="meta"), 0.03, 0.48,
+                      False)
+    with pytest.raises(ValueError):
+        K.derive_right_wdh(meta, 2, 2, 0)
     with pytest.raises(ValueError):
         K.wta(torch.zeros(4, 3, 5), meta, 1.0, -2)

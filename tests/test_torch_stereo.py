@@ -190,9 +190,9 @@ def test_lr_consistency_exact(rng, stride):
     assert 0.05 < got.mean() < 0.95
 
 
-def test_compute_disparity_small_pair(rng):
-    """The whole matcher on a small textured pair (census checker on, noise
-    adaptation on): disparities, costs and masks against pcmi_tpu."""
+def _small_pair(rng):
+    """A small textured pair at disparity +4 with noise and a masked left
+    border, as numpy arrays."""
     from pcmi_tpu.ops.filters import gaussian_filter
 
     h, w = 48, 96
@@ -205,22 +205,37 @@ def test_compute_disparity_small_pair(rng):
     vl = np.ones((h, w), bool)
     vl[:, :3] = False
     vr = np.ones((h, w), bool)
-    cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
-                       cost_dtype="float32", sgm_backend="xla")
-    ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
-                               jnp.asarray(vl), jnp.asarray(vr), cfg)
-    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), cfg)
+    return left, right, vl, vr
+
+
+def _assert_results_agree(got, ref, right_tol=0.0):
     np.testing.assert_array_equal(_np(got.valid), np.asarray(ref.valid))
     for f in ("disparity", "check_disparity"):
         np.testing.assert_allclose(_np(getattr(got, f)),
                                    np.asarray(getattr(ref, f)), atol=1e-4,
                                    rtol=0, err_msg=f)
-    np.testing.assert_array_equal(_np(got.disparity_right),
-                                  np.asarray(ref.disparity_right))
-    for f in ("cost", "margin"):
+    np.testing.assert_allclose(_np(got.disparity_right),
+                               np.asarray(ref.disparity_right),
+                               atol=right_tol, rtol=0)
+    for f in ("cost", "margin", "check_margin"):
+        if getattr(ref, f) is None:
+            assert getattr(got, f) is None, f
+            continue
         np.testing.assert_allclose(_np(getattr(got, f)),
                                    np.asarray(getattr(ref, f)), atol=1e-5,
                                    rtol=0, err_msg=f)
+
+
+def test_compute_disparity_small_pair(rng):
+    """The whole matcher on a small textured pair (census checker on, noise
+    adaptation on): disparities, costs and masks against pcmi_tpu."""
+    left, right, vl, vr = _small_pair(rng)
+    cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                       cost_dtype="float32", sgm_backend="xla")
+    ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
+                               jnp.asarray(vl), jnp.asarray(vr), cfg)
+    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), cfg)
+    _assert_results_agree(got, ref)
     assert got.valid.float().mean() > 0.5
     refined = tm.refine_disparity(got, _t(left), cfg)
     ref_refined = jm.refine_disparity(ref, jnp.asarray(left), cfg)
@@ -231,10 +246,38 @@ def test_compute_disparity_small_pair(rng):
                                rtol=0)
 
 
+_VARIANTS = {
+    "derived": (dict(right_sgm="derived"), "sgm"),
+    "diagonal": (dict(right_sgm="diagonal"), "sgm"),
+    "full": (dict(right_sgm="full"), "sgm"),
+    "right_subpixel": (dict(right_subpixel=True), "sgm"),
+    "box": ({}, "box"),
+    "vertical": (dict(band_check_mode="vertical"), "sgm"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_compute_disparity_variants(rng, variant):
+    """Each ported matcher variant against pcmi_tpu's scan backend on the
+    small pair, with test_compute_disparity_small_pair's tolerances (the
+    right view's parabola within 1e-4 px)."""
+    kw, aggregation = _VARIANTS[variant]
+    left, right, vl, vr = _small_pair(rng)
+    cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                       cost_dtype="float32", sgm_backend="xla", **kw)
+    ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
+                               jnp.asarray(vl), jnp.asarray(vr), cfg,
+                               aggregation=aggregation)
+    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), cfg,
+                               aggregation=aggregation)
+    _assert_results_agree(got, ref,
+                          right_tol=1e-4 if cfg.right_subpixel else 0.0)
+    assert got.valid.float().mean() > 0.5
+
+
 def test_compute_disparity_rejects_unported_variants():
     z = torch.zeros(8, 8)
     v = torch.ones(8, 8, dtype=torch.bool)
-    for kw in (dict(right_sgm="full"), dict(band_check_mode="vertical"),
-               dict(hierarchical=True)):
+    for kw in (dict(hierarchical=True), dict(adapt_band_rows=64)):
         with pytest.raises(NotImplementedError):
-            tm.compute_disparity(z, z, v, v, StereoConfig(max_disp=16, **kw))
+            tm.compute_disparity(z, z, v, v, StereoConfig(max_disp=96, **kw))
