@@ -4,6 +4,8 @@ port reads them through this module, the one place where it depends on
 the reference package."""
 
 from pcmi_tpu.config import (  # noqa: F401
+    FusionConfig,
+    PairSelectionConfig,
     PipelineConfig,
     RectifyConfig,
     StereoConfig,

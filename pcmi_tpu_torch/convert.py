@@ -1,9 +1,10 @@
 """Carry state from ``pcmi_tpu`` objects into the port's.
 
-The caller turns the reference's objects into numpy arrays and plain
-dicts first (``np.asarray`` on arrays; an RPC camera's float64 tag dict);
-nothing here sees a JAX type, so the same scene can run through both
-packages.
+Nothing here imports JAX or ``pcmi_tpu``: arrays are read through
+``np.asarray`` (which a JAX array supports), records through their
+attributes, an RPC camera through its float64 tag dict. So a scene, a pair
+selection or a running DSM that the reference started can be carried
+over and finished by the port.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 
 from pcmi_tpu_torch.geometry.affine import LocalFrame
+from pcmi_tpu_torch.geometry.pairs import ImageMeta
 from pcmi_tpu_torch.geometry.rpc import RPCCamera
 from pcmi_tpu_torch.geometry.synthetic import SyntheticScene
+from pcmi_tpu_torch.pipelines.streaming import StreamingDSM
 
 
 def rpc_from_reference(d: dict) -> RPCCamera:
@@ -43,3 +46,21 @@ def scene_from_arrays(images, terrain, ground_origin, ground_gsd: float,
         ground_gsd=float(ground_gsd),
         ground_origin=tuple(float(v) for v in ground_origin),
         h_range=tuple(h_range))
+
+
+def metas_from_reference(metas) -> list[ImageMeta]:
+    """The port's :class:`ImageMeta` records from the reference's."""
+    return [ImageMeta(index=int(m.index),
+                      incidence_deg=float(m.incidence_deg),
+                      azimuth_deg=float(m.azimuth_deg), date=float(m.date),
+                      name=str(m.name))
+            for m in metas]
+
+
+def streaming_dsm_from_reference(acc, device="cpu") -> StreamingDSM:
+    """A reference ``StreamingDSM`` (running weight, value and square
+    sums) as the port's float32 tensors on ``device``, ready for the
+    port's ``dsm_update`` and ``dsm_finalize``."""
+    return StreamingDSM(*(
+        torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        for a in (acc.wsum, acc.vsum, acc.vsq)))

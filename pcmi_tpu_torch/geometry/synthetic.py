@@ -224,3 +224,38 @@ def aoi_lonlat_ranges(scene: SyntheticScene):
     lon, lat, _ = scene.frame.to_geodetic(xs, ys, 0.0)
     return ((float(lon.min()), float(lon.max())),
             (float(lat.min()), float(lat.max())))
+
+
+# Scene families: each stresses one failure mode of the dense matcher. All
+# share ``out_shape``, ``h_range`` and ``views``, so one stereo config
+# serves the whole sweep.
+SCENE_FAMILIES: dict = {
+    # default mix of relief + mid-rise buildings
+    "baseline": {},
+    # discontinuity-dense built-up core: tall buildings
+    "urban": dict(terrain_kwargs=dict(
+        n_buildings=40, terrain_fraction=0.25,
+        building_size_px=(14, 56), building_h_m=(8.0, 24.0))),
+    # steep smooth topography: high-gradient slopes, no steps
+    "steep": dict(terrain_kwargs=dict(
+        terrain_fraction=1.0, n_buildings=6, base_scales=(48, 96))),
+    # bland, low-contrast surfaces (fields / water margins)
+    "lowtex": dict(texture_kwargs=dict(
+        scales=(8, 32, 64), amps=(0.6, 1.0, 0.8), contrast=0.35)),
+    # cross-date radiometric mismatch: strong per-view gain/offset drift
+    "crossdate": dict(radiometric_jitter=0.45, noise_sigma=0.02),
+    # sensor noise at 4x the default
+    "noisy": dict(noise_sigma=0.04),
+}
+
+
+def make_family_scene(family: str, seed: int = 11, out_shape=(384, 384),
+                      ground_shape=(512, 512), h_range=(0.0, 40.0),
+                      views=((12.0, 90.0), (22.0, 260.0)),
+                      **overrides) -> SyntheticScene:
+    """Build one scene of a named family (see :data:`SCENE_FAMILIES`)."""
+    kw = dict(SCENE_FAMILIES[family])
+    kw.update(overrides)
+    return make_stereo_scene(seed=seed, out_shape=out_shape,
+                             ground_shape=ground_shape, h_range=h_range,
+                             views=views, **kw)

@@ -34,6 +34,11 @@ NVCC_FLAGS = (
 _LIB: ctypes.CDLL | None = None
 
 
+class KernelError(RuntimeError):
+    """The kernels could not be built or loaded, or a launch failed. Never
+    a fault of one input: callers that skip failed inputs let it through."""
+
+
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
@@ -50,7 +55,7 @@ def find_nvcc() -> str:
     for c in candidates:
         if c.is_file():
             return str(c)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found on PATH, under $CUDA_HOME/bin or /usr/local/cuda/bin:"
         " the CUDA toolkit is needed to build the pcmi_tpu_torch kernels")
 
@@ -101,7 +106,7 @@ def build() -> Path:
     lib.with_suffix(".log").write_text("\n".join(log))
     if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+        raise KernelError("nvcc failed:\n" + "\n".join(log))
     os.replace(tmp, lib)
     return lib
 
@@ -111,7 +116,10 @@ def load() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    lib = ctypes.CDLL(str(build()))
+    try:
+        lib = ctypes.CDLL(str(build()))
+    except OSError as exc:
+        raise KernelError(f"cannot load the kernel library: {exc}") from exc
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, p]
     lib.pcmi_sgm_dir.restype = i

@@ -23,12 +23,13 @@ Each wrapper takes float32, contiguous tensors, on any device, and raises
 (``TypeError`` for another dtype, ``ValueError`` for a wrong shape or
 layout) before it runs anything. A tensor on the CPU then goes through the
 kernel's plain PyTorch version; a CUDA tensor launches the kernel on the
-current stream, or raises (a failed build or a refused launch). There is
-no fallback from the card to the plain version. :data:`LAUNCHES` counts
-kernel launches per kernel; only a launch adds to it.
+current stream, or raises :class:`KernelError` (a failed build or a
+refused launch). There is no fallback from the card to the plain version.
+:data:`LAUNCHES` counts kernel launches per kernel; only a launch adds to
+it.
 
-Volumes are float32 on every device: ``StereoConfig.cost_dtype`` and
-``sgm_backend`` select TPU paths and are not read here. Each source file
+Volumes are float32 on every device (the matcher refuses
+``StereoConfig.cost_dtype="bfloat16"``). Each source file
 notes what bounds its kernel on the card and what its design does about it.
 K1-K3 run on the matcher's main path; K4-K6 behind the alternative-layout
 entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`.
@@ -37,6 +38,8 @@ entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`.
 from __future__ import annotations
 
 import torch
+
+from pcmi_tpu_torch.ops.stereo._build import KernelError
 
 BIG = 1e9  # the reference's "no neighbour" / "never wins" value
 
@@ -69,7 +72,7 @@ def _on_cuda(name: str, *tensors: torch.Tensor | None) -> bool:
 
 def _check(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed, cudaError_t {rc}")
+        raise KernelError(f"{name}: CUDA launch failed, cudaError_t {rc}")
 
 
 def _stream() -> int:

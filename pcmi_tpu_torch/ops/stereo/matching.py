@@ -21,9 +21,14 @@ cross-checker (``band_check_mode="vertical"``).
 Which device runs a step is decided only inside the kernel wrappers
 (:mod:`pcmi_tpu_torch.ops.stereo.kernels`): CUDA tensors launch the
 kernels, CPU tensors run their plain versions. Volumes are float32 on both
-devices; ``StereoConfig.sgm_backend`` and ``cost_dtype`` select TPU paths
-and are not read. The cost volume is plain PyTorch on every device, as the
-reference builds it outside any Pallas kernel.
+devices. ``StereoConfig.sgm_backend`` selects among the reference's TPU
+code paths and is not read. ``cost_dtype="bfloat16"`` raises
+``NotImplementedError``: the reference then stores the aggregated volume
+and runs the WTA in bfloat16 on every backend, which changes its
+disparities, and the kernels are float32-only (ROADMAP Queue 1 item 6);
+``"auto"`` and ``"float32"`` run in float32. The cost volume is plain
+PyTorch on every device, as the reference builds it outside any Pallas
+kernel.
 
 Where the reference scans a static disparity range to avoid gathers on its
 chip (L/R check), this port gathers: the result is the same element.
@@ -244,6 +249,11 @@ def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
         raise NotImplementedError(
             f"compute_disparity: {bad} select matcher variants that are not "
             f"ported yet (see ROADMAP.md)")
+    if cfg.cost_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_disparity: cost_dtype='bfloat16' (bfloat16 volumes and "
+            "WTA) is not ported; the kernels are float32-only (ROADMAP.md "
+            "Queue 1 item 6). Use 'auto' or 'float32'.")
 
 
 def compute_disparity(left: torch.Tensor, right: torch.Tensor,

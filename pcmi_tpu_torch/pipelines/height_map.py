@@ -8,15 +8,16 @@
 
 :func:`pair_core` runs eagerly on the device of its inputs;
 :class:`HeightMapPipeline` takes that device as ``device=`` and moves the
-images there. Both gate profiles ("strict" and "lr") are ported; the banded
-and hierarchical matchers are not (ROADMAP.md).
+images there. Both gate profiles ("strict" and "lr") are ported, and the
+row-band form the streaming pipeline uses (``row0``, ``pre_normalised``);
+the banded and hierarchical matchers are not (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +30,8 @@ from pcmi_tpu_torch.ops.filters import gaussian_filter, separable_median_filter
 from pcmi_tpu_torch.ops.morphology import binary_dilation
 from pcmi_tpu_torch.ops.normalize import (
     masked_median_grid, masked_quantile_grid, normalise_image, snr_ratio)
-from pcmi_tpu_torch.ops.pointcloud import fit_plane, plane_relative_height
+from pcmi_tpu_torch.ops.pointcloud import (
+    fit_plane, gumbel_noise, plane_relative_height)
 from pcmi_tpu_torch.ops.stereo.matching import (
     compute_disparity, refine_disparity)
 
@@ -86,15 +88,20 @@ def photoconsistency(left: torch.Tensor, right: torch.Tensor,
 
 
 def matcher_inputs(rect1: torch.Tensor, rect2: torch.Tensor,
-                   cfg: StereoConfig):
+                   cfg: StereoConfig, pre_normalised: bool = False):
     """What :func:`pair_core` hands the matcher: both rectified images
     normalised (and pre-smoothed), their validity masks shrunk away from
     undefined borders, and the raw masks: ``(n1, n2, v1, v2, mask1,
-    mask2)``."""
+    mask2)``. ``pre_normalised`` inputs already carry whole-canvas
+    normalisation (values in [0, 1], -1 outside) and are only clipped."""
     mask1 = rect1 >= 0
     mask2 = rect2 >= 0
-    n1, _ = normalise_image(rect1, mask1, subsample=cfg.norm_subsample)
-    n2, _ = normalise_image(rect2, mask2, subsample=cfg.norm_subsample)
+    if pre_normalised:
+        n1 = torch.clamp(rect1, 0.0, 1.0)
+        n2 = torch.clamp(rect2, 0.0, 1.0)
+    else:
+        n1, _ = normalise_image(rect1, mask1, subsample=cfg.norm_subsample)
+        n2, _ = normalise_image(rect2, mask2, subsample=cfg.norm_subsample)
     if cfg.presmooth_sigma > 0:
         n1 = gaussian_filter(n1, sigma=cfg.presmooth_sigma)
         n2 = gaussian_filter(n2, sigma=cfg.presmooth_sigma)
@@ -106,15 +113,22 @@ def matcher_inputs(rect1: torch.Tensor, rect2: torch.Tensor,
 def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
               tri_b: torch.Tensor, cfg: StereoConfig,
               ground_percentile: float = 2.0, cap_percentile: float = 98.0,
-              with_plane: bool = True) -> PairProduct:
+              with_plane: bool = True, row0: float = 0.0,
+              pre_normalised: bool = False) -> PairProduct:
     """The per-pair compute core on the rectified canvas (see the
-    reference's ``pair_core`` for the gate design). The reference's
-    ``row0`` / ``pre_normalised`` serve its streaming band tiles, which are
-    not ported."""
+    reference's ``pair_core`` for the gate design).
+
+    ``row0`` offsets the triangulation rows, so row-band tiles of one
+    canvas triangulate in the canvas frame. ``with_plane=False`` skips the
+    plane fit and ``rel_height`` (fusion reads only ``xyz`` and
+    ``valid``). ``pre_normalised=True`` takes inputs normalised over the
+    whole canvas (see :func:`matcher_inputs`); band tiles need it so
+    every band shares one radiometry."""
     if cfg.adapt_band_rows > 0 or cfg.hierarchical:
         raise NotImplementedError("pair_core: the banded and hierarchical "
                                   "matchers are not ported yet (ROADMAP.md)")
-    n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg)
+    n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg,
+                                                  pre_normalised)
     noise_ratio = None
     if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
         noise_ratio = snr_ratio(n1, mask1)
@@ -127,7 +141,7 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
                              stride=cfg.disp_stride)
     if cfg.gate_profile == "lr":
         return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
-                                 tri_b, with_plane, ground_percentile,
+                                 tri_b, row0, with_plane, ground_percentile,
                                  cap_percentile)
 
     # blunder gates: speckle, discontinuity band, photoconsistency,
@@ -174,14 +188,14 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
         gated_valid = gated_valid | band_keep
     res = res._replace(valid=gated_valid)
     return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
-                             tri_b, with_plane, ground_percentile,
+                             tri_b, row0, with_plane, ground_percentile,
                              cap_percentile)
 
 
 def _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M, tri_b,
-                      with_plane, ground_percentile, cap_percentile):
+                      row0, with_plane, ground_percentile, cap_percentile):
     """Triangulation + plane-relative heights + product assembly."""
-    xyz = triangulate_from_operator(res.disparity, tri_M, tri_b)
+    xyz = triangulate_from_operator(res.disparity, tri_M, tri_b, row0=row0)
     valid = res.valid & v1
     nan = torch.full_like(res.disparity, float("nan"))
     height = torch.where(valid, xyz[..., 2], nan)
@@ -246,10 +260,14 @@ class HeightMapPipeline:
         return dataclasses.replace(self.cfg.stereo, **updates)
 
     def process_pair(self, img1, img2, geom: RectifiedGeometry,
-                     stereo_cfg: Optional[StereoConfig] = None,
+                     stereo_cfg: Optional[StereoConfig] = None, cache=None,
                      with_plane: bool = True) -> PairProduct:
         """One stereo pair (images as arrays or tensors) -> pair product on
-        the pipeline's device."""
+        the pipeline's device.
+
+        ``cache`` (a :class:`pcmi_tpu_torch.utils.cache.StageCache`)
+        returns the stored product for identical rectified inputs and
+        config instead of recomputing it."""
         cfg = stereo_cfg or self.stereo_cfg_for([geom])
         dev = self.device
         img1 = torch.as_tensor(img1, dtype=torch.float32).to(dev)
@@ -258,7 +276,46 @@ class HeightMapPipeline:
         H2 = torch.as_tensor(geom.H2, dtype=torch.float32)
         r1, r2 = rectify_arrays(img1, img2, H1, H2, geom.out_shape)
         M, b = triangulation_operator(geom)
-        return pair_core(r1, r2, M.to(dev), b.to(dev), cfg,
-                         ground_percentile=self.cfg.height_percentiles[0],
-                         cap_percentile=self.cfg.height_percentiles[1],
-                         with_plane=with_plane)
+        M, b = M.to(dev), b.to(dev)
+        kwargs = dict(ground_percentile=self.cfg.height_percentiles[0],
+                      cap_percentile=self.cfg.height_percentiles[1],
+                      with_plane=with_plane)
+        if cache is None:
+            return pair_core(r1, r2, M, b, cfg, **kwargs)
+
+        def compute():
+            out = pair_core(r1, r2, M, b, cfg, **kwargs)
+            return {k: v.cpu().numpy() for k, v in out._asdict().items()}
+
+        got = cache.get_or_compute(
+            "pair_core", (repr(cfg), repr(sorted(kwargs.items())),
+                          *(t.cpu().numpy() for t in (r1, r2, M, b))),
+            compute)
+        return PairProduct(**{k: torch.from_numpy(v).to(dev)
+                              for k, v in got.items()})
+
+
+def _gumbel_top_k(product: PairProduct, max_points: int,
+                  noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``max_points`` pixels of largest ``log(w) + noise`` (all valid
+    pixels rank above all invalid ones, a uniform draw among each)."""
+    xyz = product.xyz.reshape(-1, 3)
+    w = product.valid.reshape(-1).float()
+    score = torch.log(torch.clamp(w, min=1e-12)) + noise
+    idx = torch.topk(score, max_points).indices
+    return xyz[idx], w[idx]
+
+
+def product_point_cloud(product: PairProduct, max_points: int = 1 << 18,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten a pair product into fixed-size (N, 3) points + 0/1 validity
+    weights. Invalid pixels stay with weight 0; when the canvas has more
+    pixels than ``max_points``, a weighted Gumbel top-k keeps a uniform
+    random subset of the valid ones, drawn from ``generator`` (on the
+    product's device)."""
+    n = product.valid.numel()
+    if n <= max_points:
+        return product.xyz.reshape(-1, 3), product.valid.reshape(-1).float()
+    noise = gumbel_noise(n, generator, product.xyz.device)
+    return _gumbel_top_k(product, max_points, noise)

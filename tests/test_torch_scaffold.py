@@ -19,7 +19,22 @@ MODULES = [
     "pcmi_tpu_torch.ops.stereo.matching", "pcmi_tpu_torch.ops.stereo._build",
     "pcmi_tpu_torch.ops.stereo.layouts",
     "pcmi_tpu_torch.geometry.synthetic",
+    # the fusion slice
+    "pcmi_tpu_torch.geometry.pairs", "pcmi_tpu_torch.ops.segmented",
+    "pcmi_tpu_torch.ops.pointcloud", "pcmi_tpu_torch.utils.cache",
+    "pcmi_tpu_torch.parallel.stereo_sharded",
+    "pcmi_tpu_torch.pipelines.streaming", "pcmi_tpu_torch.pipelines.multiday",
+    "pcmi_tpu_torch.pipelines.evaluation", "pcmi_tpu_torch.pipelines",
 ]
+
+
+def test_pipelines_exports():
+    import pcmi_tpu.pipelines as ref
+    import pcmi_tpu_torch.pipelines as port
+
+    for name in ("HeightMapPipeline", "MultiDayFusion",
+                 "StreamingAOIPipeline"):
+        assert hasattr(ref, name) and hasattr(port, name), name
 
 
 def test_import_leaves_jax_out():

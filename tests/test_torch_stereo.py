@@ -5,6 +5,8 @@ kernels run in interpret mode, as tests/test_pallas_kernels.py runs them.
 On the CPU the port's kernel wrappers run their plain versions.
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -273,6 +275,30 @@ def test_compute_disparity_variants(rng, variant):
     _assert_results_agree(got, ref,
                           right_tol=1e-4 if cfg.right_subpixel else 0.0)
     assert got.valid.float().mean() > 0.5
+
+
+def test_cost_dtype_bfloat16_refused(rng):
+    """The reference stores the aggregated volume and runs the WTA in
+    bfloat16 under cost_dtype="bfloat16" on every backend, which changes its
+    disparities on the small pair; the port's kernels are float32-only, so
+    it refuses that config. "float32" and "auto" run and equal the
+    reference's float32 result."""
+    left, right, vl, vr = _small_pair(rng)
+    args = [jnp.asarray(a) for a in (left, right, vl, vr)]
+    base = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                        sgm_backend="xla")
+    cfg = {d: dataclasses.replace(base, cost_dtype=d)
+           for d in ("float32", "bfloat16", "auto")}
+    r32 = jm.compute_disparity(*args, cfg["float32"])
+    r16 = jm.compute_disparity(*args, cfg["bfloat16"])
+    # measured: 43 pixels move by more than 0.01 px, the largest by 5.6 px
+    diff = np.abs(np.asarray(r32.disparity) - np.asarray(r16.disparity))
+    assert (diff > 0.01).sum() >= 10 and diff.max() > 1.0
+    targs = [_t(a) for a in (left, right, vl, vr)]
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tm.compute_disparity(*targs, cfg["bfloat16"])
+    for d in ("float32", "auto"):
+        _assert_results_agree(tm.compute_disparity(*targs, cfg[d]), r32)
 
 
 def test_compute_disparity_rejects_unported_variants():
