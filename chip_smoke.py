@@ -9,9 +9,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CUDA and nvcc versions;
 2. build: the six CUDA kernels from ``pcmi_tpu_torch/csrc`` (one nvcc per
    source, all started together, then one link);
-3. kernel parity: each kernel against its plain PyTorch version on seeded
+3. kernel parity: K1 ``sgm_dir`` (all four directions, forward and
+   accumulate) and K3 ``derive_right`` bit-exact against their plain
+   versions on small awkward volumes (``RAGGED``); then each kernel against
+   its plain PyTorch version on seeded
    inputs on the card at two volume shapes, (80, 896, 896) (the headline
-   pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2);
+   pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2),
+   each time beside its bound (``bound``: bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger) and, for K3, one
+   ``torch.gather`` computing the same volume (its ``library_ms``);
    K1 ``sgm_dir``, K3 ``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``
    and K6 ``derive_right_wdh`` must be bit-exact, K2 ``wta`` exact in its
    argmin indices, disparity within 1e-5 px, best cost and margin within
@@ -59,9 +65,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     completeness >= 0.4 on every seed (the reference's >= 0.5 is
     printed).
 
-The last lines are the card's name and power limit, a JSON object with
-each kernel's numbers and a summary of phases 8-10 (under 1500
-characters; each phase prints its full line above), then
+The last lines are a summary of phases 8-10 (under 1500 characters; each
+phase prints its full line above), a JSON object with each kernel's
+numbers (``{"kernels": [...]}``), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
 non-zero and prints no result.
 """
@@ -93,6 +99,24 @@ KERNELS = {  # name: (source, the TPU kernels it replaces)
                          f"{_PK}:829"),
 }
 NONE = dict.fromkeys(KERNELS, 0)
+# The card's published peaks (H100 SXM): HBM bytes/s and float32 operations/s
+# outside the tensor cores. A kernel's bound is the larger of its bytes
+# (each input read once, each output written once) and its operations over
+# these rates.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# per (D, H, W) volume: (volumes moved, planes moved, operations per
+# element); the SGMs are the mean of a forward launch (2 volumes) and an
+# accumulating one (3), K2 is the left view (2 inputs, 3 planes out)
+WORK = {
+    "sgm_dir": (2.5, 0, 8.5), "sgm_hwd": (2.5, 0, 8.5),
+    "sgm_blocked": (2.5, 0, 8.5), "wta": (2, 3, 6),
+    "derive_right": (2, 0, 0), "derive_right_wdh": (2, 0, 0),
+}
+# small awkward volumes for K1 and K3: partial tiles and ring tails, rows
+# that are not 16-byte aligned, a ragged last 128-wide chunk, D > 256
+RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
+          ((300, 21, 67), 1), ((9, 5, 1028), 2), ((5, 3, 4), 1))
 PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1}
 # the vertical cross-checker adds its 2 vertical directions
 PER_DENSE_PAIR = {**PER_PAIR, "sgm_dir": 8}
@@ -150,6 +174,29 @@ def _maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
+def bound(name: str, shape) -> tuple[float, str]:
+    """The least time in ms the card could take for one launch of kernel
+    ``name`` on a (D, H, W) volume, and what bounds it."""
+    D, H, W = shape
+    vols, planes, ops = WORK[name]
+    nbytes = (vols * D * H * W + planes * H * W) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * D * H * W / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gather_right(vol, d_min: int, stride: int):
+    """K3's yardstick: one ``torch.gather`` along W over a volume padded
+    with the fill value, its index built beforehand."""
+    D, H, W = vol.shape
+    pad = max(abs(d_min), abs(d_min + (D - 1) * stride)) + 1
+    volp = torch.nn.functional.pad(vol, (pad, pad), value=1.0)
+    shift = pad + d_min + stride * torch.arange(D, device=vol.device)
+    idx = (shift[:, None, None] + torch.arange(W, device=vol.device)
+           ).expand(D, H, W)
+    return lambda: torch.gather(volp, 2, idx)
+
+
 def phase_parity(shape, stride: int, seed: int) -> dict:
     """Each kernel against its plain version at one volume shape."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
@@ -179,8 +226,10 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     ms_h = _median_ms(lambda: sgm_k(vol, True), 3) / 2
     ms_v = _median_ms(lambda: sgm_k(vol, False), 3) / 2
     pms = _median_ms(lambda: (sgm_p(vol, True), sgm_p(vol, False)), 2) / 4
-    print(f"  sgm_dir per launch: horizontal {ms_h:.3f} ms, "
-          f"vertical {ms_v:.3f} ms")
+    b1 = bound("sgm_dir", shape)[0]
+    print(f"  sgm_dir per launch: horizontal {ms_h:.3f} ms "
+          f"({b1 / ms_h:.1%} of its {b1:.3f} ms bound), vertical "
+          f"{ms_v:.3f} ms ({b1 / ms_v:.1%})")
     del hp, vp
     res["sgm_dir"] = dict(max_abs_err=err, exact=exact, ms=(ms_h + ms_v) / 2,
                           plain_ms=pms)
@@ -219,16 +268,23 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
         lambda: K.wta_plain(h, v, 0.25, d_min, stride, True, True), 3)
     res["wta"] = dict(max_abs_err=werr, exact=wexact, ms=ms, plain_ms=pms)
 
-    # K3
+    # K3, and its yardstick: one torch.gather (the port never calls it)
     got = K.derive_right(vol, d_min, 1.0, stride)
     ref = K.derive_right_plain(vol, d_min, 1.0, stride)
+    gather = _gather_right(vol, d_min, stride)
     torch.cuda.synchronize()
     exact = torch.equal(got, ref)
+    err = _maxerr(got, ref)
+    print(f"  derive_right: torch.gather gives the same volume "
+          f"{torch.equal(gather(), ref)}")
+    del got, ref
     res["derive_right"] = dict(
-        max_abs_err=_maxerr(got, ref), exact=exact,
+        max_abs_err=err, exact=exact,
         ms=_median_ms(lambda: K.derive_right(vol, d_min, 1.0, stride), 5),
         plain_ms=_median_ms(
-            lambda: K.derive_right_plain(vol, d_min, 1.0, stride), 3))
+            lambda: K.derive_right_plain(vol, d_min, 1.0, stride), 3),
+        library_ms=_median_ms(gather, 5))
+    del gather
     ok &= exact
 
     # the K1 reference the alternative layouts are held against
@@ -238,12 +294,67 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     ok &= all(res[n]["exact"] for n in ("sgm_hwd", "sgm_blocked",
                                         "derive_right_wdh"))
     for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(name, shape)
+        r.setdefault("library_ms", None)
+        lib = (f"  library {r['library_ms']:.3f} ms" if r["library_ms"]
+               else "")
         print(f"parity {name} shape={tuple(shape)} stride={stride}: "
               f"max_abs_err={r['max_abs_err']:.3g} exact={r['exact']} "
-              f"kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
+              f"kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%}){lib}")
     if not ok:
         raise SystemExit(f"kernel parity failed at {shape}")
     return res
+
+
+def phase_ragged() -> None:
+    """K1 (all four directions, forward and accumulate) and K3 (shifts of
+    either sign, one past the row) bit-exact against their plain versions
+    on :data:`RAGGED`, and once more on a volume whose storage starts 4
+    bytes past an aligned address."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    if load().pcmi_sgm_dir_max_disp() != K.SGM_DIR_MAX_DISP:
+        raise SystemExit("sgm_dir: the wrapper's and the kernel's largest D "
+                         "differ")
+    p1, p2 = 0.03, 0.48
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(shape, stride, 0) for shape, stride in RAGGED]
+    cases.append(((4, 9, 64), 1, 1))
+    bad = []
+    for shape, stride, offset in cases:
+        D, H, W = shape
+        n = D * H * W
+        vol = torch.rand(n + offset, generator=gen, device="cuda")[
+            offset:].view(shape)
+        base = torch.rand(shape, generator=gen, device="cuda")
+        plans = set()
+        for horizontal, reverse in itertools.product((True, False),
+                                                     repeat=2):
+            for acc in (False, True):
+                plans.add(K.sgm_dir_plan(D, H if horizontal else W,
+                                         horizontal, acc))
+                out = base.clone() if acc else None
+                got = K.sgm_dir(vol, p1, p2, horizontal, reverse, out=out)
+                ref = K.sgm_dir_plain(vol, p1, p2, horizontal, reverse,
+                                      out=base.clone() if acc else None)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    bad.append(("sgm_dir", shape, horizontal, reverse, acc,
+                                _maxerr(got, ref)))
+        for d_min in (-(D * stride) // 2, 3, -D * stride - 2, W):
+            got = K.derive_right(vol, d_min, 0.5, stride)
+            ref = K.derive_right_plain(vol, d_min, 0.5, stride)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad.append(("derive_right", shape, d_min, _maxerr(got, ref)))
+        print(f"ragged {shape} stride={stride} offset={offset}: sgm_dir "
+              f"plans {sorted(tuple(p) for p in plans)}")
+    print(f"ragged: {len(cases)} volumes, mismatches {bad}")
+    if bad:
+        raise SystemExit(f"ragged parity failed: {bad}")
 
 
 def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
@@ -281,8 +392,10 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     del agg
     ms_agg = _median_ms(lambda: L.sgm_aggregate_hwd(hwd, p1, p2), 3)
     del hwd
-    print(f"  sgm_hwd per launch: horizontal {ms_h:.3f} ms, vertical "
-          f"{ms_v:.3f} ms; sgm_aggregate_hwd {ms_agg:.3f} ms, "
+    b4 = bound("sgm_hwd", vol.shape)[0]
+    print(f"  sgm_hwd per launch: horizontal {ms_h:.3f} ms "
+          f"({b4 / ms_h:.1%} of its {b4:.3f} ms bound), vertical "
+          f"{ms_v:.3f} ms ({b4 / ms_v:.1%}); sgm_aggregate_hwd {ms_agg:.3f} ms, "
           f"max |diff| to K1's sgm_aggregate {agg_err:.3g}")
     res["sgm_hwd"] = dict(max_abs_err=err, exact=exact and agg_err <= 1e-4,
                           ms=(ms_h + ms_v) / 2, plain_ms=pms)
@@ -907,6 +1020,7 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    phase_ragged()
     par = [phase_parity(shape, stride, seed=i)
            for i, (shape, stride) in enumerate(SHAPES)]
     head, ctx = phase_headline()
@@ -925,12 +1039,12 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][name],
             max_abs_err=max(p[name]["max_abs_err"] for p in par),
-            ms=r["ms"], plain_ms=r["plain_ms"]))
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
 
-    # the phases' own lines above carry every field and digit; this line
-    # stays under 1500 characters for readers of the output's tail
+    # the phases' own lines above carry every field and digit; these lines
+    # stay short for readers of the output's tail
     summary = {
-        "kernels": kernels,
         "fused_d288": {
             "rmse_m": fused["rmse_m"], "comp": fused["completeness"],
             "obs2": fused["completeness_obs2"],
@@ -947,10 +1061,13 @@ def main() -> int:
                          "worst_rmse_m": lowtex["worst_rmse_m"],
                          "worst_comp": lowtex["worst_completeness"]}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
-    if len(line) >= 1500:
-        raise SystemExit(f"summary line of {len(line)} characters")
-    print(smi)
+    kline = json.dumps({"kernels": _sig(kernels, 4)}, separators=(",", ":"))
+    if len(line) >= 1500 or len(kline) >= 2000:
+        raise SystemExit(f"summary lines of {len(line)} and {len(kline)} "
+                         f"characters")
     print(line)
+    print(kline)
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

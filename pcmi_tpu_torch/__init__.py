@@ -4,12 +4,13 @@ It mirrors ``pcmi_tpu``'s module paths. Plain tensor code is PyTorch,
 executed eagerly; the matcher's kernels are hand-written CUDA C++ for
 Hopper (``csrc/``, see :mod:`pcmi_tpu_torch.ops.stereo.kernels`). The
 device comes from the tensors passed in or from
-``HeightMapPipeline(cfg, device=...)``: nothing probes for a card, and a
-CUDA tensor never falls back to the CPU.
+``HeightMapPipeline(cfg, device=...)``, whose entry points default to
+``"cuda"``: the CPU runs only where a caller asks for it (as the tests do),
+nothing probes for a card, and a CUDA tensor never falls back to the CPU.
 
-Configuration objects are ``pcmi_tpu.config``'s dataclasses, reused as they
-are through :mod:`pcmi_tpu_torch.config` (that module imports no JAX);
-nothing else of ``pcmi_tpu`` is imported.
+Configuration objects are the port's own copy of the reference's
+dataclasses (:mod:`pcmi_tpu_torch.config`); nothing of ``pcmi_tpu`` is
+imported.
 
 Float32 products on the card run in full float32: TF32 is switched off for
 matrix products and for cuDNN convolutions, because triangulation and the

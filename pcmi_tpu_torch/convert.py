@@ -4,13 +4,18 @@ Nothing here imports JAX or ``pcmi_tpu``: arrays are read through
 ``np.asarray`` (which a JAX array supports), records through their
 attributes, an RPC camera through its float64 tag dict. So a scene, a pair
 selection or a running DSM that the reference started can be carried
-over and finished by the port.
+over and finished by the port. A reference config becomes the port's own
+through :func:`config_from_reference`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from pcmi_tpu_torch import config
 
 from pcmi_tpu_torch.geometry.affine import LocalFrame
 from pcmi_tpu_torch.geometry.pairs import ImageMeta
@@ -57,10 +62,23 @@ def metas_from_reference(metas) -> list[ImageMeta]:
             for m in metas]
 
 
-def streaming_dsm_from_reference(acc, device="cpu") -> StreamingDSM:
+def streaming_dsm_from_reference(acc, device="cuda") -> StreamingDSM:
     """A reference ``StreamingDSM`` (running weight, value and square
     sums) as the port's float32 tensors on ``device``, ready for the
     port's ``dsm_update`` and ``dsm_finalize``."""
     return StreamingDSM(*(
         torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
         for a in (acc.wsum, acc.vsum, acc.vsq)))
+
+
+def config_from_reference(cfg):
+    """The port's config equal to a reference config (``StereoConfig``,
+    ``PipelineConfig`` or any other class of :mod:`pcmi_tpu_torch.config`),
+    rebuilt field by field, nested configs included."""
+    cls = getattr(config, type(cfg).__name__, None)
+    if not (isinstance(cls, type) and dataclasses.is_dataclass(cls)):
+        raise TypeError(f"no port config class for {type(cfg).__name__}")
+    return cls(**{
+        f.name: (config_from_reference(v)
+                 if dataclasses.is_dataclass(v := getattr(cfg, f.name)) else v)
+        for f in dataclasses.fields(cfg)})

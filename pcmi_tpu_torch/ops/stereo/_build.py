@@ -121,7 +121,7 @@ def load() -> ctypes.CDLL:
     except OSError as exc:
         raise KernelError(f"cannot load the kernel library: {exc}") from exc
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, p]
+    lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, i, i, p]
     lib.pcmi_sgm_dir.restype = i
     lib.pcmi_sgm_dir_max_disp.argtypes = []
     lib.pcmi_sgm_dir_max_disp.restype = i

@@ -37,6 +37,8 @@ entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pcmi_tpu_torch.ops.stereo._build import KernelError
@@ -124,6 +126,47 @@ def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
     return _scan_plain(cost, 2 if horizontal else 1, 0, p1, p2, reverse, out)
 
 
+SGM_DIR_MAX_DISP = 512       # csrc/sgm_dir.cu: 16 disparities per lane
+SMEM_BLOCK_MAX = 232_448     # shared memory one block may use on sm_90
+
+
+class SgmDirPlan(NamedTuple):
+    """K1's launch plan: blocks of ``paths`` paths (one warp each; the
+    kernel adds warps that only copy, up to 8), tiles of ``tile`` scan
+    steps, ``smem`` bytes of shared memory per block."""
+    paths: int
+    tile: int
+    smem: int
+
+
+def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool) -> int:
+    """Shared memory of one K1 block (``smem_bytes`` in the source): a
+    ring of two tiles of ``D`` planes of ``paths * tile + 4`` floats, twice
+    that with ``accumulate`` (the tile of ``out`` beside the cost tile)."""
+    return 2 * D * (paths * tile + 4) * (2 if accumulate else 1) * 4
+
+
+def sgm_dir_plan(D: int, span: int, horizontal: bool,
+                 accumulate: bool) -> SgmDirPlan:
+    """K1's launch plan for ``span`` paths of ``D`` disparities.
+
+    Horizontal scans take blocks of 4 rows and the longest tile (32, 16,
+    ... steps: the run of x each (d, row) moves); vertical ones blocks of
+    16 columns where that still gives 64 blocks, else 8, and tiles of 8, 4,
+    2 or 1 rows; each the longest that fits."""
+    if not 1 <= D <= SGM_DIR_MAX_DISP:
+        raise ValueError(f"sgm_dir: D={D} outside [1, {SGM_DIR_MAX_DISP}]")
+    if horizontal:
+        paths, tiles = 4, (32, 16, 8, 4, 2, 1)
+    else:
+        paths, tiles = (16 if span >= 16 * 64 else 8), (8, 4, 2, 1)
+    for tile in tiles:
+        smem = sgm_dir_smem(D, paths, tile, accumulate)
+        if smem <= SMEM_BLOCK_MAX:
+            return SgmDirPlan(paths, tile, smem)
+    raise ValueError(f"sgm_dir: no launch plan fits D={D}")
+
+
 def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
             reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: see :func:`sgm_dir_plain` for the semantics."""
@@ -137,15 +180,14 @@ def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
 
     lib = load()
     D, H, W = cost.shape
-    if D > lib.pcmi_sgm_dir_max_disp():
-        raise ValueError(f"sgm_dir: D={D} above the kernel's "
-                         f"{lib.pcmi_sgm_dir_max_disp()}")
     acc = out is not None
+    plan = sgm_dir_plan(D, H if horizontal else W, horizontal, acc)
     if out is None:
         out = torch.empty_like(cost)
     rc = lib.pcmi_sgm_dir(cost.data_ptr(), out.data_ptr(), D, H, W,
                           int(horizontal), int(reverse), int(acc),
-                          float(p1), float(p2), _stream())
+                          float(p1), float(p2), plan.paths, plan.tile,
+                          _stream())
     _check("sgm_dir", rc)
     LAUNCHES["sgm_dir"] += 1
     return out

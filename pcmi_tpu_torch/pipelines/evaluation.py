@@ -81,7 +81,7 @@ def pair_observability(scene: SyntheticScene, pairs, cell: float,
 
 
 def evaluate_pair_accuracy(scene: SyntheticScene, cfg: PipelineConfig,
-                           view_idx=(0, 1), device="cpu") -> dict:
+                           view_idx=(0, 1), device="cuda") -> dict:
     """Run the flagship pair pipeline on one scene and score it: height
     RMSE / bias against the exact terrain, and completeness (valid pixels
     over the observable footprint, where both rectified views carry
@@ -112,7 +112,7 @@ def evaluate_pair_accuracy(scene: SyntheticScene, cfg: PipelineConfig,
 def evaluate_fused_dsm(scene: SyntheticScene, cfg: PipelineConfig, views,
                        n_pairs: int = 8, grid_cell: float = 1.0,
                        points_per_pair: int = 1 << 16,
-                       flat_grad_m: float = 2.0, device="cpu",
+                       flat_grad_m: float = 2.0, device="cuda",
                        with_kmeans: bool = False) -> dict:
     """Multi-date fusion accuracy through :class:`MultiDayFusion`:
 

@@ -229,7 +229,7 @@ class HeightMapPipeline:
     their plain versions)."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
 

@@ -117,7 +117,7 @@ class MultiDayFusion:
     time of each stage (the device synchronised at each stage's end)."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.pipeline = HeightMapPipeline(cfg, device=device)
         self.stage_ms: Dict[str, float] = {}
@@ -229,7 +229,7 @@ def fused_consistency_dsm(images: Sequence, rpcs: Sequence,
                           grid_shape: Tuple[int, int], cell: float,
                           n_pairs: int = 12, min_pairs: int = 5,
                           mad_max: float = 0.6,
-                          device: str | torch.device = "cpu"):
+                          device: str | torch.device = "cuda"):
     """Consistency-masked multi-date DSM: each pair's product gridded into
     its own accumulator (tile-local 3-sigma gate), fused by the cross-pair
     median with the MAD and redundancy gates

@@ -43,7 +43,7 @@ class StreamingDSM(NamedTuple):
     vsq: torch.Tensor     # (ny, nx) weighted squared sums
 
 
-def empty_dsm(shape: Tuple[int, int], device="cpu") -> StreamingDSM:
+def empty_dsm(shape: Tuple[int, int], device="cuda") -> StreamingDSM:
     return StreamingDSM(*(torch.zeros(shape, device=device)
                           for _ in range(3)))
 
@@ -124,7 +124,7 @@ class StreamingAOIPipeline:
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
                  band_rows: int = 256, halo: Optional[int] = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.pipeline = HeightMapPipeline(cfg, device=device)
         self.band_rows = band_rows

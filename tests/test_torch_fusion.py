@@ -486,7 +486,7 @@ def test_dsm_update_sums(robust_sigma):
     grid = dict(origin=(0.0, 0.0), cell=0.6, shape=(64, 64),
                 robust_sigma=robust_sigma)
     jacc = jst.StreamingDSM(*(jnp.zeros((64, 64)) for _ in range(3)))
-    tacc = tst.empty_dsm((64, 64))
+    tacc = tst.empty_dsm((64, 64), device="cpu")
     exact = [np.zeros((64, 64)) for _ in range(3)]
     for seed in (9, 10):
         xy, z, w = _bench_draw(seed)
@@ -559,7 +559,7 @@ def test_finished_by_port_equals_reference():
     jacc = jst.dsm_update(
         jst.StreamingDSM(*(jnp.zeros((64, 64)) for _ in range(3))),
         jnp.asarray(xy), jnp.asarray(z), jnp.asarray(w), **grid)
-    tacc = convert.streaming_dsm_from_reference(jacc)
+    tacc = convert.streaming_dsm_from_reference(jacc, device="cpu")
     for g, r in zip(tacc, jacc):
         np.testing.assert_array_equal(_np(g), np.asarray(r))
     jdsm, jcnt = jst.dsm_finalize(jacc)

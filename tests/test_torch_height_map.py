@@ -59,7 +59,8 @@ def products():
         scene.ground_origin, scene.ground_gsd,
         (float(scene.frame.lon0), float(scene.frame.lat0)),
         [r._f64 for r in scene.rpcs], scene.h_range)
-    tpipe = th.HeightMapPipeline(CFG, device="cpu")
+    tpipe = th.HeightMapPipeline(convert.config_from_reference(CFG),
+                                  device="cpu")
     tgeom = tpipe.build_geometry(port_scene.rpcs[0], port_scene.rpcs[1],
                                  *port_aoi(port_scene),
                                  tuple(port_scene.images[0].shape),
@@ -78,7 +79,8 @@ def test_geometry_and_search_range(products):
     np.testing.assert_allclose(tg.H2, jg.H2, atol=1e-9, rtol=0)
     jcfg = products["jpipe"].stereo_cfg_for([jg])
     tcfg = products["tpipe"].stereo_cfg_for([tg])
-    assert tcfg == jcfg and tcfg.max_disp == 80
+    assert tcfg == convert.config_from_reference(jcfg)
+    assert tcfg.max_disp == 80
     assert th.required_max_disp([tg], (0.0, 40.0)) == \
         jh.required_max_disp([jg], (0.0, 40.0))
 
@@ -156,7 +158,8 @@ def test_pair_core_lr_profile(products):
     got = th.pair_core(torch.from_numpy(np.array(r1)),
                        torch.from_numpy(np.array(r2)),
                        torch.from_numpy(np.array(M)),
-                       torch.from_numpy(np.array(b)), cfg, with_plane=False)
+                       torch.from_numpy(np.array(b)),
+                       convert.config_from_reference(cfg), with_plane=False)
     jax.block_until_ready(ref.valid)
     assert (got.valid.numpy() == np.asarray(ref.valid)).mean() >= 0.9999
     assert got.valid.float().mean() > products["tprod"].valid.mean()
@@ -185,7 +188,8 @@ def test_pair_core_vertical_checker(products, check_margin):
     got = th.pair_core(torch.from_numpy(np.array(r1)),
                        torch.from_numpy(np.array(r2)),
                        torch.from_numpy(np.array(M)),
-                       torch.from_numpy(np.array(b)), cfg, with_plane=False)
+                       torch.from_numpy(np.array(b)),
+                       convert.config_from_reference(cfg), with_plane=False)
     jax.block_until_ready(ref.valid)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     np.testing.assert_allclose(got.disparity.numpy(),

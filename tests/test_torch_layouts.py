@@ -13,6 +13,7 @@ import torch
 
 from pcmi_tpu.config import StereoConfig
 from pcmi_tpu.ops.stereo import pallas_kernels as jpk
+from pcmi_tpu_torch.convert import config_from_reference as _c
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo import layouts as L
 from pcmi_tpu_torch.ops.stereo import matching as tm
@@ -38,7 +39,7 @@ def test_sgm_aggregate_hwd_matches_pallas(rng, shape):
     got = L.sgm_aggregate_hwd(_t(vol_hwd), CFG.sgm_p1, CFG.sgm_p2).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
     np.testing.assert_array_equal(got, ref)
-    k1 = tm.sgm_aggregate(_t(vol), CFG).permute(1, 2, 0).numpy()
+    k1 = tm.sgm_aggregate(_t(vol), _c(CFG)).permute(1, 2, 0).numpy()
     np.testing.assert_array_equal(got, k1)
 
 
@@ -53,7 +54,7 @@ def test_sgm_aggregate_blocked_matches_pallas(rng, shape):
                                   chunk=8).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
     np.testing.assert_array_equal(got, ref)
-    np.testing.assert_array_equal(got, tm.sgm_aggregate(_t(vol), CFG).numpy())
+    np.testing.assert_array_equal(got, tm.sgm_aggregate(_t(vol), _c(CFG)).numpy())
 
 
 @pytest.mark.parametrize("d_min,stride,fill", [(0, 1, 1.0), (-4, 2, 1.0),

@@ -49,6 +49,7 @@ H_RANGE = (0.0, 40.0)
 CFG = PipelineConfig(
     stereo=StereoConfig(block_size=9, census_window=5, margin_undefined=8),
     rectify=RectifyConfig(height_range=H_RANGE))
+TCFG = convert.config_from_reference(CFG)  # the port's own copy
 
 
 def _port_scene(scene):
@@ -115,7 +116,8 @@ def _port_band(bands, k):
     y0, b1, b2 = bands["tiles"][k]
     return th.pair_core(torch.tensor(b1), torch.tensor(b2),
                         torch.tensor(bands["M"]),
-                        torch.tensor(bands["b"]), bands["cfg"],
+                        torch.tensor(bands["b"]),
+                        convert.config_from_reference(bands["cfg"]),
                         with_plane=False, row0=float(y0 - bands["halo"]),
                         pre_normalised=True)
 
@@ -123,7 +125,8 @@ def _port_band(bands, k):
 def test_default_halo_matches():
     for cfg in (CFG.stereo, dataclasses.replace(CFG.stereo, hierarchical=True),
                 StereoConfig(census_window=7, block_size=5, wls_passes=2)):
-        assert port_default_halo(cfg) == default_halo(cfg)
+        assert port_default_halo(convert.config_from_reference(cfg)) == \
+            default_halo(cfg)
 
 
 def test_pair_core_band_row0_pre_normalised(bands):
@@ -173,7 +176,7 @@ def test_stream_handed_over_from_reference(bands, robust_sigma):
     for k in range(half, len(bands["tiles"])):
         whole = ref_update(whole, _ref_band(bands, k))
 
-    tacc = convert.streaming_dsm_from_reference(acc)
+    tacc = convert.streaming_dsm_from_reference(acc, device="cpu")
     core = slice(bands["halo"], bands["halo"] + bands["band"])
     for k in range(half, len(bands["tiles"])):
         prod = _port_band(bands, k)
@@ -213,7 +216,7 @@ def test_streaming_matches_reference(scenes):
     ref = jst.StreamingAOIPipeline(CFG, band_rows=64).run(
         scene.images, scene.rpcs, metas, *aoi_lonlat_ranges(scene),
         grid_cell=2.0, n_pairs=1)
-    got = tst.StreamingAOIPipeline(CFG, band_rows=64, device="cpu").run(
+    got = tst.StreamingAOIPipeline(TCFG, band_rows=64, device="cpu").run(
         tscene.images, tscene.rpcs, convert.metas_from_reference(metas),
         *port_aoi(tscene), grid_cell=2.0, n_pairs=1)
     assert got["tiles"] == ref["tiles"] >= 3
@@ -227,7 +230,7 @@ def test_streaming_matches_reference(scenes):
     assert diff.max() < 0.25
 
     # against the port's own monolithic product on the same grid
-    pipe = th.HeightMapPipeline(CFG)
+    pipe = th.HeightMapPipeline(TCFG, device="cpu")
     geom = pipe.build_geometry(tscene.rpcs[0], tscene.rpcs[1],
                                *port_aoi(tscene),
                                tuple(tscene.images[0].shape),
@@ -273,7 +276,8 @@ def test_fused_consistency_dsm_lowtex():
                                     *aoi_lonlat_ranges(scene), *args, **kw)
     got = tmd.fused_consistency_dsm(
         tscene.images, tscene.rpcs, convert.metas_from_reference(metas),
-        *port_aoi(tscene), *args, **kw)
+        *port_aoi(tscene), convert.config_from_reference(cfg), *args[1:],
+        **kw, device="cpu")
     rd, gd = np.asarray(ref[0]), got[0]
     assert gd.shape == rd.shape == shape
     both = np.isfinite(gd) & np.isfinite(rd)
@@ -352,7 +356,8 @@ def test_multiday_fusion_statistical(scenes):
     run = dict(points_per_pair=1 << 12, with_kmeans=True, grid_cell=2.0)
     ref = jmd.MultiDayFusion(cfg).run(scene.images, scene.rpcs, metas,
                                       *aoi_lonlat_ranges(scene), **run)
-    fusion = tmd.MultiDayFusion(cfg, device="cpu")
+    fusion = tmd.MultiDayFusion(convert.config_from_reference(cfg),
+                                device="cpu")
     got = fusion.run(tscene.images, tscene.rpcs,
                      convert.metas_from_reference(metas), *port_aoi(tscene),
                      **run)
@@ -390,7 +395,7 @@ def test_multiday_registration_on_identical_subsets(scenes):
               for c in clouds]
     weights = [(rng.uniform(size=3000) > 0.1).astype(np.float32)
                for _ in clouds]
-    fus = dataclasses.replace(CFG.fusion, icp_subsample=1024)
+    fus = dataclasses.replace(TCFG.fusion, icp_subsample=1024)
     keys = [101] + [102 + k for k in range(len(clouds) - 1)]
     subsets = [np.asarray(jax.random.choice(jax.random.PRNGKey(key), 3000,
                                             (1024,), replace=False))
@@ -445,8 +450,8 @@ def test_run_skips_failed_pairs_but_not_kernel_errors(scenes, monkeypatch):
     """A pair whose stereo raises is skipped (the reference's semantics);
     a KernelError is never swallowed."""
     _, tscene = scenes
-    cfg = CFG.replace(pairs=dataclasses.replace(CFG.pairs, n_pairs=3))
-    fusion = tmd.MultiDayFusion(cfg)
+    cfg = TCFG.replace(pairs=dataclasses.replace(TCFG.pairs, n_pairs=3))
+    fusion = tmd.MultiDayFusion(cfg, device="cpu")
     metas = convert.metas_from_reference(_metas(VIEWS3))
     calls = []
 
@@ -470,7 +475,7 @@ def test_run_skips_failed_pairs_but_not_kernel_errors(scenes, monkeypatch):
 def test_process_pair_stage_cache(scenes, tmp_path):
     """process_pair(cache=...) stores the product and returns it on a hit."""
     _, tscene = scenes
-    pipe = th.HeightMapPipeline(CFG)
+    pipe = th.HeightMapPipeline(TCFG, device="cpu")
     geom = pipe.build_geometry(tscene.rpcs[0], tscene.rpcs[2],
                                *port_aoi(tscene),
                                tuple(tscene.images[0].shape),

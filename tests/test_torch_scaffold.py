@@ -1,5 +1,6 @@
 """The port's package boundary and kernel plumbing (no card needed)."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -37,16 +38,45 @@ def test_pipelines_exports():
         assert hasattr(ref, name) and hasattr(port, name), name
 
 
-def test_import_leaves_jax_out():
-    code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in MODULES)
-            + "assert 'jax' not in sys.modules, 'jax imported'\n"
-            + "assert not any(m.startswith('pcmi_tpu.') and m not in "
-              "('pcmi_tpu.config', 'pcmi_tpu.interface') for m in sys.modules)"
-              ", sorted(m for m in sys.modules if m.startswith('pcmi_tpu.'))\n")
+_NO_REFERENCE = (
+    "import sys\n"
+    "assert 'jax' not in sys.modules, 'jax imported'\n"
+    "ref = sorted(m for m in sys.modules\n"
+    "             if m == 'pcmi_tpu' or m.startswith('pcmi_tpu.'))\n"
+    "assert not ref, ref\n")
+
+
+def _run_fresh(code: str) -> None:
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=PKG.parent, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_import_leaves_jax_out():
+    """Every port module imports neither JAX nor any module of the
+    reference package, not even its JAX-free ``pcmi_tpu.config``."""
+    _run_fresh("".join(f"import {m}\n" for m in MODULES) + _NO_REFERENCE)
+
+
+def _chip_smoke_imports() -> list[str]:
+    """Every module ``chip_smoke.py`` imports, at the top or inside its
+    phases."""
+    tree = ast.parse((PKG.parent / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    return sorted(mods)
+
+
+def test_chip_smoke_imports_leave_jax_out():
+    mods = _chip_smoke_imports()
+    assert "pcmi_tpu_torch.pipelines.height_map" in mods
+    code = ("import sys\nsys.argv = ['chip_smoke.py']\nimport chip_smoke\n"
+            + "".join(f"import {m}\n" for m in mods))
+    _run_fresh(code + _NO_REFERENCE)
 
 
 def test_no_file_imports_jax():
@@ -92,6 +122,28 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0,
                           "sgm_hwd": 0, "sgm_blocked": 0,
                           "derive_right_wdh": 0}
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+@pytest.mark.parametrize("span", [53, 896, 1152])
+@pytest.mark.parametrize("horizontal", [True, False])
+def test_sgm_dir_plan_fits_every_disparity_count(span, horizontal):
+    """K1's launch plan fits one block's shared memory for every D the
+    kernel takes, and passes the checks of ``pcmi_sgm_dir`` (csrc)."""
+    for D in range(1, K.SGM_DIR_MAX_DISP + 1):
+        for acc in (False, True):
+            p = K.sgm_dir_plan(D, span, horizontal, acc)
+            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, acc) \
+                <= K.SMEM_BLOCK_MAX
+            assert _pow2(p.paths) and 4 <= p.paths <= 16
+            assert _pow2(p.tile) and p.tile <= 32
+            assert p.paths * p.tile <= max(256, 32 * p.paths)
+    for D in (0, K.SGM_DIR_MAX_DISP + 1):
+        with pytest.raises(ValueError):
+            K.sgm_dir_plan(D, span, horizontal, False)
 
 
 def test_wrappers_refuse_other_devices():

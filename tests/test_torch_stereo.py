@@ -15,6 +15,7 @@ import torch
 from pcmi_tpu.config import StereoConfig
 from pcmi_tpu.ops.stereo import matching as jm
 from pcmi_tpu.ops.stereo import pallas_kernels as jpk
+from pcmi_tpu_torch.convert import config_from_reference as _c
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo import matching as tm
 
@@ -69,7 +70,7 @@ def test_build_cost_volume(rng, stride):
                        disp_stride=stride, cost_dtype="float32")
     ref = jm.build_cost_volume(jnp.asarray(left), jnp.asarray(right),
                                jnp.asarray(vl), jnp.asarray(vr), cfg)
-    got = tm.build_cost_volume(_t(left), _t(right), _t(vl), _t(vr), cfg)
+    got = tm.build_cost_volume(_t(left), _t(right), _t(vl), _t(vr), _c(cfg))
     assert got.shape == ref.shape
     np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-6, rtol=0)
 
@@ -80,7 +81,7 @@ def test_sgm_plain_matches_xla_scan(rng, dirs):
     vol = rng.uniform(0, 1, (20, 19, 33)).astype(np.float32)
     cfg = StereoConfig(max_disp=32, sgm_backend="xla")
     ref = np.asarray(jm.sgm_aggregate(jnp.asarray(vol), cfg, dirs=dirs))
-    got = _np(tm.sgm_aggregate(_t(vol), cfg, dirs=dirs))
+    got = _np(tm.sgm_aggregate(_t(vol), _c(cfg), dirs=dirs))
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
@@ -89,7 +90,7 @@ def test_sgm_plain_matches_pallas_sub(rng):
     cfg = StereoConfig(max_disp=16)
     ref = np.asarray(jpk.sgm_aggregate_pallas_sub(
         jnp.asarray(vol), cfg.sgm_p1, cfg.sgm_p2, band=8, chunk=8))
-    got = _np(tm.sgm_aggregate(_t(vol), cfg))
+    got = _np(tm.sgm_aggregate(_t(vol), _c(cfg)))
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 
@@ -236,10 +237,10 @@ def test_compute_disparity_small_pair(rng):
                        cost_dtype="float32", sgm_backend="xla")
     ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
                                jnp.asarray(vl), jnp.asarray(vr), cfg)
-    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), cfg)
+    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), _c(cfg))
     _assert_results_agree(got, ref)
     assert got.valid.float().mean() > 0.5
-    refined = tm.refine_disparity(got, _t(left), cfg)
+    refined = tm.refine_disparity(got, _t(left), _c(cfg))
     ref_refined = jm.refine_disparity(ref, jnp.asarray(left), cfg)
     np.testing.assert_array_equal(_np(refined.valid),
                                   np.asarray(ref_refined.valid))
@@ -270,7 +271,7 @@ def test_compute_disparity_variants(rng, variant):
     ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
                                jnp.asarray(vl), jnp.asarray(vr), cfg,
                                aggregation=aggregation)
-    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), cfg,
+    got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr), _c(cfg),
                                aggregation=aggregation)
     _assert_results_agree(got, ref,
                           right_tol=1e-4 if cfg.right_subpixel else 0.0)
@@ -296,9 +297,9 @@ def test_cost_dtype_bfloat16_refused(rng):
     assert (diff > 0.01).sum() >= 10 and diff.max() > 1.0
     targs = [_t(a) for a in (left, right, vl, vr)]
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        tm.compute_disparity(*targs, cfg["bfloat16"])
+        tm.compute_disparity(*targs, _c(cfg["bfloat16"]))
     for d in ("float32", "auto"):
-        _assert_results_agree(tm.compute_disparity(*targs, cfg[d]), r32)
+        _assert_results_agree(tm.compute_disparity(*targs, _c(cfg[d])), r32)
 
 
 def test_compute_disparity_rejects_unported_variants():
@@ -306,4 +307,5 @@ def test_compute_disparity_rejects_unported_variants():
     v = torch.ones(8, 8, dtype=torch.bool)
     for kw in (dict(hierarchical=True), dict(adapt_band_rows=64)):
         with pytest.raises(NotImplementedError):
-            tm.compute_disparity(z, z, v, v, StereoConfig(max_disp=96, **kw))
+            tm.compute_disparity(z, z, v, v,
+                                 _c(StereoConfig(max_disp=96, **kw)))
