@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CUDA and nvcc versions;
 2. build: the six CUDA kernels from ``pcmi_tpu_torch/csrc`` (one nvcc per
    source, all started together, then one link);
-3. kernel parity: K1 ``sgm_dir`` (all four directions, forward and
-   accumulate) and K3 ``derive_right`` bit-exact against their plain
-   versions on small awkward volumes (``RAGGED``); then each kernel against
+3. kernel parity: K1 ``sgm_dir`` and K4 ``sgm_hwd`` (all four directions,
+   forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
+   (both directions, with and without ``prev``) bit-exact against their
+   plain versions on small awkward volumes (``RAGGED``,
+   ``RAGGED_BLOCKED``); then each kernel against
    its plain PyTorch version on seeded
    inputs on the card at two volume shapes, (80, 896, 896) (the headline
    pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2),
@@ -21,7 +23,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    K1 ``sgm_dir``, K3 ``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``
    and K6 ``derive_right_wdh`` must be bit-exact, K2 ``wta`` exact in its
    argmin indices, disparity within 1e-5 px, best cost and margin within
-   1e-6; the two alternative-layout SGMs (``layouts.sgm_aggregate_hwd`` and
+   1e-6, its combined aggregate (``with_aggregate``) bit-exact and the
+   diagonal argmin over it equal to the derived right view's; the two alternative-layout SGMs (``layouts.sgm_aggregate_hwd`` and
    ``sgm_aggregate_blocked``) within 1e-4 of K1's ``sgm_aggregate``, and
    the (W, Dp, H)-derive right view equal to the default one;
 4. headline slice: the port's seed-1 synthetic scene (512x512 images,
@@ -37,7 +40,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. matcher variants: ``compute_disparity`` on the headline pair with
    ``right_sgm`` derived / diagonal / full, ``right_subpixel``,
    ``aggregation="box"`` and ``band_check_mode="vertical"``; every output
-   finite, diagonal equal to derived;
+   finite, diagonal equal to derived with 4 ``sgm_dir``, one ``wta`` fewer
+   and no ``derive_right`` launch;
 7. the D = 288 pair at full width: the seed-3 scene of ``bench.py``'s
    MAX_DISP = 288 envelope (896x896 images, five views, 0-48 m), pair
    (0, 1) on the canvas of all ten pairs, ``disp_stride=2``, as ``strict``
@@ -113,10 +117,14 @@ WORK = {
     "sgm_blocked": (2.5, 0, 8.5), "wta": (2, 3, 6),
     "derive_right": (2, 0, 0), "derive_right_wdh": (2, 0, 0),
 }
-# small awkward volumes for K1 and K3: partial tiles and ring tails, rows
-# that are not 16-byte aligned, a ragged last 128-wide chunk, D > 256
+# small awkward volumes for K1, K3 and (moved to (H, W, D)) K4: partial
+# tiles and ring tails, rows that are not 16-byte aligned, a ragged last
+# 128-wide chunk, odd D, D > 256
 RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
           ((300, 21, 67), 1), ((9, 5, 1028), 2), ((5, 3, 4), 1))
+# blocked (nb, S, Dp, 128) volumes for K5: Dp = 8, not a multiple of 32 and
+# above 256, one band and several, fewer steps than a tile and ring tails
+RAGGED_BLOCKED = ((1, 3, 8), (3, 13, 40), (2, 21, 300), (1, 37, 37))
 PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1}
 # the vertical cross-checker adds its 2 vertical directions
 PER_DENSE_PAIR = {**PER_PAIR, "sgm_dir": 8}
@@ -200,6 +208,7 @@ def _gather_right(vol, d_min: int, stride: int):
 def phase_parity(shape, stride: int, seed: int) -> dict:
     """Each kernel against its plain version at one volume shape."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo.matching import diag_right_disparity
 
     D, H, W = shape
     d_min = -(D * stride) // 2
@@ -266,7 +275,41 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     ms = _median_ms(lambda: K.wta(h, v, 0.25, d_min, stride, True, True), 5)
     pms = _median_ms(
         lambda: K.wta_plain(h, v, 0.25, d_min, stride, True, True), 3)
-    res["wta"] = dict(max_abs_err=werr, exact=wexact, ms=ms, plain_ms=pms)
+    # the left view with the combined aggregate S as a fourth output
+    got = K.wta(h, v, 0.25, d_min, stride, True, True, with_aggregate=True)
+    ref = K.wta_plain(h, v, 0.25, d_min, stride, True, True,
+                      with_aggregate=True)
+    base = K.wta(h, v, 0.25, d_min, stride, True, True)
+    torch.cuda.synchronize()
+    s_err = _maxerr(got[3], ref[3])
+    s_ok = torch.equal(got[3], ref[3]) and all(
+        torch.equal(g, r) for g, r in zip(got[:3], base))
+    # the diagonal right view read from S, against the derived chain on S
+    # (derive with the 1e4 fill, integer WTA)
+    s_vol = got[3]
+    del got, ref, base
+
+    def derived_right():
+        return K.wta(K.derive_right(s_vol, d_min, 1e4, stride), None, 1.0,
+                     d_min, stride, False, False)[0]
+
+    diag_ok = torch.equal(diag_right_disparity(s_vol, d_min, stride),
+                          derived_right())
+    ms_diag = _median_ms(
+        lambda: diag_right_disparity(s_vol, d_min, stride), 5)
+    ms_der = _median_ms(derived_right, 5)
+    del s_vol
+    ms_s = _median_ms(lambda: K.wta(h, v, 0.25, d_min, stride, True, True,
+                                    with_aggregate=True), 5)
+    bound_s = (3 * D * H * W + 3 * H * W) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"  wta[left + aggregate] D={D} S_err={s_err:.3g} "
+          f"{'ok' if s_ok else 'FAIL'}: {ms_s:.3f} ms ({bound_s / ms_s:.1%} "
+          f"of its {bound_s:.3f} ms bound), without S {ms:.3f} ms; "
+          f"diag_right_disparity(S) {ms_diag:.3f} ms (plain), equal to "
+          f"derive_right + integer wta on S ({ms_der:.3f} ms) {diag_ok}")
+    ok &= s_ok and diag_ok
+    res["wta"] = dict(max_abs_err=max(werr, s_err), exact=wexact and s_ok,
+                      ms=ms, plain_ms=pms)
 
     # K3, and its yardstick: one torch.gather (the port never calls it)
     got = K.derive_right(vol, d_min, 1.0, stride)
@@ -309,16 +352,19 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
 
 
 def phase_ragged() -> None:
-    """K1 (all four directions, forward and accumulate) and K3 (shifts of
-    either sign, one past the row) bit-exact against their plain versions
-    on :data:`RAGGED`, and once more on a volume whose storage starts 4
-    bytes past an aligned address."""
+    """K1 and K4 (all four directions, forward and accumulate) and K3
+    (shifts of either sign, one past the row) bit-exact against their plain
+    versions on :data:`RAGGED`, and once more on a volume whose storage
+    starts 4 bytes past an aligned address; K5 (both directions, with and
+    without ``prev``) on :data:`RAGGED_BLOCKED`."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo._build import load
 
-    if load().pcmi_sgm_dir_max_disp() != K.SGM_DIR_MAX_DISP:
-        raise SystemExit("sgm_dir: the wrapper's and the kernel's largest D "
-                         "differ")
+    lib = load()
+    if (lib.pcmi_sgm_dir_max_disp(), lib.pcmi_sgm_hwd_max_disp(),
+            lib.pcmi_sgm_blocked_max_disp()) != (
+            K.SGM_DIR_MAX_DISP, K.SGM_HWD_MAX_DISP, K.SGM_BLOCKED_MAX_DISP):
+        raise SystemExit("the wrappers' and the kernels' largest D differ")
     p1, p2 = 0.03, 0.48
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [(shape, stride, 0) for shape, stride in RAGGED]
@@ -350,9 +396,37 @@ def phase_ragged() -> None:
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
                 bad.append(("derive_right", shape, d_min, _maxerr(got, ref)))
+        # K4 on the same extents with D on the fast axis
+        hwd = torch.rand(n + offset, generator=gen, device="cuda")[
+            offset:].view(H, W, D)
+        base = base.permute(1, 2, 0).contiguous()
+        for axis, reverse, acc in itertools.product(
+                (0, 1), (False, True), (False, True)):
+            got = K.sgm_hwd(hwd, p1, p2, axis, reverse,
+                            out=base.clone() if acc else None)
+            ref = K.sgm_hwd_plain(hwd, p1, p2, axis, reverse,
+                                  out=base.clone() if acc else None)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad.append(("sgm_hwd", shape, axis, reverse, acc,
+                            _maxerr(got, ref)))
         print(f"ragged {shape} stride={stride} offset={offset}: sgm_dir "
-              f"plans {sorted(tuple(p) for p in plans)}")
-    print(f"ragged: {len(cases)} volumes, mismatches {bad}")
+              f"plans {sorted(tuple(p) for p in plans)}, sgm_hwd plans "
+              f"{[tuple(K.sgm_hwd_plan(D, a)) for a in (False, True)]}")
+    for nb, S, Dp in RAGGED_BLOCKED:
+        vb = torch.rand((nb, S, Dp, K.BAND), generator=gen, device="cuda")
+        prev = torch.rand(vb.shape, generator=gen, device="cuda")
+        for reverse, pv in itertools.product((False, True), (None, prev)):
+            got = K.sgm_blocked(vb, p1, p2, reverse, prev=pv)
+            ref = K.sgm_blocked_plain(vb, p1, p2, reverse, prev=pv)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                bad.append(("sgm_blocked", tuple(vb.shape), reverse,
+                            pv is not None, _maxerr(got, ref)))
+        print(f"ragged blocked {tuple(vb.shape)}: sgm_blocked plans "
+              f"{[tuple(K.sgm_blocked_plan(Dp, nb, a)) for a in (False, True)]}")
+    print(f"ragged: {len(cases)} + {len(RAGGED_BLOCKED)} volumes, "
+          f"mismatches {bad}")
     if bad:
         raise SystemExit(f"ragged parity failed: {bad}")
 
@@ -427,9 +501,11 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     agg_err = _maxerr(agg, ref4)
     del agg
     ms_agg = _median_ms(lambda: L.sgm_aggregate_blocked(vol, p1, p2), 3)
-    print(f"  sgm_blocked per launch: vertical {ms[0]:.3f} ms, horizontal "
-          f"{ms[1]:.3f} ms; sgm_aggregate_blocked {ms_agg:.3f} ms, "
-          f"max |diff| to K1's sgm_aggregate {agg_err:.3g}")
+    b5 = bound("sgm_blocked", vol.shape)[0]
+    print(f"  sgm_blocked per launch: horizontal {ms[1]:.3f} ms "
+          f"({b5 / ms[1]:.1%} of its {b5:.3f} ms bound), vertical "
+          f"{ms[0]:.3f} ms ({b5 / ms[0]:.1%}); sgm_aggregate_blocked "
+          f"{ms_agg:.3f} ms, max |diff| to K1's sgm_aggregate {agg_err:.3g}")
     res["sgm_blocked"] = dict(max_abs_err=err,
                               exact=exact and agg_err <= 1e-4,
                               ms=sum(ms) / 2, plain_ms=sum(pms) / 2)
@@ -597,18 +673,22 @@ def phase_variants(ctx) -> dict:
     results, report = {}, {}
     for name, (kw, aggregation) in VARIANTS.items():
         cfg = dataclasses.replace(scfg, **kw)
+        def run():
+            return compute_disparity(n1, n2, v1, v2, cfg,
+                                     aggregation=aggregation)
+
         K.reset_launches()
-        t0 = time.perf_counter()
-        res = compute_disparity(n1, n2, v1, v2, cfg, aggregation=aggregation)
+        res = run()
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: n for k, n in K.LAUNCHES.items() if n}
+        ms = _median_ms(run, 3)
         fields = {f: t for f, t in res._asdict().items() if t is not None}
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in fields.values())
         report[name] = dict(
             finite=finite, fields=sorted(fields), ms=ms,
             valid_fraction=float(res.valid.sum()) / max(observable, 1.0),
-            launches={k: n for k, n in K.LAUNCHES.items() if n})
+            launches=launches)
         print(f"variant {name}: {json.dumps(report[name])}")
         if not finite:
             raise SystemExit(f"variants: {name} gave non-finite output")
@@ -619,6 +699,12 @@ def phase_variants(ctx) -> dict:
     print(f"variants: diagonal equal to derived {same}")
     if not same:
         raise SystemExit("variants: diagonal differs from derived")
+    # diagonal: K2 writes the aggregate, so no combine pass, no derive and
+    # no second WTA
+    der, dia = (report[k]["launches"] for k in ("derived", "diagonal"))
+    if dia != {"sgm_dir": 4, "wta": der["wta"] - 1} or der.get(
+            "derive_right") != 1:
+        raise SystemExit(f"variants: launches derived {der}, diagonal {dia}")
     return report
 
 

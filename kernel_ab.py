@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
-"""Time the main path's SGM and right-view kernels (K1 ``sgm_dir``, K3
-``derive_right``) of one or more checkouts of the port on one CUDA card,
-in turns, one process per turn.
+"""Time the port's SGM and right-view kernels (K1 ``sgm_dir``, K3
+``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``) of one or more
+checkouts on one CUDA card, in turns, one process per turn.
 
     python3 kernel_ab.py ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``pcmi_tpu_torch`` package (this
 checkout, or an older one unpacked beside it); the turns run in the order
 given, so ``parent new new parent`` compares two versions on one card. Each
-turn builds that checkout's kernels, checks K1 and K3 bit-exact against
-their plain versions, and times, with CUDA events over 10 launches after a
-warm-up, K1's four launch kinds (horizontal / vertical, forward /
-accumulate) and K3 at (80, 896, 896) stride 1 and (144, 1152, 1152) stride 2.
+turn builds that checkout's kernels, checks each kernel bit-exact against
+its plain version, and times, with CUDA events over 10 launches after a
+warm-up, K1's and K4's four launch kinds (horizontal / vertical, forward /
+accumulate), K5's (both scan axes' blocked volumes, forward / with
+``prev``) and K3 at (80, 896, 896) stride 1 and (144, 1152, 1152) stride 2.
 It prints one JSON line per turn, each time beside its bound: the bytes the
 launch must move (each input read once, each output written once) over the
 H100's 3.35 TB/s. The card's name and power limit come first.
 
     python3 kernel_ab.py --ablate
 
-takes K1 of this checkout apart at its launch plans: each launch kind at
-both shapes timed as built, with the scan left out (the tile copies
-alone) and with the copies left out (the scan alone, on whatever the ring
-holds), one JSON line each; then ``torch.profiler``'s device time of the
-kernels one ``sgm_pair`` per axis launches.
+takes K1, K4 and K5 of this checkout apart at their launch plans, through
+the switches of ``csrc/sgm_tile.cuh``: each launch kind at both shapes
+timed as built, with the scan left out (``-DSGM_NO_SCAN``: the copies and
+stores alone) and with the device-memory traffic left out
+(``-DSGM_NO_COPY``: the scan alone, on whatever the ring holds); one JSON
+line each; then ``torch.profiler``'s device time of the kernels one
+``sgm_pair`` per axis launches.
+
+    python3 kernel_ab.py --plans
+
+times this checkout's K5 at blocks of 8 and 16 lanes with every tile
+length that fits, and K4 at tiles of 1 to 32 steps, beside the plan the
+wrappers choose (one JSON line per launch kind and shape).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -34,6 +44,8 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12
 SHAPES = (((80, 896, 896), 1), ((144, 1152, 1152), 2))
+P1, P2 = 0.03, 0.48
+AXES = ((True, "h"), (False, "v"))   # (horizontal, name)
 
 
 def _events_ms(fn, reps: int = 10) -> float:
@@ -51,6 +63,46 @@ def _events_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _bound_ms(volumes: float, v_bytes: int) -> float:
+    return volumes * v_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _volumes(shape):
+    """The seeded cost volume of ``shape`` and a second one (the
+    accumulator, or ``prev``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(shape[0])
+    return (torch.rand(shape, generator=gen, device="cuda"),
+            torch.rand(shape, generator=gen, device="cuda"))
+
+
+def _blocked(vol, horizontal: bool):
+    """The blocked (nb, S, D, 128) copy of a (D, H, W) volume whose scan
+    axis is W (``horizontal``) or H; H and W are multiples of 128."""
+    D, H, W = vol.shape
+    if horizontal:
+        v = vol.permute(2, 0, 1).reshape(W, D, H // 128, 128)
+    else:
+        v = vol.permute(1, 0, 2).reshape(H, D, W // 128, 128)
+    return v.permute(2, 0, 1, 3).contiguous()
+
+
+def _pair_row(fwd, acc, fwd_plain, acc_plain, v_bytes: int) -> dict:
+    """Exactness and times of a forward launch (2 volumes) and of one with
+    a second input (3 volumes); ``acc(first)`` takes the forward result."""
+    import torch
+
+    first = fwd()
+    ok = torch.equal(first, fwd_plain())
+    ok &= torch.equal(acc(first.clone()), acc_plain(first.clone()))
+    ms_f, ms_a = _events_ms(fwd), _events_ms(lambda: acc(first))
+    b_f, b_a = _bound_ms(2, v_bytes), _bound_ms(3, v_bytes)
+    return dict(exact=bool(ok), fwd_ms=ms_f, acc_ms=ms_a,
+                mean_ms=(ms_f + ms_a) / 2, bound_ms=(b_f + b_a) / 2,
+                share=(b_f + b_a) / (ms_f + ms_a))
+
+
 def turn(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
@@ -58,148 +110,215 @@ def turn(root: str) -> dict:
 
     assert K.__file__.startswith(root), K.__file__
     res = {"root": root}
-    p1, p2 = 0.03, 0.48
     for (D, H, W), stride in SHAPES:
-        gen = torch.Generator(device="cuda").manual_seed(D)
-        vol = torch.rand((D, H, W), generator=gen, device="cuda")
-        acc = torch.rand((D, H, W), generator=gen, device="cuda")
+        vol, acc = _volumes((D, H, W))
         v_bytes = vol.numel() * 4
         row = {}
-        for horizontal, axis in ((True, "h"), (False, "v")):
-            fwd = K.sgm_dir(vol, p1, p2, horizontal, False)
-            ref = K.sgm_dir_plain(vol, p1, p2, horizontal, False)
-            ok = torch.equal(fwd, ref)
-            del ref
-            got = K.sgm_dir(vol, p1, p2, horizontal, True, out=acc.clone())
-            ok &= torch.equal(got, K.sgm_dir_plain(vol, p1, p2, horizontal,
-                                                   True, out=acc.clone()))
-            del got
-            ms_f = _events_ms(lambda: K.sgm_dir(vol, p1, p2, horizontal,
-                                                False, out=None))
-            ms_a = _events_ms(lambda: K.sgm_dir(vol, p1, p2, horizontal,
-                                                True, out=fwd))
-            bound_f = 2 * v_bytes / HBM_BYTES_PER_S * 1e3
-            bound_a = 3 * v_bytes / HBM_BYTES_PER_S * 1e3
-            row[f"sgm_{axis}"] = dict(
-                exact=bool(ok), fwd_ms=ms_f, acc_ms=ms_a,
-                mean_ms=(ms_f + ms_a) / 2, bound_ms=(bound_f + bound_a) / 2,
-                share=(bound_f + bound_a) / (ms_f + ms_a))
-            del fwd
+        for horizontal, axis in AXES:
+            row[f"sgm_{axis}"] = _pair_row(
+                lambda: K.sgm_dir(vol, P1, P2, horizontal, False),
+                lambda o: K.sgm_dir(vol, P1, P2, horizontal, True, out=o),
+                lambda: K.sgm_dir_plain(vol, P1, P2, horizontal, False),
+                lambda o: K.sgm_dir_plain(vol, P1, P2, horizontal, True,
+                                          out=o), v_bytes)
         d_min = -(D * stride) // 2
         got = K.derive_right(vol, d_min, 1.0, stride)
         ok = torch.equal(got, K.derive_right_plain(vol, d_min, 1.0, stride))
         del got
         ms = _events_ms(lambda: K.derive_right(vol, d_min, 1.0, stride))
-        bound = 2 * v_bytes / HBM_BYTES_PER_S * 1e3
-        row["derive_right"] = dict(exact=bool(ok), ms=ms, bound_ms=bound,
-                                   share=bound / ms)
+        row["derive_right"] = dict(exact=bool(ok), ms=ms,
+                                   bound_ms=_bound_ms(2, v_bytes),
+                                   share=_bound_ms(2, v_bytes) / ms)
+        del acc
+        hwd = vol.permute(1, 2, 0).contiguous()
+        for horizontal, axis in AXES:
+            ax = 1 if horizontal else 0
+            row[f"hwd_{axis}"] = _pair_row(
+                lambda: K.sgm_hwd(hwd, P1, P2, ax, False),
+                lambda o: K.sgm_hwd(hwd, P1, P2, ax, True, out=o),
+                lambda: K.sgm_hwd_plain(hwd, P1, P2, ax, False),
+                lambda o: K.sgm_hwd_plain(hwd, P1, P2, ax, True, out=o),
+                v_bytes)
+        del hwd
+        for horizontal, axis in AXES:
+            vb = _blocked(vol, horizontal)
+            row[f"blocked_{axis}"] = _pair_row(
+                lambda: K.sgm_blocked(vb, P1, P2, False),
+                lambda o: K.sgm_blocked(vb, P1, P2, True, prev=o),
+                lambda: K.sgm_blocked_plain(vb, P1, P2, False),
+                lambda o: K.sgm_blocked_plain(vb, P1, P2, True, prev=o),
+                v_bytes)
+            del vb
         res[f"{D}x{H}x{W}"] = row
-        del vol, acc
+        del vol
         torch.cuda.empty_cache()
     return res
 
 
-# K1's source, cut down: (pattern, replacement) pairs for each variant
+def _bind(lib):
+    import ctypes
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {
+        "pcmi_sgm_dir": [p, p, i, i, i, i, i, i, f, f, i, i, p],
+        "pcmi_sgm_hwd": [p, p, i, i, i, i, i, i, f, f, i, p],
+        "pcmi_sgm_blocked": [p, p, p, i, i, i, f, f, i, i, i, p],
+    }
+    for name, types in argtypes.items():
+        getattr(lib, name).argtypes = types
+        getattr(lib, name).restype = i
+    return lib
+
+
+_SGM = ("sgm_dir.cu", "sgm_hwd.cu", "sgm_blocked.cu")
+# variant: extra nvcc flags; the switches are in sgm_tile.cuh
 ABLATIONS = {
     "full": (),
-    "copy_only": (("const bool active = warp < g.P && lo + warp < g.span;",
-                   "const bool active = false;"),),
-    "scan_only": (("      cp_async(c + si, cost + gi, g.vec);\n"
-                   "      if (kAcc) cp_async(c + tile + si, out + gi, g.vec);\n",
-                   ""),
-                  ("    const float* res = cbuf(j);\n",
-                   "    const float* res = cbuf(j);\n    if (false)\n")),
+    "copy_only": ("-DSGM_NO_SCAN",),
+    "scan_only": ("-DSGM_NO_COPY",),
 }
+PLANS = {"full": ()}
 
 
-def _ablation_libs(root: Path) -> dict:
-    """Build each variant of ``csrc/sgm_dir.cu`` (one nvcc each, all
-    started together) into ``build/kernel_ab`` and load it."""
+def _ablation_libs(root: Path, variants: dict) -> dict:
+    """Build each variant of the SGM kernels (one nvcc each, all started
+    together) into ``build/kernel_ab`` and load it."""
     import ctypes
 
     from pcmi_tpu_torch.ops.stereo import _build
 
-    src = (root / "pcmi_tpu_torch/csrc/sgm_dir.cu").read_text()
     out = root / "build/kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in ABLATIONS.items():
-        text = src
-        for a, b in subs:
-            if a not in text:
-                raise SystemExit(f"ablation {name}: pattern not in the source")
-            text = text.replace(a, b)
-        (out / f"k1_{name}.cu").write_text(text)
-        so = out / f"k1_{name}.so"
+    for name, flags in variants.items():
+        so = out / f"sgm_{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             str(so), str(out / f"k1_{name}.cu")],
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "--threads",
+             str(len(_SGM)), "-shared", "-o",
+             str(so), *(str(_build.CSRC_DIR / s) for s in _SGM)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"ablation {name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, i, i, p]
-        lib.pcmi_sgm_dir.restype = i
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
-def ablate() -> None:
+def _raw_launchers(K, vol, out, hwd, hwd_out, blocked):
+    """``{kernel: f(lib, axis/horizontal, second input?, plan)}``: direct
+    calls of the C entry points, reverse scans, on preallocated tensors."""
+    import torch
+
+    D, H, W = vol.shape
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def k1(lib, horizontal, acc, plan):
+        return lib.pcmi_sgm_dir(vol.data_ptr(), out.data_ptr(), D, H, W,
+                                int(horizontal), 1, int(acc), P1, P2,
+                                plan[0], plan[1], stream())
+
+    def k4(lib, horizontal, acc, plan):
+        return lib.pcmi_sgm_hwd(hwd.data_ptr(), hwd_out.data_ptr(), H, W, D,
+                                int(horizontal), 1, int(acc), P1, P2,
+                                plan[0], stream())
+
+    def k5(lib, horizontal, acc, plan):
+        vb = blocked[horizontal]
+        return lib.pcmi_sgm_blocked(
+            vb.data_ptr(), out.data_ptr() if acc else None,
+            hwd_out.data_ptr(), vb.shape[0], vb.shape[1], D, P1, P2, 1,
+            plan[0], plan[1], stream())
+
+    return {"sgm_dir": k1, "sgm_hwd": k4, "sgm_blocked": k5}
+
+
+def _timed(call, *args) -> float | None:
+    """ms per launch, or None where the entry point refuses the plan."""
+    if call(*args):
+        return None
+
+    def run():
+        if call(*args):
+            raise SystemExit("launch refused after it was accepted")
+    return _events_ms(run)
+
+
+def _study(ablation: bool) -> None:
     import torch
 
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
-    libs = _ablation_libs(root)
-    p1, p2 = 0.03, 0.48
+    libs = {n: _bind(lib) for n, lib in _ablation_libs(
+        root, ABLATIONS if ablation else PLANS).items()}
     for (D, H, W), _ in SHAPES:
-        gen = torch.Generator(device="cuda").manual_seed(D)
-        vol = torch.rand((D, H, W), generator=gen, device="cuda")
-        out = torch.rand((D, H, W), generator=gen, device="cuda")
+        vol, out = _volumes((D, H, W))
+        hwd = vol.permute(1, 2, 0).contiguous()
+        hwd_out = torch.empty_like(hwd)
+        blocked = {hz: _blocked(vol, hz) for hz, _ in AXES}
+        calls = _raw_launchers(K, vol, out, hwd, hwd_out, blocked)
         v_bytes = vol.numel() * 4
-        for horizontal in (True, False):
-            for acc in (False, True):
-                plan = K.sgm_dir_plan(D, H if horizontal else W, horizontal,
-                                      acc)
-                row = dict(shape=[D, H, W], horizontal=horizontal,
-                           accumulate=acc, plan=list(plan),
-                           bound_ms=(3 if acc else 2) * v_bytes
-                           / HBM_BYTES_PER_S * 1e3)
-                for name, lib in libs.items():
-                    def run(lib=lib):
-                        rc = lib.pcmi_sgm_dir(
-                            vol.data_ptr(), out.data_ptr(), D, H, W,
-                            int(horizontal), 1, int(acc), p1, p2, plan.paths,
-                            plan.tile, torch.cuda.current_stream().cuda_stream)
-                        if rc:
-                            raise SystemExit(f"ablation {name}: rc {rc}")
-                    row[f"{name}_ms"] = _events_ms(run)
-                print(json.dumps(row), flush=True)
-        prof_ms = {}
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for horizontal in (True, False):
-                K.sgm_pair(vol, p1, p2, horizontal)
-            torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = ev.cuda_time_total
-            if "sgm_dir" in ev.key:
-                prof_ms[ev.key[:60]] = dict(count=ev.count, ms=t / 1e3)
-        print(json.dumps(dict(shape=[D, H, W], profiler=prof_ms)), flush=True)
+        for name, (horizontal, axis), acc in itertools.product(
+                calls, AXES, (False, True)):
+            if name == "sgm_dir":
+                chosen = K.sgm_dir_plan(D, H if horizontal else W,
+                                        horizontal, acc)[:2]
+                plans = [chosen]
+            elif name == "sgm_hwd":
+                chosen = (K.sgm_hwd_plan(D, acc).tile,)
+                plans = [(t,) for t in (1, 2, 4, 8, 16, 32)]
+            else:
+                chosen = K.sgm_blocked_plan(
+                    D, blocked[horizontal].shape[0], acc)[:2]
+                plans = list(itertools.product((8, 16), (1, 2, 4, 8)))
+            row = dict(kernel=name, shape=[D, H, W], axis=axis,
+                       second_input=acc, plan=list(chosen),
+                       bound_ms=_bound_ms(3 if acc else 2, v_bytes))
+            if ablation:
+                for variant, lib in libs.items():
+                    row[f"{variant}_ms"] = _timed(
+                        calls[name], lib, horizontal, acc, chosen)
+            else:
+                row["ms_by_plan"] = {
+                    "x".join(map(str, plan)): _timed(
+                        calls[name], libs["full"], horizontal, acc, plan)
+                    for plan in plans}
+            print(json.dumps(row), flush=True)
+        del hwd, hwd_out, blocked, calls
+        if ablation:
+            prof_ms = {}
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for horizontal, _ in AXES:
+                    K.sgm_pair(vol, P1, P2, horizontal)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                t = getattr(ev, "device_time_total", None)
+                if t is None:
+                    t = ev.cuda_time_total
+                if "sgm_tile" in ev.key:
+                    prof_ms[ev.key[:60]] = dict(count=ev.count, ms=t / 1e3)
+            print(json.dumps(dict(shape=[D, H, W], profiler=prof_ms)),
+                  flush=True)
         del vol, out
         torch.cuda.empty_cache()
 
 
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--ablate"]:
-        ablate()
+    if sys.argv[1:] in (["--ablate"], ["--plans"]):
+        print(_smi())
+        _study(ablation=sys.argv[1] == "--ablate")
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
         print(json.dumps(turn(sys.argv[2])))
@@ -210,9 +329,7 @@ def main() -> int:
         print("kernel_ab: needs a CUDA card and at least one ROOT",
               file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(_smi())
     for root in sys.argv[1:]:
         proc = subprocess.run([sys.executable, __file__, "--turn", root],
                               capture_output=True, text=True)

@@ -9,109 +9,149 @@
 // padding is needed (the TPU's BIG disparity padding and zero spatial
 // padding both wash out of the result).
 //
-// Recurrence and grouping as K1 (csrc/sgm_dir.cu):
-//   best = min(min(L'(d), m + P2), min(L'(d-1) + P1, L'(d+1) + P1))
-//   L(d) = (C(d) + best) - m,     m = min_d L'(d)
-// Only adds and mins: with -fmad=false the result is bit-identical to the
-// plain PyTorch version (kernels.sgm_hwd_plain).
+// Recurrence, grouping, scan step and min as K1 (csrc/sgm_tile.cuh). With
+// -fmad=false the result is bit-identical to the plain PyTorch version
+// (kernels.sgm_hwd_plain).
 //
-// What bounds it: a scan step depends on the previous one, so each path is
-// sequential. One warp per path: lane l holds disparities l, l + 32, ...
-// in registers, the min over D is a five-step xor-shuffle reduction and
-// the d-1 / d+1 neighbours are __shfl_up/__shfl_down plus the register of
-// the next lane group across the lane 0 / lane 31 seam. A step reads the D
-// contiguous costs of its path, so both scan axes coalesce (D x 4 bytes
-// per warp and step); the next step's costs are loaded before the current
-// step is computed. The card holds only H or W paths (896 warps at the
-// headline), a few warps per SM: the kernel is bound by the latency of
-// the per-step load and reduction chain, not by bandwidth.
+// What bounds it: bytes (2 volumes per launch, 3 with accumulate), but a
+// scan step depends on the previous one, so each path is sequential and
+// the card holds only H or W paths (~7-9 warps per SM). A step of a path
+// is D contiguous floats on both scan axes, so this layout needs no tile
+// shared between paths: one warp per path, and each warp streams its own
+// path through a private ring of two tiles of T steps in shared memory,
+// filled a tile ahead by 16-byte cp.async (4-byte where D % 4 != 0 or a
+// base is not 16-byte aligned). A step waits on shared memory, not on
+// device memory, and reads it free of bank conflicts (lane l reads float
+// l + 32k of the step); a tile costs one cp.async wait and one
+// __syncwarp, and the kernel has no block-wide barrier. For accumulate
+// the tile of `out` rides the ring beside the cost tile. Results go from
+// registers to device memory, D contiguous floats per step.
+//
+// What holds it back on the H100 (kernel_ab.py --ablate): at
+// (896, 896, 80) the scan alone takes ~65 % of a forward launch's time and
+// the loads alone ~50 % (at (1152, 1152, 144) ~45 % each), and the two
+// overlap for most of their length: a launch reaches 75-81 % of its bound
+// on both axes. T comes from the wrapper's launch plan
+// (kernels.sgm_hwd_plan): rings of ~10 KB per warp were the fastest at
+// D = 80 and 144 (longer tiles ran slower). A block is 2 warps: 1, 2 and 4
+// tied and 8 lost. Hopper's bulk copy (one lane starting cp.async.bulk for
+// a tile's runs against an mbarrier) tied with cp.async, so the simpler
+// copy stays.
 
-#include <cuda_runtime.h>
-#include <cfloat>
+#include "sgm_tile.cuh"
 
 namespace {
 
-constexpr int kMaxPer = 16;    // disparities per lane: D <= 512
-constexpr float kBig = 1e9f;   // the reference's no-neighbour value
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 2;      // warps (paths) per block
 
-__global__ void sgm_hwd_kernel(const float* __restrict__ cost,
-                               float* __restrict__ out, int D, int S,
-                               int span, long long sS, long long sL,
-                               float p1, float p2, int reverse,
-                               int accumulate) {
-  const int lane = threadIdx.x;
-  const int path = blockIdx.x;
+
+template <int kPer, bool kAcc>
+__global__ void __launch_bounds__(32 * kWarps)
+sgm_hwd_kernel(const float* __restrict__ cost, float* out, int D, int S,
+               int span, long long sS, long long sL, float p1, float p2,
+               int reverse, int T, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int path = blockIdx.x * kWarps + warp;
   if (path >= span) return;  // the whole warp leaves together
-  const int nper = (D + 31) >> 5;
-  const long long base = (long long)path * sL;
+  const int Dq = (D + 3) & ~3;                   // a step's floats in the ring
+  const int tile = T * Dq;
+  const int slot = kAcc ? 2 * tile : tile;       // cost tile (+ out tile)
+  float* ring = smem + warp * kStages * slot;    // this warp's own
+  const float* cpath = cost + path * sL;
+  float* opath = out + path * sL;
+  const int ntiles = (S + T - 1) / T;
+  const int w = vec ? 4 : 1;
+  const int per_step = D / w;                    // copies of one step
+  // scan-alone builds keep the stores reachable, or the scan is dead code
+  const bool store = kCopy || p1 == -FLT_MAX;
 
-  float prev[kMaxPer], cn[kMaxPer], on[kMaxPer];
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) prev[k] = 0.f;
 
-  auto load = [&](int s) {
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      const int d = lane + 32 * k;
-      cn[k] = 0.f;
-      on[k] = 0.f;
-      if (k < nper && d < D) {
-        const long long o = base + s * sS + d;
-        cn[k] = cost[o];
-        if (accumulate) on[k] = out[o];
-      }
+  auto load = [&](int j) {
+    if (!kCopy) return;
+    int s_lo, nt;
+    tile_range(S, T, reverse, j, s_lo, nt);
+    float* c = ring + (j % kStages) * slot;
+    for (int i = lane; i < nt * per_step; i += 32) {
+      const int t = i / per_step, r = (i - t * per_step) * w;
+      const long long gi = (long long)(s_lo + t) * sS + r;
+      cp_async(c + t * Dq + r, cpath + gi, vec);
+      if (kAcc) cp_async(c + tile + t * Dq + r, opath + gi, vec);
     }
   };
-  load(reverse ? S - 1 : 0);
 
+  load(0);
+  cp_async_commit();
+
+  // this lane's disparities: d = lane + 32 k, valid for k < nvalid
+  const int nvalid = (D - lane + 31) >> 5;
+  const int dat = reverse ? -Dq : Dq;  // one scan step through the tile
+  float prev[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) prev[k] = 0.f;
   float m = 0.f;
-  for (int t = 0; t < S; ++t) {
-    const int s = reverse ? S - 1 - t : t;
-    float c[kMaxPer], o_old[kMaxPer];
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      c[k] = cn[k];
-      o_old[k] = on[k];
-    }
-    if (t + 1 < S) load(reverse ? s - 1 : s + 1);
 
-    const float mp2 = m + p2;
-    const long long row = base + s * sS;
-    float nxt[kMaxPer];
-    float local = FLT_MAX;
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait_all();
+    __syncwarp();  // tile j landed; every lane is done with tile j - 1
+    if (j + 1 < ntiles) load(j + 1);
+    cp_async_commit();
+    if (!kScan) continue;
+
+    int s_lo, nt;
+    tile_range(S, T, reverse, j, s_lo, nt);
+    const int ls0 = reverse ? nt - 1 : 0;
+    const float* at = ring + (j % kStages) * slot + ls0 * Dq + lane;
+    float* o = opath + (long long)(s_lo + ls0) * sS + lane;
+    const long long ostep = reverse ? -sS : sS;
+    float c[kPer], a[kPer];
 #pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      nxt[k] = prev[k];
-      if (k < nper) {  // uniform across the warp: shuffles stay converged
-        const int d = lane + 32 * k;
-        float pu = __shfl_up_sync(kFull, prev[k], 1);
-        const float seam_u = __shfl_sync(kFull, prev[k > 0 ? k - 1 : 0], 31);
-        if (lane == 0) pu = seam_u;
-        float pd = __shfl_down_sync(kFull, prev[k], 1);
-        const float seam_d =
-            __shfl_sync(kFull, prev[k + 1 < kMaxPer ? k + 1 : k], 0);
-        if (lane == 31) pd = seam_d;
-        if (d == 0) pu = kBig;
-        if (d + 1 >= D) pd = kBig;
-        const float best =
-            fminf(fminf(prev[k], mp2), fminf(pu + p1, pd + p1));
-        const float v = (c[k] + best) - m;
-        nxt[k] = v;
-        if (d < D) {
-          local = fminf(local, v);
-          out[row + d] = accumulate ? o_old[k] + v : v;
+    for (int k = 0; k < kPer; ++k) {
+      c[k] = k < nvalid ? at[32 * k] : 0.f;
+      a[k] = kAcc && k < nvalid ? at[tile + 32 * k] : 0.f;
+    }
+    for (int q = 0; q < nt; ++q) {
+      // the next step's inputs, read while this step computes
+      float cn[kPer], an[kPer];
+      if (q + 1 < nt) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          cn[k] = k < nvalid ? at[dat + 32 * k] : 0.f;
+          an[k] = kAcc && k < nvalid ? at[dat + tile + 32 * k] : 0.f;
         }
       }
+      scan_step<kPer>(prev, c, m, lane, D, nvalid, p1, p2);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (store && k < nvalid) o[32 * k] = kAcc ? a[k] + prev[k] : prev[k];
+        c[k] = cn[k];
+        a[k] = an[k];
+      }
+      at += dat;
+      o += ostep;
     }
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) prev[k] = nxt[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      local = fminf(local, __shfl_xor_sync(kFull, local, off));
-    m = local;
   }
+  cp_async_wait_all();
 }
+
+using HwdKernel = void (*)(const float*, float*, int, int, int, long long,
+                           long long, float, float, int, int, int);
+
+// The kernel for nper = ceil(D / 32) disparities per lane.
+template <int kPer>
+struct HwdKernels {
+  static HwdKernel get(int nper, bool acc) {
+    if (nper == kPer)
+      return acc ? sgm_hwd_kernel<kPer, true> : sgm_hwd_kernel<kPer, false>;
+    return HwdKernels<kPer - 1>::get(nper, acc);
+  }
+};
+
+template <>
+struct HwdKernels<0> {
+  static HwdKernel get(int, bool) { return nullptr; }
+};
 
 }  // namespace
 
@@ -120,21 +160,29 @@ extern "C" int pcmi_sgm_hwd_max_disp() { return 32 * kMaxPer; }
 // cost, out: (H, W, D) float32, contiguous, on the current device.
 // scan_axis 0 scans H (T->B, or B->T with reverse; paths are columns),
 // 1 scans W (L->R, or R->L; paths are rows). accumulate != 0 adds the
-// direction into `out` (out = out + L) instead of storing it. Returns a
-// cudaError_t.
+// direction into `out` (out = out + L) instead of storing it. The launch
+// plan: each warp of a block has a ring of two tiles of `tile` steps (twice
+// that with accumulate) in shared memory. Returns a cudaError_t.
 extern "C" int pcmi_sgm_hwd(const float* cost, float* out, int H, int W,
                             int D, int scan_axis, int reverse,
-                            int accumulate, float p1, float p2,
+                            int accumulate, float p1, float p2, int tile,
                             void* stream) {
+  const long long smem = (long long)kWarps * kStages * (accumulate ? 2 : 1) *
+                         tile * ((D + 3) & ~3) * (long long)sizeof(float);
   if (D < 1 || D > 32 * kMaxPer || H < 1 || W < 1 ||
-      (scan_axis != 0 && scan_axis != 1))
+      (scan_axis != 0 && scan_axis != 1) || tile < 1 || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
+  const HwdKernel fn = HwdKernels<kMaxPer>::get((D + 31) / 32, accumulate != 0);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
+  if (e != cudaSuccess) return (int)e;
   const long long rowW = (long long)W * D;
   const int S = scan_axis == 0 ? H : W;
   const int span = scan_axis == 0 ? W : H;
   const long long sS = scan_axis == 0 ? rowW : D;
   const long long sL = scan_axis == 0 ? D : rowW;
-  sgm_hwd_kernel<<<span, 32, 0, (cudaStream_t)stream>>>(
-      cost, out, D, S, span, sS, sL, p1, p2, reverse, accumulate);
+  const int vec = D % 4 == 0 && aligned16(cost) && aligned16(out);
+  fn<<<(span + kWarps - 1) / kWarps, 32 * kWarps, (size_t)smem,
+       (cudaStream_t)stream>>>(cost, out, D, S, span, sS, sL, p1, p2, reverse,
+                               tile, vec);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // winner-takes-all disparity, its cost and its uniqueness margin.
 //
 // Replaces three TPU kernels in pcmi_tpu/ops/stereo/pallas_kernels.py:
-//   sgm4_wta_fused_pallas / _make_wta3_kernel   left view, (a + b) * 0.25
+//   sgm4_wta_fused_pallas / _make_wta3_kernel   left view, (a + b) * 0.25,
+//       and with_aggregate: the combined aggregate s itself as an output
 //   right_disparity_fused_pallas / _make_wta2_kernel   right view argmin
 //   wta_fused_pallas / _make_wta_kernel   the cross-checker's WTA
 // and follows the XLA form of matching.wta_disparity, which the CPU
@@ -17,8 +18,14 @@
 // Costs must lie below 1e9 (the reference's BIG), as every volume the
 // matcher builds does.
 //
+// With agg_out the kernel also stores s_d to agg_out[d, y, x] ((D, H, W),
+// where the TPU kernel keeps its padded (W, Dp, H) scan layout): the right
+// view of right_sgm="diagonal" is then one diagonal argmin over that
+// volume (matching.diag_right_disparity).
+//
 // What bounds it: one read of each input volume (D*H*W*4 bytes per input);
-// the outputs are three (H, W) planes. One thread per pixel walks D, so
+// the outputs are three (H, W) planes, and with agg_out one volume more,
+// written in the same walk. One thread per pixel walks D, so
 // the threads of a warp read 32 consecutive x of one disparity slice
 // (128-byte transactions). A running sorted top-4 with indices gives the
 // margin in the same pass (the best's two neighbours can hold at most two
@@ -36,7 +43,8 @@ __global__ void wta_kernel(const float* __restrict__ a,
                            float scale, float d_min, float stride,
                            int subpixel, float* __restrict__ disp,
                            float* __restrict__ best_out,
-                           float* __restrict__ margin_out) {
+                           float* __restrict__ margin_out,
+                           float* __restrict__ agg_out) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= HW) return;
   float v1 = kBig, v2 = kBig, v3 = kBig, v4 = kBig;
@@ -45,6 +53,7 @@ __global__ void wta_kernel(const float* __restrict__ a,
   for (int d = 0; d < D; ++d) {
     const long long o = (long long)d * HW + p;
     const float val = b ? (a[o] + b[o]) * scale : a[o] * scale;
+    if (agg_out) agg_out[o] = val;
     const bool b1 = val < v1, b2 = val < v2, b3 = val < v3, b4 = val < v4;
     if (b1) {
       prev = last;
@@ -81,16 +90,16 @@ __global__ void wta_kernel(const float* __restrict__ a,
 }  // namespace
 
 // a, b: (D, H, W) float32 contiguous (b may be null); disp, best: (H, W);
-// margin: (H, W) or null. Returns a cudaError_t.
+// margin: (H, W) or null; agg: (D, H, W) or null. Returns a cudaError_t.
 extern "C" int pcmi_wta(const float* a, const float* b, int D, int H, int W,
                         float scale, float d_min, float stride, int subpixel,
-                        float* disp, float* best, float* margin,
+                        float* disp, float* best, float* margin, float* agg,
                         void* stream) {
   if (D < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const long long HW = (long long)H * W;
   const int threads = 256;
   const unsigned blocks = (unsigned)((HW + threads - 1) / threads);
   wta_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      a, b, D, HW, scale, d_min, stride, subpixel, disp, best, margin);
+      a, b, D, HW, scale, d_min, stride, subpixel, disp, best, margin, agg);
   return (int)cudaGetLastError();
 }

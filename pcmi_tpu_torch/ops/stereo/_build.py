@@ -1,12 +1,13 @@
-"""Build and load the port's CUDA kernels (``pcmi_tpu_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``pcmi_tpu_torch/csrc/*.cu``,
+with the headers ``*.cuh`` they share).
 
 Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
 started together, and the objects are linked into one shared library with
 a plain C interface, bound with :mod:`ctypes`. The build runs at first use,
 from the sources in the checkout only, into ``build/pcmi_tpu_torch/``
-beside the package; the file name carries a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one loads the library
-already there.
+beside the package; the file name carries a hash of the sources, headers
+and flags, so an edited source or header rebuilds and an unchanged tree
+loads the library already there.
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions compute them; there is no ``--use_fast_math``.
@@ -43,6 +44,11 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include (from their own directory)."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     """``nvcc`` on PATH, else ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``."""
     found = shutil.which("nvcc")
@@ -62,7 +68,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpcmi_kernels_{h.hexdigest()[:16]}.so"
@@ -125,15 +131,15 @@ def load() -> ctypes.CDLL:
     lib.pcmi_sgm_dir.restype = i
     lib.pcmi_sgm_dir_max_disp.argtypes = []
     lib.pcmi_sgm_dir_max_disp.restype = i
-    lib.pcmi_wta.argtypes = [p, p, i, i, i, f, f, f, i, p, p, p, p]
+    lib.pcmi_wta.argtypes = [p, p, i, i, i, f, f, f, i, p, p, p, p, p]
     lib.pcmi_wta.restype = i
     lib.pcmi_derive_right.argtypes = [p, p, i, i, i, i, i, f, p]
     lib.pcmi_derive_right.restype = i
-    lib.pcmi_sgm_hwd.argtypes = [p, p, i, i, i, i, i, i, f, f, p]
+    lib.pcmi_sgm_hwd.argtypes = [p, p, i, i, i, i, i, i, f, f, i, p]
     lib.pcmi_sgm_hwd.restype = i
     lib.pcmi_sgm_hwd_max_disp.argtypes = []
     lib.pcmi_sgm_hwd_max_disp.restype = i
-    lib.pcmi_sgm_blocked.argtypes = [p, p, p, i, i, i, f, f, i, p]
+    lib.pcmi_sgm_blocked.argtypes = [p, p, p, i, i, i, f, f, i, i, i, p]
     lib.pcmi_sgm_blocked.restype = i
     lib.pcmi_sgm_blocked_max_disp.argtypes = []
     lib.pcmi_sgm_blocked_max_disp.restype = i

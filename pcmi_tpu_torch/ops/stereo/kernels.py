@@ -4,8 +4,10 @@ their wrappers.
 * K1 ``sgm_dir``: one SGM direction over (D, H, W); replaces
   ``_dir_call_sub`` / ``_make_dir_kernel_sub``
   (``pcmi_tpu/ops/stereo/pallas_kernels.py``). Source ``csrc/sgm_dir.cu``.
-* K2 ``wta``: combine + winner-takes-all; replaces
-  ``sgm4_wta_fused_pallas`` / ``_make_wta3_kernel``,
+* K2 ``wta``: combine + winner-takes-all, with the combined aggregate as a
+  fourth output on request; replaces
+  ``sgm4_wta_fused_pallas`` / ``_make_wta3_kernel`` (``with_aggregate``
+  included),
   ``right_disparity_fused_pallas`` / ``_make_wta2_kernel`` and
   ``wta_fused_pallas`` / ``_make_wta_kernel``. Source ``csrc/wta.cu``.
 * K3 ``derive_right``: right-view volume; replaces ``derive_right_pallas``
@@ -32,7 +34,11 @@ Volumes are float32 on every device (the matcher refuses
 ``StereoConfig.cost_dtype="bfloat16"``). Each source file
 notes what bounds its kernel on the card and what its design does about it.
 K1-K3 run on the matcher's main path; K4-K6 behind the alternative-layout
-entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`.
+entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`. K1 and K5 are one
+tile kernel (``csrc/sgm_tile.cuh``) under two sets of strides, and K4 uses
+its scan step; each has a launch plan here (:func:`sgm_dir_plan`,
+:func:`sgm_blocked_plan`, :func:`sgm_hwd_plan`) that the CPU tests check
+against the card's shared memory.
 """
 
 from __future__ import annotations
@@ -140,9 +146,10 @@ class SgmDirPlan(NamedTuple):
 
 
 def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool) -> int:
-    """Shared memory of one K1 block (``smem_bytes`` in the source): a
-    ring of two tiles of ``D`` planes of ``paths * tile + 4`` floats, twice
-    that with ``accumulate`` (the tile of ``out`` beside the cost tile)."""
+    """Shared memory of one block of the tile kernel of K1 and K5
+    (``tile_smem_bytes`` in ``csrc/sgm_tile.cuh``): a ring of two tiles of
+    ``D`` planes of ``paths * tile + 4`` floats, twice that with
+    ``accumulate`` (the tile of the second input beside the cost tile)."""
     return 2 * D * (paths * tile + 4) * (2 if accumulate else 1) * 4
 
 
@@ -207,13 +214,18 @@ def sgm_pair(cost: torch.Tensor, p1: float, p2: float,
 
 def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
               d_min: int, stride: int = 1, subpixel: bool = True,
-              with_margin: bool = True):
+              with_margin: bool = True, with_aggregate: bool = False):
     """Combine ``s = (a + b) * scale`` (or ``a * scale``) and take the WTA
     in the XLA form of ``matching.wta_disparity``.
 
     Returns ``(disp, best, margin)``; ``margin`` is None without
-    ``with_margin``."""
+    ``with_margin``. With ``with_aggregate`` the combined (D, H, W) volume
+    ``s`` is a fourth value (``sgm4_wta_fused_pallas(with_aggregate=True)``,
+    in this port's layout)."""
     vol = (a + b) * scale if b is not None else a * scale
+    if with_aggregate:
+        return (*wta_plain(vol, None, 1.0, d_min, stride, subpixel,
+                           with_margin), vol)
     D = vol.shape[0]
     best_d = vol.argmin(0)
     best = vol.amin(0)
@@ -237,12 +249,18 @@ def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
 
 
 def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,
-        stride: int = 1, subpixel: bool = True, with_margin: bool = True):
-    """K2 wrapper: see :func:`wta_plain` for the semantics."""
+        stride: int = 1, subpixel: bool = True, with_margin: bool = True,
+        with_aggregate: bool = False):
+    """K2 wrapper: see :func:`wta_plain` for the semantics. The combined
+    aggregate exists only for two inputs: ``with_aggregate`` with one
+    raises."""
     if a.dim() != 3 or (b is not None and b.shape != a.shape):
         raise ValueError("wta: expected one or two (D, H, W) volumes")
+    if with_aggregate and b is None:
+        raise ValueError("wta: with_aggregate combines two volumes")
     if not _on_cuda("wta", a, b):
-        return wta_plain(a, b, scale, d_min, stride, subpixel, with_margin)
+        return wta_plain(a, b, scale, d_min, stride, subpixel, with_margin,
+                         with_aggregate)
     from pcmi_tpu_torch.ops.stereo._build import load
 
     lib = load()
@@ -250,14 +268,16 @@ def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,
     disp = torch.empty((H, W), dtype=torch.float32, device=a.device)
     best = torch.empty_like(disp)
     margin = torch.empty_like(disp) if with_margin else None
+    agg = torch.empty_like(a) if with_aggregate else None
     rc = lib.pcmi_wta(a.data_ptr(), b.data_ptr() if b is not None else None,
                       D, H, W, float(scale), float(d_min), float(stride),
                       int(subpixel), disp.data_ptr(), best.data_ptr(),
                       margin.data_ptr() if margin is not None else None,
-                      _stream())
+                      agg.data_ptr() if agg is not None else None, _stream())
     _check("wta", rc)
     LAUNCHES["wta"] += 1
-    return disp, best, margin
+    return (disp, best, margin, agg) if with_aggregate else (disp, best,
+                                                             margin)
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +331,41 @@ def sgm_hwd_plain(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
     return _scan_plain(cost, scan_axis, 1, p1, p2, reverse, out)
 
 
+SGM_HWD_MAX_DISP = 512       # csrc/sgm_hwd.cu: 16 disparities per lane
+SGM_HWD_WARPS = 2            # csrc/sgm_hwd.cu: warps (paths) per block
+_HWD_WARP_RING = 10 * 1024   # one warp's ring; longer ones measured slower
+
+
+class SgmHwdPlan(NamedTuple):
+    """K4's launch plan: each warp of a block streams its path through a
+    ring of two tiles of ``tile`` scan steps; ``smem`` bytes of shared
+    memory per block."""
+    tile: int
+    smem: int
+
+
+def sgm_hwd_smem(D: int, tile: int, accumulate: bool) -> int:
+    """Shared memory of one K4 block: per warp a ring of two tiles of
+    ``tile`` steps of ``D`` floats (rounded up to 4), twice that with
+    ``accumulate`` (the tile of ``out`` beside the cost tile)."""
+    return (SGM_HWD_WARPS * 2 * (2 if accumulate else 1) * tile
+            * (-(-D // 4) * 4) * 4)
+
+
+def sgm_hwd_plan(D: int, accumulate: bool) -> SgmHwdPlan:
+    """K4's launch plan for paths of ``D`` disparities: the longest tile
+    (16, 8, ... steps) whose ring stays within 10 KB per warp, the fastest
+    on the H100 at the two D measured: 16 steps forward and 8 accumulating
+    at D = 80, 8 and 4 at D = 144."""
+    if not 1 <= D <= SGM_HWD_MAX_DISP:
+        raise ValueError(f"sgm_hwd: D={D} outside [1, {SGM_HWD_MAX_DISP}]")
+    for tile in (16, 8, 4, 2, 1):
+        smem = sgm_hwd_smem(D, tile, accumulate)
+        if smem <= SGM_HWD_WARPS * _HWD_WARP_RING:
+            return SgmHwdPlan(tile, smem)
+    raise ValueError(f"sgm_hwd: no launch plan fits D={D}")
+
+
 def sgm_hwd(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
             reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
     """K4 wrapper: see :func:`sgm_hwd_plain` for the semantics."""
@@ -326,15 +381,13 @@ def sgm_hwd(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
 
     lib = load()
     H, W, D = cost.shape
-    if D > lib.pcmi_sgm_hwd_max_disp():
-        raise ValueError(f"sgm_hwd: D={D} above the kernel's "
-                         f"{lib.pcmi_sgm_hwd_max_disp()}")
     acc = out is not None
+    plan = sgm_hwd_plan(D, acc)
     if out is None:
         out = torch.empty_like(cost)
     rc = lib.pcmi_sgm_hwd(cost.data_ptr(), out.data_ptr(), H, W, D,
                           int(scan_axis), int(reverse), int(acc), float(p1),
-                          float(p2), _stream())
+                          float(p2), plan.tile, _stream())
     _check("sgm_hwd", rc)
     LAUNCHES["sgm_hwd"] += 1
     return out
@@ -357,6 +410,21 @@ def sgm_blocked_plain(cost: torch.Tensor, p1: float, p2: float,
     return _scan_plain(cost, 1, 1, p1, p2, reverse, out)
 
 
+SGM_BLOCKED_MAX_DISP = SGM_DIR_MAX_DISP   # the tile kernel is K1's
+
+
+def sgm_blocked_plan(Dp: int, nb: int, with_prev: bool) -> SgmDirPlan:
+    """K5's launch plan for ``nb`` bands of ``Dp`` disparities: that of
+    K1's vertical scans over ``nb * 128`` columns (blocks of 16
+    neighbouring lanes of a band where that gives 64 blocks, else 8; the
+    longest tile that fits). On the H100 blocks of 8 lanes win at 7 bands
+    of Dp = 80 and 16 at 9 bands of Dp = 144."""
+    if not 1 <= Dp <= SGM_BLOCKED_MAX_DISP:
+        raise ValueError(f"sgm_blocked: Dp={Dp} outside "
+                         f"[1, {SGM_BLOCKED_MAX_DISP}]")
+    return sgm_dir_plan(Dp, nb * BAND, False, with_prev)
+
+
 def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
                 prev: torch.Tensor | None = None) -> torch.Tensor:
     """K5 wrapper: see :func:`sgm_blocked_plain` for the semantics."""
@@ -371,16 +439,14 @@ def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
 
     lib = load()
     nb, S, Dp, _ = cost.shape
-    if Dp > lib.pcmi_sgm_blocked_max_disp():
-        raise ValueError(f"sgm_blocked: Dp={Dp} above the kernel's "
-                         f"{lib.pcmi_sgm_blocked_max_disp()}")
+    plan = sgm_blocked_plan(Dp, nb, prev is not None)
     if any(t.data_ptr() % 16 for t in (cost, prev) if t is not None):
         raise ValueError("sgm_blocked: inputs must be 16-byte aligned")
     out = torch.empty_like(cost)
     rc = lib.pcmi_sgm_blocked(cost.data_ptr(),
                               prev.data_ptr() if prev is not None else None,
                               out.data_ptr(), nb, S, Dp, float(p1), float(p2),
-                              int(reverse), _stream())
+                              int(reverse), plan.paths, plan.tile, _stream())
     _check("sgm_blocked", rc)
     LAUNCHES["sgm_blocked"] += 1
     return out

@@ -12,9 +12,11 @@
   :func:`pcmi_tpu_torch.ops.stereo.layouts.right_disparity_fused`;
 * the census cross-checker's WTA (K2).
 
-The variants follow the reference's other branch, on the same kernels:
-``right_sgm="derived"`` / ``"diagonal"`` (the materialised left aggregate,
-shifted into the right frame), ``"full"`` (4-path SGM on the right
+The variants follow the reference's other branches, on the same kernels:
+``right_sgm="derived"`` (the materialised left aggregate, shifted into the
+right frame), ``"diagonal"`` (K2 also writes the combined aggregate, and
+the right view is one diagonal argmin over it:
+:func:`diag_right_disparity`), ``"full"`` (4-path SGM on the right
 volume), ``right_subpixel``, ``aggregation="box"`` and the vertical
 cross-checker (``band_check_mode="vertical"``).
 
@@ -192,8 +194,8 @@ def sgm_aggregate(vol: torch.Tensor, cfg: StereoConfig,
     """Semi-global aggregation of a (D, H, W) volume: the mean of the 4
     paths, of the 2 horizontal ("h") or the 2 vertical ("v") ones: the
     volume-level form of the reference's ``sgm_aggregate``, which the
-    derived and diagonal right views materialise (the main path combines
-    inside the WTA)."""
+    derived right view materialises (the main path and the diagonal right
+    view combine inside the WTA)."""
     p1, p2 = cfg.sgm_p1, cfg.sgm_p2
     horiz = vert = None
     if dirs in ("4", "h"):
@@ -234,6 +236,32 @@ def derive_right_volume(vol: torch.Tensor, d_min: int, fill: float = 1.0,
                         stride: int = 1) -> torch.Tensor:
     """Right-view volume ``C_R(d, y, x) = C_L(d, y, x + d)`` (K3)."""
     return K.derive_right(vol, d_min, fill=fill, stride=stride)
+
+
+def diag_right_disparity(s_dhw: torch.Tensor, d_min: int,
+                         stride: int = 1) -> torch.Tensor:
+    """Right-view integer disparity as a diagonal argmin over the LEFT
+    combined SGM aggregate ``S`` (D, H, W), as K2 writes it with
+    ``with_aggregate``:
+
+        disp_r[y, x] = d_min + stride * argmin_i S[i, y, x + d_i]
+
+    (``d_i = d_min + i * stride``; candidates with ``x + d_i`` outside
+    ``[0, w)`` are excluded, ties go to the lowest ``i``, all-excluded
+    pixels take ``i = 0``): the argmin of the fill-padded ``"derived"``
+    right volume without the derive, the 2-path SGM and the second WTA
+    (the reference's ``diag_right_disparity_wdh``, an XLA scan there, plain
+    PyTorch here)."""
+    D, h, w = s_dhw.shape
+    d_max = d_min + (D - 1) * stride
+    lo, hi = max(0, -d_min), max(0, d_max)
+    # rows padded with BIG, read through a view whose slice i starts d_i
+    # columns to the right: one argmin (first minimum) over that view
+    padded = F.pad(s_dhw, (lo, hi), value=K.BIG)
+    wp = w + lo + hi
+    shifted = padded.as_strided((D, h, w), (h * wp + stride, wp, 1),
+                                lo + d_min)
+    return d_min + stride * shifted.argmin(0).float()
 
 
 def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
@@ -277,7 +305,7 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
     sub_r = cfg.right_subpixel and cfg.right_sgm != "diagonal"
 
     vol_l = build_cost_volume(left, right, valid_l, valid_r, cfg)
-    if aggregation == "box" or cfg.right_sgm in ("derived", "diagonal"):
+    if aggregation == "box" or cfg.right_sgm == "derived":
         # one volume for both views: the left one, shifted into the right
         # frame (an SGM aggregate is filled above any aggregated cost, so
         # padding never wins the right WTA)
@@ -294,13 +322,19 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
         del agg_r
     else:
         # left view: 4 directions -> (h + v) * 0.25 -> WTA + parabola +
-        # margin
+        # margin; for the diagonal right view K2 also writes the combined
+        # aggregate (no combine pass, no derive, no second WTA)
+        diagonal = cfg.right_sgm == "diagonal"
         horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
         vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
-        disp_l, cost_l, margin = K.wta(horiz, vert, 0.25, d_min, stride,
-                                       subpixel=True, with_margin=True)
+        disp_l, cost_l, margin, *agg_l = K.wta(
+            horiz, vert, 0.25, d_min, stride, subpixel=True,
+            with_margin=True, with_aggregate=diagonal)
         del horiz, vert
-        if cfg.right_sgm == "full":
+        if diagonal:
+            del vol_l
+            disp_r = diag_right_disparity(agg_l.pop(), d_min, stride)
+        elif cfg.right_sgm == "full":
             vol_r = derive_right_volume(vol_l, d_min, stride=stride)
             del vol_l
             horiz = K.sgm_pair(vol_r, p1, p2, horizontal=True)

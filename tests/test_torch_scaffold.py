@@ -106,12 +106,32 @@ def test_nvcc_command_names_sm90a_and_every_source():
     assert lib.name.startswith("libpcmi_kernels_") and lib.suffix == ".so"
 
 
+def test_library_name_hashes_sources_and_headers(tmp_path, monkeypatch):
+    """An edited source or shared header gives another library name, so a
+    stale build is never loaded."""
+    import shutil
+
+    assert [h.name for h in _build.headers()] == ["sgm_tile.cuh"]
+    for src in ("sgm_dir.cu", "sgm_blocked.cu", "sgm_hwd.cu"):
+        assert '#include "sgm_tile.cuh"' in (PKG / "csrc" / src).read_text()
+    shutil.copytree(PKG / "csrc", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path / "csrc")
+    assert _build.library_path().parent == _build.BUILD_DIR
+    names = {_build.library_path().name}
+    for edited in ("sgm_tile.cuh", "wta.cu"):
+        with open(tmp_path / "csrc" / edited, "a") as fh:
+            fh.write("// edited\n")
+        names.add(_build.library_path().name)
+    assert len(names) == 3
+
+
 def test_cpu_tensors_leave_launch_counters_at_zero():
     K.reset_launches()
     vol = torch.rand(6, 5, 7, generator=torch.Generator().manual_seed(0))
     h = K.sgm_pair(vol, 0.03, 0.48, horizontal=True)
     v = K.sgm_pair(vol, 0.03, 0.48, horizontal=False)
     K.wta(h, v, 0.25, -3, 1, True, True)
+    K.wta(h, v, 0.25, -3, 1, True, True, with_aggregate=True)
     K.wta(vol, None, 1.0, -3, 1, False, False)
     K.derive_right(vol, -3, 1.0, 1)
     hwd = vol.permute(1, 2, 0).contiguous()
@@ -144,6 +164,52 @@ def test_sgm_dir_plan_fits_every_disparity_count(span, horizontal):
     for D in (0, K.SGM_DIR_MAX_DISP + 1):
         with pytest.raises(ValueError):
             K.sgm_dir_plan(D, span, horizontal, False)
+
+
+@pytest.mark.parametrize("nb", [1, 7, 9])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_sgm_blocked_plan_fits_every_disparity_count(nb, with_prev):
+    """K5's launch plan fits one block's shared memory and thread limit
+    for every Dp the kernel takes, and passes the checks of
+    ``launch_tiles`` (csrc/sgm_tile.cuh) and ``pcmi_sgm_blocked``."""
+    for Dp in range(1, K.SGM_BLOCKED_MAX_DISP + 1):
+        p = K.sgm_blocked_plan(Dp, nb, with_prev)
+        assert p.smem == K.sgm_dir_smem(Dp, p.paths, p.tile, with_prev) \
+            <= K.SMEM_BLOCK_MAX
+        threads = max(256, 32 * p.paths)
+        assert p.paths in (8, 16) and threads <= 512
+        assert K.BAND % p.paths == 0
+        assert _pow2(p.tile) and p.tile <= 32
+        assert p.paths * p.tile <= threads
+    for Dp in (0, K.SGM_BLOCKED_MAX_DISP + 1):
+        with pytest.raises(ValueError):
+            K.sgm_blocked_plan(Dp, nb, with_prev)
+    # the shapes of the card's parity phase: the measured best
+    assert K.sgm_blocked_plan(80, 7, with_prev)[:2] == (8, 8)
+    assert K.sgm_blocked_plan(144, 9, with_prev)[:2] == (16, 4 if with_prev
+                                                         else 8)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_sgm_hwd_plan_fits_every_disparity_count(accumulate):
+    """K4's launch plan fits one block's shared memory and thread limit
+    for every D the kernel takes and passes the checks of
+    ``pcmi_sgm_hwd`` (csrc), whose block is ``SGM_HWD_WARPS`` warps."""
+    src = (PKG / "csrc" / "sgm_hwd.cu").read_text()
+    assert f"constexpr int kWarps = {K.SGM_HWD_WARPS};" in src
+    assert 32 * K.SGM_HWD_WARPS <= 1024
+    for D in range(1, K.SGM_HWD_MAX_DISP + 1):
+        p = K.sgm_hwd_plan(D, accumulate)
+        assert p.smem == K.sgm_hwd_smem(D, p.tile, accumulate) \
+            <= K.SMEM_BLOCK_MAX
+        assert 1 <= p.tile <= 16
+        assert p.tile == 1 or p.smem <= K.SGM_HWD_WARPS * 10 * 1024
+    for D in (0, K.SGM_HWD_MAX_DISP + 1):
+        with pytest.raises(ValueError):
+            K.sgm_hwd_plan(D, accumulate)
+    # the shapes of the card's parity phase: the measured best
+    assert K.sgm_hwd_plan(80, accumulate).tile == (8 if accumulate else 16)
+    assert K.sgm_hwd_plan(144, accumulate).tile == (4 if accumulate else 8)
 
 
 def test_wrappers_refuse_other_devices():

@@ -150,6 +150,77 @@ def test_fused_left_matches_sgm4_wta_pallas(rng, stride, d_min):
                                               np.float32))
 
 
+@pytest.mark.parametrize("shape,stride,d_min", [((16, 24, 40), 1, 0),
+                                                ((16, 19, 33), 2, -4)])
+def test_wta_with_aggregate_matches_pallas(rng, shape, stride, d_min):
+    """K2's fourth output S against sgm4_wta_fused_pallas(with_aggregate=
+    True), cropped and moved to (D, H, W): <= 1e-4 (sums of four SGM
+    directions); disp, best and margin are unchanged by the flag, exact."""
+    d, h, w = shape
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    cfg = StereoConfig(max_disp=16)
+    ref = jpk.sgm4_wta_fused_pallas(
+        jnp.asarray(vol), cfg.sgm_p1, cfg.sgm_p2, d_min, stride=stride,
+        band=8, chunk=8, with_aggregate=True)
+    assert len(ref) == 4
+    s_ref = np.transpose(np.asarray(ref[3])[:w, :d, :h], (1, 2, 0))
+    t = _t(vol)
+    hz = K.sgm_pair(t, cfg.sgm_p1, cfg.sgm_p2, horizontal=True)
+    vt = K.sgm_pair(t, cfg.sgm_p1, cfg.sgm_p2, horizontal=False)
+    got = K.wta(hz, vt, 0.25, d_min, stride, with_aggregate=True)
+    assert len(got) == 4 and got[3].shape == t.shape
+    np.testing.assert_allclose(_np(got[3]), s_ref, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(_np(got[3]), _np((hz + vt) * 0.25))
+    base = K.wta(hz, vt, 0.25, d_min, stride)
+    assert len(base) == 3
+    for g, r in zip(got[:3], base):
+        np.testing.assert_array_equal(_np(g), _np(r))
+    np.testing.assert_allclose(_np(got[0]), np.asarray(ref[0]),
+                               atol=DISP_TOL, rtol=0)
+    with pytest.raises(ValueError, match="with_aggregate"):
+        K.wta(hz, None, 0.5, d_min, stride, with_aggregate=True)
+
+
+@pytest.mark.parametrize("d_min,stride", [(-6, 1), (3, 1), (-8, 2), (2, 2),
+                                          (9, 1), (-14, 2), (12, 1),
+                                          (-40, 2)])
+def test_diag_right_disparity_exact(rng, d_min, stride):
+    """The diagonal argmin against diag_right_disparity_wdh on the same S,
+    exact: d_min of both signs, stride 1 and 2, ranges that exclude every
+    candidate of some pixels (9, -14) and of every pixel (12, -40)."""
+    d, h, w = 6, 5, 12
+    s = rng.uniform(0, 1, (d, h, w)).astype(np.float32)
+    s[2, :, 3:6] = s[4, :, 3:6] = 0.0     # ties: the lowest i wins
+    ref = np.asarray(jm.diag_right_disparity_wdh(
+        jnp.asarray(np.transpose(s, (2, 0, 1))), d_min, d, h, w,
+        stride=stride))
+    got = _np(tm.diag_right_disparity(_t(s), d_min, stride))
+    np.testing.assert_array_equal(got, ref)
+    if d_min in (9, -14, 12, -40):
+        xs = np.arange(w)[None, :] + d_min + stride * np.arange(d)[:, None]
+        dead = ~((xs >= 0) & (xs < w)).any(0)
+        assert dead.any() and (got[:, dead] == d_min).all()
+        assert dead.all() == (d_min in (12, -40))
+
+
+def test_diagonal_equals_derived(rng):
+    """right_sgm="diagonal" (K2's aggregate + the diagonal argmin) gives
+    the fields of "derived" (combine pass + derive + second WTA), exact."""
+    left, right, vl, vr = _small_pair(rng)
+    args = [_t(a) for a in (left, right, vl, vr)]
+    res = {}
+    for mode in ("derived", "diagonal"):
+        cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                           cost_dtype="float32", right_sgm=mode)
+        res[mode] = tm.compute_disparity(*args, _c(cfg))
+    for f, a in res["derived"]._asdict().items():
+        b = getattr(res["diagonal"], f)
+        if a is None:
+            assert b is None, f
+        else:
+            np.testing.assert_array_equal(_np(a), _np(b), err_msg=f)
+
+
 @pytest.mark.parametrize("shape,stride", [((16, 19, 33), 2)])
 def test_fused_right_matches_pallas(rng, shape, stride):
     """derive -> 2 horizontal sgm_dir -> argmin vs
