@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
    (both directions, with and without ``prev``) bit-exact against their
    plain versions on small awkward volumes (``RAGGED``,
-   ``RAGGED_BLOCKED``); then each kernel against
+   ``RAGGED_BLOCKED``), K1, K3, K5 and K6 ``derive_right_wdh`` in
+   float32 and in bfloat16 (odd W, and storage 2 and 4 bytes past an
+   aligned address), K4 in float32 (in bfloat16 it must raise
+   ``TypeError``); then each kernel against
    its plain PyTorch version on seeded
    inputs on the card at two volume shapes, (80, 896, 896) (the headline
    pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2),
@@ -26,7 +29,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1e-6, its combined aggregate (``with_aggregate``) bit-exact and the
    diagonal argmin over it equal to the derived right view's; the two alternative-layout SGMs (``layouts.sgm_aggregate_hwd`` and
    ``sgm_aggregate_blocked``) within 1e-4 of K1's ``sgm_aggregate``, and
-   the (W, Dp, H)-derive right view equal to the default one;
+   the (W, Dp, H)-derive right view equal to the default one; then all
+   of this once more on bfloat16 volumes (every kernel but K4), with the
+   same gates, volumes and indices bit-exact, against bounds whose
+   volumes count 2 bytes an element (the (H, W) planes stay float32),
+   and K5's aggregate within four bfloat16 steps of K1's (``_agg_tol``);
 4. headline slice: the port's seed-1 synthetic scene (512x512 images,
    640x640 ground, heights 0-40 m) through ``HeightMapPipeline`` on
    ``cuda`` (``build_geometry`` -> ``process_pair``); height RMSE against
@@ -36,7 +43,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. alternative layouts: the three entry points of ``ops.stereo.layouts``
    on the headline pair's cost volume, with the launch counts set to 0
    just before and read just after (each of K4-K6 must launch), their
-   results held against the main path's K1-K3 forms;
+   results held against the main path's K1-K3 forms; then on the
+   bfloat16 cost volume (K5 and K6 must launch, ``sgm_aggregate_hwd``
+   must refuse it);
 6. matcher variants: ``compute_disparity`` on the headline pair with
    ``right_sgm`` derived / diagonal / full, ``right_subpixel``,
    ``aggregation="box"`` and ``band_check_mode="vertical"``; every output
@@ -47,6 +56,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (0, 1) on the canvas of all ten pairs, ``disp_stride=2``, as ``strict``
    (gated at RMSE <= 1.0 m and valid >= 0.5) and as ``dense`` (the
    vertical cross-checker; finite and its launch counts only);
+7b. the bfloat16 mode end to end: the headline pair (phase 4's entry
+   point) and the D = 288 pair, strict and dense (phase 7's), under
+   ``cost_dtype="bfloat16"``: RMSE <= 1.0 m and valid >= 0.5 (headline,
+   strict), 6/3/1 launches (8/3/1 dense), each printed beside its
+   float32 run: RMSE, valid fraction, peak memory and ms per pair, timed
+   in turns float32, bfloat16, bfloat16, float32 (min, median, max);
 8. the fused D = 288 DSM (``bench.py``'s fused section, uncut): all ten
    pairs of phase 7's scene, dense, on the common 1152x1152 canvas, each
    through ``pair_core`` and ``dsm_update`` (3-sigma gate) on the 0.6 m
@@ -69,9 +84,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     completeness >= 0.4 on every seed (the reference's >= 0.5 is
     printed).
 
-The last lines are a summary of phases 8-10 (under 1500 characters; each
+The last lines are a summary of phases 7b-10 (under 1500 characters; each
 phase prints its full line above), a JSON object with each kernel's
-numbers (``{"kernels": [...]}``), the card's name and power limit, then
+numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
+launches on the bfloat16 headline pair or layouts run, and its error,
+time and bound at the same shape; its plain version's time is in phase
+3's lines), the card's name and power limit, then
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
 non-zero and prints no result.
 """
@@ -182,12 +200,21 @@ def _maxerr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
-def bound(name: str, shape) -> tuple[float, str]:
+def _esize(dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def _name(dtype) -> str:
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def bound(name: str, shape, esize: int = 4) -> tuple[float, str]:
     """The least time in ms the card could take for one launch of kernel
-    ``name`` on a (D, H, W) volume, and what bounds it."""
+    ``name`` on a (D, H, W) volume of ``esize``-byte elements (the (H, W)
+    planes are float32 for either), and what bounds it."""
     D, H, W = shape
     vols, planes, ops = WORK[name]
-    nbytes = (vols * D * H * W + planes * H * W) * 4
+    nbytes = vols * D * H * W * esize + planes * H * W * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops * D * H * W / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -205,17 +232,21 @@ def _gather_right(vol, d_min: int, stride: int):
     return lambda: torch.gather(volp, 2, idx)
 
 
-def phase_parity(shape, stride: int, seed: int) -> dict:
-    """Each kernel against its plain version at one volume shape."""
+def phase_parity(shape, stride: int, seed: int,
+                 dtype=torch.float32) -> dict:
+    """Each kernel against its plain version at one volume shape, on
+    float32 or bfloat16 volumes (K4 is float32 only: in bfloat16 it must
+    raise ``TypeError``)."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo.matching import diag_right_disparity
 
     D, H, W = shape
     d_min = -(D * stride) // 2
     p1, p2 = 0.03, 0.48
+    esize = _esize(dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    vol = torch.rand(shape, generator=gen, device="cuda")
+    vol = torch.rand(shape, generator=gen, device="cuda").to(dtype)
     res = {}
     ok = True
 
@@ -235,7 +266,7 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     ms_h = _median_ms(lambda: sgm_k(vol, True), 3) / 2
     ms_v = _median_ms(lambda: sgm_k(vol, False), 3) / 2
     pms = _median_ms(lambda: (sgm_p(vol, True), sgm_p(vol, False)), 2) / 4
-    b1 = bound("sgm_dir", shape)[0]
+    b1 = bound("sgm_dir", shape, esize)[0]
     print(f"  sgm_dir per launch: horizontal {ms_h:.3f} ms "
           f"({b1 / ms_h:.1%} of its {b1:.3f} ms bound), vertical "
           f"{ms_v:.3f} ms ({b1 / ms_v:.1%})")
@@ -301,7 +332,8 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     del s_vol
     ms_s = _median_ms(lambda: K.wta(h, v, 0.25, d_min, stride, True, True,
                                     with_aggregate=True), 5)
-    bound_s = (3 * D * H * W + 3 * H * W) * 4 / HBM_BYTES_PER_S * 1e3
+    bound_s = ((3 * D * H * W * esize + 3 * H * W * 4)
+               / HBM_BYTES_PER_S * 1e3)
     print(f"  wta[left + aggregate] D={D} S_err={s_err:.3g} "
           f"{'ok' if s_ok else 'FAIL'}: {ms_s:.3f} ms ({bound_s / ms_s:.1%} "
           f"of its {bound_s:.3f} ms bound), without S {ms:.3f} ms; "
@@ -334,20 +366,20 @@ def phase_parity(shape, stride: int, seed: int) -> dict:
     ref4 = (h + v) / 4.0
     del h, v
     res.update(_parity_layouts(vol, ref4, p1, p2, d_min, stride))
-    ok &= all(res[n]["exact"] for n in ("sgm_hwd", "sgm_blocked",
-                                        "derive_right_wdh"))
+    ok &= all(r["exact"] for r in res.values())
     for name, r in res.items():
-        r["bound_ms"], r["bound_by"] = bound(name, shape)
+        r["bound_ms"], r["bound_by"] = bound(name, shape, esize)
         r.setdefault("library_ms", None)
         lib = (f"  library {r['library_ms']:.3f} ms" if r["library_ms"]
                else "")
-        print(f"parity {name} shape={tuple(shape)} stride={stride}: "
+        print(f"parity {_name(dtype)} {name} shape={tuple(shape)} "
+              f"stride={stride}: "
               f"max_abs_err={r['max_abs_err']:.3g} exact={r['exact']} "
               f"kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
               f"{r['bound_ms'] / r['ms']:.1%}){lib}")
     if not ok:
-        raise SystemExit(f"kernel parity failed at {shape}")
+        raise SystemExit(f"kernel parity failed at {shape} in {_name(dtype)}")
     return res
 
 
@@ -355,8 +387,10 @@ def phase_ragged() -> None:
     """K1 and K4 (all four directions, forward and accumulate) and K3
     (shifts of either sign, one past the row) bit-exact against their plain
     versions on :data:`RAGGED`, and once more on a volume whose storage
-    starts 4 bytes past an aligned address; K5 (both directions, with and
-    without ``prev``) on :data:`RAGGED_BLOCKED`."""
+    starts 4 bytes past an aligned address; K2 (two inputs, with the
+    aggregate) on the same volumes; K5 (both directions, with and
+    without ``prev``) on :data:`RAGGED_BLOCKED`; K6 on a padded volume.
+    K1, K2, K3, K5 and K6 in float32 and in bfloat16."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo._build import load
 
@@ -367,36 +401,58 @@ def phase_ragged() -> None:
         raise SystemExit("the wrappers' and the kernels' largest D differ")
     p1, p2 = 0.03, 0.48
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = [(shape, stride, 0) for shape, stride in RAGGED]
-    cases.append(((4, 9, 64), 1, 1))
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [(shape, stride, 0, dt) for dt in (f32, b16)
+             for shape, stride in RAGGED]
+    # storage that starts 4 bytes past an aligned address, and in bfloat16
+    # also 2 bytes past one (below cp.async's smallest copy)
+    cases += [((4, 9, 64), 1, 1, f32), ((4, 9, 64), 1, 2, b16),
+              ((4, 9, 64), 1, 1, b16)]
     bad = []
-    for shape, stride, offset in cases:
+    for shape, stride, offset, dt in cases:
         D, H, W = shape
         n = D * H * W
-        vol = torch.rand(n + offset, generator=gen, device="cuda")[
+        vol = torch.rand(n + offset, generator=gen, device="cuda").to(dt)[
             offset:].view(shape)
-        base = torch.rand(shape, generator=gen, device="cuda")
+        base = torch.rand(shape, generator=gen, device="cuda").to(dt)
         plans = set()
         for horizontal, reverse in itertools.product((True, False),
                                                      repeat=2):
             for acc in (False, True):
                 plans.add(K.sgm_dir_plan(D, H if horizontal else W,
-                                         horizontal, acc))
+                                         horizontal, acc, _esize(dt)))
                 out = base.clone() if acc else None
                 got = K.sgm_dir(vol, p1, p2, horizontal, reverse, out=out)
                 ref = K.sgm_dir_plain(vol, p1, p2, horizontal, reverse,
                                       out=base.clone() if acc else None)
                 torch.cuda.synchronize()
                 if not torch.equal(got, ref):
-                    bad.append(("sgm_dir", shape, horizontal, reverse, acc,
-                                _maxerr(got, ref)))
+                    bad.append(("sgm_dir", _name(dt), shape, horizontal,
+                                reverse, acc, _maxerr(got, ref)))
         for d_min in (-(D * stride) // 2, 3, -D * stride - 2, W):
             got = K.derive_right(vol, d_min, 0.5, stride)
             ref = K.derive_right_plain(vol, d_min, 0.5, stride)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
-                bad.append(("derive_right", shape, d_min, _maxerr(got, ref)))
-        # K4 on the same extents with D on the fast axis
+                bad.append(("derive_right", _name(dt), shape, d_min,
+                            _maxerr(got, ref)))
+        # K2 on the same extents (an odd H * W, or storage off a 4-byte
+        # address, takes bfloat16 one pixel per thread): indices and the
+        # aggregate exact, best and margin within 1e-6
+        got = K.wta(vol, base, 0.25, -(D * stride) // 2, stride, False, True,
+                    with_aggregate=True)
+        ref = K.wta_plain(vol, base, 0.25, -(D * stride) // 2, stride, False,
+                          True, with_aggregate=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
+                and _maxerr(got[1], ref[1]) <= 1e-6
+                and _maxerr(got[2], ref[2]) <= 1e-6):
+            bad.append(("wta", _name(dt), shape, offset))
+        if dt == b16:
+            print(f"ragged bfloat16 {shape} stride={stride} offset={offset}:"
+                  f" sgm_dir plans {sorted(tuple(p) for p in plans)}")
+            continue
+        # K4 (float32 only) on the same extents with D on the fast axis
         hwd = torch.rand(n + offset, generator=gen, device="cuda")[
             offset:].view(H, W, D)
         base = base.permute(1, 2, 0).contiguous()
@@ -413,34 +469,57 @@ def phase_ragged() -> None:
         print(f"ragged {shape} stride={stride} offset={offset}: sgm_dir "
               f"plans {sorted(tuple(p) for p in plans)}, sgm_hwd plans "
               f"{[tuple(K.sgm_hwd_plan(D, a)) for a in (False, True)]}")
-    for nb, S, Dp in RAGGED_BLOCKED:
-        vb = torch.rand((nb, S, Dp, K.BAND), generator=gen, device="cuda")
-        prev = torch.rand(vb.shape, generator=gen, device="cuda")
+    for (nb, S, Dp), dt in itertools.product(RAGGED_BLOCKED, (f32, b16)):
+        vb = torch.rand((nb, S, Dp, K.BAND), generator=gen,
+                        device="cuda").to(dt)
+        prev = torch.rand(vb.shape, generator=gen, device="cuda").to(dt)
         for reverse, pv in itertools.product((False, True), (None, prev)):
             got = K.sgm_blocked(vb, p1, p2, reverse, prev=pv)
             ref = K.sgm_blocked_plain(vb, p1, p2, reverse, prev=pv)
             torch.cuda.synchronize()
             if not torch.equal(got, ref):
-                bad.append(("sgm_blocked", tuple(vb.shape), reverse,
-                            pv is not None, _maxerr(got, ref)))
-        print(f"ragged blocked {tuple(vb.shape)}: sgm_blocked plans "
-              f"{[tuple(K.sgm_blocked_plan(Dp, nb, a)) for a in (False, True)]}")
-    print(f"ragged: {len(cases)} + {len(RAGGED_BLOCKED)} volumes, "
+                bad.append(("sgm_blocked", _name(dt), tuple(vb.shape),
+                            reverse, pv is not None, _maxerr(got, ref)))
+        print(f"ragged blocked {_name(dt)} {tuple(vb.shape)}: sgm_blocked "
+              f"plans {[tuple(K.sgm_blocked_plan(Dp, nb, a, _esize(dt))) for a in (False, True)]}")
+    # K6 in both types on a padded (Wp, Dp, Hp) volume with an odd Hp
+    for dt, (d_min, stride, fill) in itertools.product(
+            (f32, b16), ((0, 1, 1.0), (-4, 2, 1.0), (-12, 1, 1e4))):
+        wdh = torch.rand((48, 16, 21), generator=gen, device="cuda").to(dt)
+        got = K.derive_right_wdh(wdh, 13, 37, d_min, stride, fill)
+        ref = K.derive_right_wdh_plain(wdh, 13, 37, d_min, stride, fill)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad.append(("derive_right_wdh", _name(dt), d_min, stride, fill,
+                        _maxerr(got, ref)))
+    try:
+        K.sgm_hwd(torch.zeros((4, 5, 8), dtype=b16, device="cuda"), p1, p2,
+                  0, False)
+        bad.append(("sgm_hwd", "took a bfloat16 volume"))
+    except TypeError:
+        pass
+    print(f"ragged: {len(cases)} + {2 * len(RAGGED_BLOCKED)} volumes, "
           f"mismatches {bad}")
     if bad:
         raise SystemExit(f"ragged parity failed: {bad}")
 
 
-def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
-    """K4-K6 against their plain versions (bit-exact) and their entry
-    points against the main path's K1-K3 forms, on one volume."""
+def _agg_tol(ref4) -> float:
+    """How far a layouts aggregate may lie from K1's ``ref4``: 1e-4 in
+    float32; in bfloat16 four steps of the largest value (K5 rounds
+    ``state + prev`` once where K1 adds two stored volumes, so each pair of
+    directions may land a step apart before the combine)."""
+    if ref4.dtype == torch.float32:
+        return 1e-4
+    return float(ref4.max()) / 32
+
+
+def _parity_hwd(vol, ref4, p1, p2) -> dict:
+    """K4 on the (H, W, D) volume, both scan axes, each as a fwd + bwd
+    pair (float32 only)."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo import layouts as L
 
-    D, H, W = vol.shape
-    res = {}
-
-    # K4 on the (H, W, D) volume, both scan axes, each as a fwd + bwd pair
     hwd = vol.permute(1, 2, 0).contiguous()
 
     def hwd_k(axis):
@@ -471,8 +550,22 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
           f"({b4 / ms_h:.1%} of its {b4:.3f} ms bound), vertical "
           f"{ms_v:.3f} ms ({b4 / ms_v:.1%}); sgm_aggregate_hwd {ms_agg:.3f} ms, "
           f"max |diff| to K1's sgm_aggregate {agg_err:.3g}")
-    res["sgm_hwd"] = dict(max_abs_err=err, exact=exact and agg_err <= 1e-4,
-                          ms=(ms_h + ms_v) / 2, plain_ms=pms)
+    return dict(max_abs_err=err, exact=exact and agg_err <= 1e-4,
+                ms=(ms_h + ms_v) / 2, plain_ms=pms)
+
+
+def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
+    """K4-K6 against their plain versions (bit-exact) and their entry
+    points against the main path's K1-K3 forms, on one volume."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo import layouts as L
+
+    D, H, W = vol.shape
+    res = {}
+    esize = _esize(vol.dtype)
+    tol = _agg_tol(ref4)
+    if esize == 4:
+        res["sgm_hwd"] = _parity_hwd(vol, ref4, p1, p2)
 
     # K5 on the blocked (nb, S, D, 128) volumes of both scan axes (W and H
     # are multiples of 128 and D of 8 here, so no padding)
@@ -501,13 +594,13 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     agg_err = _maxerr(agg, ref4)
     del agg
     ms_agg = _median_ms(lambda: L.sgm_aggregate_blocked(vol, p1, p2), 3)
-    b5 = bound("sgm_blocked", vol.shape)[0]
+    b5 = bound("sgm_blocked", vol.shape, esize)[0]
     print(f"  sgm_blocked per launch: horizontal {ms[1]:.3f} ms "
           f"({b5 / ms[1]:.1%} of its {b5:.3f} ms bound), vertical "
           f"{ms[0]:.3f} ms ({b5 / ms[0]:.1%}); sgm_aggregate_blocked "
           f"{ms_agg:.3f} ms, max |diff| to K1's sgm_aggregate {agg_err:.3g}")
     res["sgm_blocked"] = dict(max_abs_err=err,
-                              exact=exact and agg_err <= 1e-4,
+                              exact=exact and agg_err <= tol,
                               ms=sum(ms) / 2, plain_ms=sum(pms) / 2)
 
     # K6 on the (W, D, H) volume at the main path's extents
@@ -530,6 +623,17 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     res["derive_right_wdh"] = dict(max_abs_err=err, exact=exact and same,
                                    ms=ms, plain_ms=pms)
     return res
+
+
+class Headline(NamedTuple):
+    """Phase 4's pipeline, geometry, matcher config and images on the card,
+    reused by phases 5, 6 and 7b."""
+    pipe: object
+    geom: object
+    scfg: object
+    img1: object
+    img2: object
+    scene: object
 
 
 def phase_headline() -> dict:
@@ -570,6 +674,29 @@ def phase_headline() -> dict:
     ms = _median_ms(pair, 5)  # one more warm-up inside, then 5 timed
 
     h, w = geom.out_shape
+    ctx = Headline(pipe, geom, scfg, img1, img2, scene)
+    rmse, vf = _headline_accuracy(ctx, prod)
+    out = dict(canvas=[h, w], max_disp=scfg.max_disp, height_rmse_m=rmse,
+               valid_fraction=vf, ms_per_pair=ms,
+               mpix_per_s=h * w / ms / 1e3, peak_mem_mb=peak / 2**20,
+               launches=launches)
+    print("headline:", json.dumps(out))
+    if not rmse <= 1.0:
+        raise SystemExit(f"headline: height RMSE {rmse} m > 1.0 m")
+    if not vf >= 0.5:
+        raise SystemExit(f"headline: valid fraction {vf} < 0.5")
+    if launches != PER_PAIR:
+        raise SystemExit(f"headline: launches per pair {launches}, "
+                         f"expected {PER_PAIR}")
+    return out, ctx
+
+
+def _headline_accuracy(ctx, prod):
+    """Height RMSE of a headline pair product against the scene's exact
+    truth and its valid share of the observable canvas. Fails the run on a
+    non-finite or misshaped product."""
+    scene = ctx.scene
+    h, w = ctx.geom.out_shape
     valid = prod.valid.cpu().numpy()
     xyz = prod.xyz.cpu().numpy()
     height = prod.height.cpu().numpy()
@@ -586,20 +713,7 @@ def phase_headline() -> dict:
     m = valid & inb
     rmse = float(np.sqrt(np.mean((height[m] - tt[m]) ** 2)))
     observable = ((prod.rect_left >= 0) & (prod.rect_right >= 0)).cpu().numpy()
-    vf = float(valid.sum() / max(observable.sum(), 1))
-    out = dict(canvas=[h, w], max_disp=scfg.max_disp, height_rmse_m=rmse,
-               valid_fraction=vf, ms_per_pair=ms,
-               mpix_per_s=h * w / ms / 1e3, peak_mem_mb=peak / 2**20,
-               launches=launches)
-    print("headline:", json.dumps(out))
-    if not rmse <= 1.0:
-        raise SystemExit(f"headline: height RMSE {rmse} m > 1.0 m")
-    if not vf >= 0.5:
-        raise SystemExit(f"headline: valid fraction {vf} < 0.5")
-    if launches != PER_PAIR:
-        raise SystemExit(f"headline: launches per pair {launches}, "
-                         f"expected {PER_PAIR}")
-    return out, (pipe, geom, scfg, img1, img2)
+    return rmse, float(valid.sum() / max(observable.sum(), 1))
 
 
 def _matcher_inputs(ctx):
@@ -607,7 +721,7 @@ def _matcher_inputs(ctx):
     from pcmi_tpu_torch.geometry.rectify import rectify_arrays
     from pcmi_tpu_torch.pipelines.height_map import matcher_inputs
 
-    pipe, geom, scfg, img1, img2 = ctx
+    pipe, geom, scfg, img1, img2 = ctx[:5]
     r1, r2 = rectify_arrays(img1, img2,
                             torch.as_tensor(geom.H1, dtype=torch.float32),
                             torch.as_tensor(geom.H2, dtype=torch.float32),
@@ -615,38 +729,50 @@ def _matcher_inputs(ctx):
     return matcher_inputs(r1, r2, scfg)[:4]
 
 
-def phase_layouts(ctx) -> dict:
+def phase_layouts(ctx, cost_dtype: str = "float32") -> dict:
     """The entry points of ``ops.stereo.layouts`` on the headline pair's
-    cost volume, counted, and held against the main path's forms."""
+    cost volume, counted, and held against the main path's forms. In
+    bfloat16 ``sgm_aggregate_hwd`` must refuse the volume."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo import layouts as L
     from pcmi_tpu_torch.ops.stereo.matching import (
         build_cost_volume, sgm_aggregate)
 
-    scfg = ctx[2]
+    scfg = dataclasses.replace(ctx[2], cost_dtype=cost_dtype)
     n1, n2, v1, v2 = _matcher_inputs(ctx)
     vol = build_cost_volume(n1, n2, v1, v2, scfg)
     p1, p2, d_min = scfg.sgm_p1, scfg.sgm_p2, scfg.min_disparity
+    f32 = vol.dtype == torch.float32
     torch.cuda.synchronize()
     K.reset_launches()
-    hwd = L.sgm_aggregate_hwd(vol.permute(1, 2, 0).contiguous(), p1, p2)
+    hwd = None
+    if f32:
+        hwd = L.sgm_aggregate_hwd(vol.permute(1, 2, 0).contiguous(), p1, p2)
     blk = L.sgm_aggregate_blocked(vol, p1, p2)
     r_wdh = L.right_disparity_fused(vol, p1, p2, d_min, scfg.disp_stride,
                                     use_wdh_derive=True)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
+    if not f32:
+        try:
+            L.sgm_aggregate_hwd(vol.permute(1, 2, 0).contiguous(), p1, p2)
+            raise SystemExit("layouts: sgm_aggregate_hwd took bfloat16")
+        except TypeError:
+            pass
     ref = sgm_aggregate(vol, scfg)
     r_def = L.right_disparity_fused(vol, p1, p2, d_min, scfg.disp_stride)
-    out = dict(shape=list(vol.shape), launches=launches,
-               hwd_err=_maxerr(hwd.permute(2, 0, 1), ref),
-               blocked_err=_maxerr(blk, ref),
+    out = dict(dtype=_name(vol.dtype), shape=list(vol.shape),
+               launches=launches,
+               hwd_err=_maxerr(hwd.permute(2, 0, 1), ref) if f32 else None,
+               blocked_err=_maxerr(blk, ref), tolerance=_agg_tol(ref),
                wdh_right_equal=torch.equal(r_wdh, r_def))
     print("layouts:", json.dumps(out))
-    missing = [k for k in ("sgm_hwd", "sgm_blocked", "derive_right_wdh")
-               if launches[k] < 1]
+    missing = [k for k in (("sgm_hwd",) if f32 else ())
+               + ("sgm_blocked", "derive_right_wdh") if launches[k] < 1]
     if missing:
         raise SystemExit(f"layouts: {missing} never launched")
-    if not (out["hwd_err"] <= 1e-4 and out["blocked_err"] <= 1e-4
+    if not ((not f32 or out["hwd_err"] <= 1e-4)
+            and out["blocked_err"] <= out["tolerance"]
             and out["wdh_right_equal"]):
         raise SystemExit("layouts: results differ from the main path's")
     return out
@@ -832,6 +958,89 @@ def phase_d288() -> tuple[dict, D288]:
         raise SystemExit(f"d288 strict: valid fraction "
                          f"{out['strict']['valid_fraction']} < 0.5")
     return out, ctx
+
+
+def _turns(fns: dict, order, reps: int = 3) -> dict:
+    """Time the functions of ``fns`` in turns (``order`` names them, each
+    turn ``reps`` runs after one warm-up run): all times in ms per name."""
+    times = {k: [] for k in fns}
+    for k in order:
+        fns[k]()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _min_med_max(ts) -> list:
+    return [min(ts), statistics.median(ts), max(ts)]
+
+
+def phase_bf16_pairs(ctx, head: dict, dctx: D288, d288: dict) -> dict:
+    """The headline pair and the D = 288 pair under
+    ``cost_dtype="bfloat16"``, through the same entry points as phases 4
+    and 7 and with their gates: RMSE <= 1.0 m, valid >= 0.5 and 6/3/1
+    launches (headline and strict), 8/3/1 and finite (dense). Each is
+    printed beside its float32 run, timed in turns float32, bfloat16,
+    bfloat16, float32 (min, median and max of six runs each)."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.pipelines.height_map import pair_core
+
+    pipe, geom, scfg, img1, img2 = ctx[:5]
+    r1, r2, M, b = _d288_inputs(dctx, 0)
+    pcts = dict(ground_percentile=dctx.cfg.height_percentiles[0],
+                cap_percentile=dctx.cfg.height_percentiles[1])
+    dense = dataclasses.replace(dctx.strict, band_check_mode="vertical")
+
+    def b16(cfg):
+        return dataclasses.replace(cfg, cost_dtype="bfloat16")
+
+    cells = {
+        "headline": (lambda c: pipe.process_pair(img1, img2, geom, c), scfg,
+                     head, PER_PAIR),
+        "d288_strict": (lambda c: pair_core(r1, r2, M, b, c, **pcts),
+                        dctx.strict, d288["strict"], PER_PAIR),
+        "d288_dense": (lambda c: pair_core(r1, r2, M, b, c, **pcts), dense,
+                       d288["dense"], PER_DENSE_PAIR),
+    }
+    out = {}
+    for name, (run, cfg, f32, expected) in cells.items():
+        cfg16 = b16(cfg)
+        run(cfg16)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        prod = run(cfg16)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if name == "headline":
+            rmse, vf = _headline_accuracy(ctx, prod)
+        else:
+            rmse, vf = _pair_accuracy(dctx.scene, prod, r1, r2)
+        ts = _turns({"float32": lambda: run(cfg), "bfloat16": lambda: run(cfg16)},
+                    ("float32", "bfloat16", "bfloat16", "float32"))
+        out[name] = dict(
+            height_rmse_m=rmse, valid_fraction=vf, peak_mem_mb=peak / 2**20,
+            ms_per_pair=_min_med_max(ts["bfloat16"]),
+            launches={k: n for k, n in launches.items() if n},
+            float32=dict(height_rmse_m=f32["height_rmse_m"],
+                         valid_fraction=f32["valid_fraction"],
+                         peak_mem_mb=f32["peak_mem_mb"],
+                         ms_per_pair=_min_med_max(ts["float32"])))
+        print(f"bfloat16 {name}:", json.dumps(out[name]))
+        _launched(f"bfloat16 {name}", launches, expected)
+        if name != "d288_dense":
+            if not rmse <= 1.0:
+                raise SystemExit(f"bfloat16 {name}: height RMSE {rmse} m > "
+                                 f"1.0 m")
+            if not vf >= 0.5:
+                raise SystemExit(f"bfloat16 {name}: valid fraction {vf} < "
+                                 f"0.5")
+    return out
 
 
 def _cell_truth(scene, cell: float):
@@ -1109,24 +1318,35 @@ def main() -> int:
     phase_ragged()
     par = [phase_parity(shape, stride, seed=i)
            for i, (shape, stride) in enumerate(SHAPES)]
+    par16 = [phase_parity(shape, stride, seed=i, dtype=torch.bfloat16)
+             for i, (shape, stride) in enumerate(SHAPES)]
     head, ctx = phase_headline()
     lay = phase_layouts(ctx)
+    lay16 = phase_layouts(ctx, "bfloat16")
     phase_variants(ctx)
     d288, dctx = phase_d288()
+    pairs16 = phase_bf16_pairs(ctx, head, dctx, d288)
     fused = phase_fused_d288(dctx, d288)
     md, stream = phase_multiday(dctx)
     lowtex = phase_lowtex()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = par[0][name]
-        run = lay if name in ("sgm_hwd", "sgm_blocked",
-                              "derive_right_wdh") else head
+        layouts = name in ("sgm_hwd", "sgm_blocked", "derive_right_wdh")
+        run = lay if layouts else head
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][name],
             max_abs_err=max(p[name]["max_abs_err"] for p in par),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name in par16[0]:  # every kernel but K4, float32 only
+            r = par16[0][name]
+            run = lay16 if layouts else pairs16["headline"]
+            kernels[-1]["bf16"] = dict(
+                launches=run["launches"][name],
+                max_abs_err=max(p[name]["max_abs_err"] for p in par16),
+                ms=r["ms"], bound_ms=r["bound_ms"])
 
     # the phases' own lines above carry every field and digit; these lines
     # stay short for readers of the output's tail
@@ -1145,9 +1365,17 @@ def main() -> int:
                       "median_m": stream["median_diff_m"]},
         "lowtex_fused": {"seeds": len(lowtex["seeds"]),
                          "worst_rmse_m": lowtex["worst_rmse_m"],
-                         "worst_comp": lowtex["worst_completeness"]}}
+                         "worst_comp": lowtex["worst_completeness"]},
+        "bfloat16": {
+            k: {"rmse_m": [v["height_rmse_m"],
+                           v["float32"]["height_rmse_m"]],
+                "valid": [v["valid_fraction"],
+                          v["float32"]["valid_fraction"]],
+                "ms": [v["ms_per_pair"][1], v["float32"]["ms_per_pair"][1]],
+                "peak_mb": [v["peak_mem_mb"], v["float32"]["peak_mem_mb"]]}
+            for k, v in pairs16.items()}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
-    kline = json.dumps({"kernels": _sig(kernels, 4)}, separators=(",", ":"))
+    kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:
         raise SystemExit(f"summary lines of {len(line)} and {len(kline)} "
                          f"characters")

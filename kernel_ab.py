@@ -3,21 +3,25 @@
 ``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``) of one or more
 checkouts on one CUDA card, in turns, one process per turn.
 
-    python3 kernel_ab.py ROOT [ROOT ...]
+    python3 kernel_ab.py ROOT[:DTYPE] [ROOT[:DTYPE] ...]
 
 Each ROOT is a directory holding a ``pcmi_tpu_torch`` package (this
 checkout, or an older one unpacked beside it); the turns run in the order
-given, so ``parent new new parent`` compares two versions on one card. Each
-turn builds that checkout's kernels, checks each kernel bit-exact against
+given, so ``parent new new parent`` compares two versions on one card.
+DTYPE is the volumes' element type, ``float32`` (the default) or
+``bfloat16`` (a checkout whose kernels take it; K4, float32 only, is then
+left out), so ``parent new new:bfloat16 new new:bfloat16 parent`` times
+the float32 kernels of both trees in turns and the bfloat16 ones beside
+them. Each turn builds that checkout's kernels, checks each kernel bit-exact against
 its plain version, and times, with CUDA events over 10 launches after a
 warm-up, K1's and K4's four launch kinds (horizontal / vertical, forward /
 accumulate), K5's (both scan axes' blocked volumes, forward / with
 ``prev``) and K3 at (80, 896, 896) stride 1 and (144, 1152, 1152) stride 2.
 It prints one JSON line per turn, each time beside its bound: the bytes the
-launch must move (each input read once, each output written once) over the
-H100's 3.35 TB/s. The card's name and power limit come first.
+launch must move (each input read once, each output written once, 4 or 2
+bytes an element) over the H100's 3.35 TB/s. The card's name and power limit come first.
 
-    python3 kernel_ab.py --ablate
+    python3 kernel_ab.py --ablate [--dtype DTYPE]
 
 takes K1, K4 and K5 of this checkout apart at their launch plans, through
 the switches of ``csrc/sgm_tile.cuh``: each launch kind at both shapes
@@ -27,7 +31,7 @@ stores alone) and with the device-memory traffic left out
 line each; then ``torch.profiler``'s device time of the kernels one
 ``sgm_pair`` per axis launches.
 
-    python3 kernel_ab.py --plans
+    python3 kernel_ab.py --plans [--dtype DTYPE]
 
 times this checkout's K5 at blocks of 8 and 16 lanes with every tile
 length that fits, and K4 at tiles of 1 to 32 steps, beside the plan the
@@ -67,14 +71,18 @@ def _bound_ms(volumes: float, v_bytes: int) -> float:
     return volumes * v_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def _volumes(shape):
+DTYPES = ("float32", "bfloat16")
+
+
+def _volumes(shape, dtype: str = "float32"):
     """The seeded cost volume of ``shape`` and a second one (the
-    accumulator, or ``prev``)."""
+    accumulator, or ``prev``), rounded to ``dtype``."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(shape[0])
-    return (torch.rand(shape, generator=gen, device="cuda"),
-            torch.rand(shape, generator=gen, device="cuda"))
+    dt = getattr(torch, dtype)
+    return (torch.rand(shape, generator=gen, device="cuda").to(dt),
+            torch.rand(shape, generator=gen, device="cuda").to(dt))
 
 
 def _blocked(vol, horizontal: bool):
@@ -103,16 +111,16 @@ def _pair_row(fwd, acc, fwd_plain, acc_plain, v_bytes: int) -> dict:
                 share=(b_f + b_a) / (ms_f + ms_a))
 
 
-def turn(root: str) -> dict:
+def turn(root: str, dtype: str = "float32") -> dict:
     sys.path.insert(0, root)
     import torch
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
     assert K.__file__.startswith(root), K.__file__
-    res = {"root": root}
+    res = {"root": root, "dtype": dtype}
     for (D, H, W), stride in SHAPES:
-        vol, acc = _volumes((D, H, W))
-        v_bytes = vol.numel() * 4
+        vol, acc = _volumes((D, H, W), dtype)
+        v_bytes = vol.numel() * vol.element_size()
         row = {}
         for horizontal, axis in AXES:
             row[f"sgm_{axis}"] = _pair_row(
@@ -131,7 +139,7 @@ def turn(root: str) -> dict:
                                    share=_bound_ms(2, v_bytes) / ms)
         del acc
         hwd = vol.permute(1, 2, 0).contiguous()
-        for horizontal, axis in AXES:
+        for horizontal, axis in AXES if dtype == "float32" else ():
             ax = 1 if horizontal else 0
             row[f"hwd_{axis}"] = _pair_row(
                 lambda: K.sgm_hwd(hwd, P1, P2, ax, False),
@@ -160,9 +168,9 @@ def _bind(lib):
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "pcmi_sgm_dir": [p, p, i, i, i, i, i, i, f, f, i, i, p],
+        "pcmi_sgm_dir": [p, p, i, i, i, i, i, i, f, f, i, i, i, p],
         "pcmi_sgm_hwd": [p, p, i, i, i, i, i, i, f, f, i, p],
-        "pcmi_sgm_blocked": [p, p, p, i, i, i, f, f, i, i, i, p],
+        "pcmi_sgm_blocked": [p, p, p, i, i, i, f, f, i, i, i, i, p],
     }
     for name, types in argtypes.items():
         getattr(lib, name).argtypes = types
@@ -212,6 +220,7 @@ def _raw_launchers(K, vol, out, hwd, hwd_out, blocked):
     import torch
 
     D, H, W = vol.shape
+    bf16 = int(vol.dtype == torch.bfloat16)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -219,7 +228,7 @@ def _raw_launchers(K, vol, out, hwd, hwd_out, blocked):
     def k1(lib, horizontal, acc, plan):
         return lib.pcmi_sgm_dir(vol.data_ptr(), out.data_ptr(), D, H, W,
                                 int(horizontal), 1, int(acc), P1, P2,
-                                plan[0], plan[1], stream())
+                                plan[0], plan[1], bf16, stream())
 
     def k4(lib, horizontal, acc, plan):
         return lib.pcmi_sgm_hwd(hwd.data_ptr(), hwd_out.data_ptr(), H, W, D,
@@ -231,8 +240,10 @@ def _raw_launchers(K, vol, out, hwd, hwd_out, blocked):
         return lib.pcmi_sgm_blocked(
             vb.data_ptr(), out.data_ptr() if acc else None,
             hwd_out.data_ptr(), vb.shape[0], vb.shape[1], D, P1, P2, 1,
-            plan[0], plan[1], stream())
+            plan[0], plan[1], bf16, stream())
 
+    if bf16:  # K4 is float32 only
+        return {"sgm_dir": k1, "sgm_blocked": k5}
     return {"sgm_dir": k1, "sgm_hwd": k4, "sgm_blocked": k5}
 
 
@@ -247,7 +258,7 @@ def _timed(call, *args) -> float | None:
     return _events_ms(run)
 
 
-def _study(ablation: bool) -> None:
+def _study(ablation: bool, dtype: str = "float32") -> None:
     import torch
 
     root = Path(__file__).resolve().parent
@@ -256,27 +267,28 @@ def _study(ablation: bool) -> None:
 
     libs = {n: _bind(lib) for n, lib in _ablation_libs(
         root, ABLATIONS if ablation else PLANS).items()}
+    esize = 2 if dtype == "bfloat16" else 4
     for (D, H, W), _ in SHAPES:
-        vol, out = _volumes((D, H, W))
+        vol, out = _volumes((D, H, W), dtype)
         hwd = vol.permute(1, 2, 0).contiguous()
         hwd_out = torch.empty_like(hwd)
         blocked = {hz: _blocked(vol, hz) for hz, _ in AXES}
         calls = _raw_launchers(K, vol, out, hwd, hwd_out, blocked)
-        v_bytes = vol.numel() * 4
+        v_bytes = vol.numel() * esize
         for name, (horizontal, axis), acc in itertools.product(
                 calls, AXES, (False, True)):
             if name == "sgm_dir":
                 chosen = K.sgm_dir_plan(D, H if horizontal else W,
-                                        horizontal, acc)[:2]
+                                        horizontal, acc, esize)[:2]
                 plans = [chosen]
             elif name == "sgm_hwd":
                 chosen = (K.sgm_hwd_plan(D, acc).tile,)
                 plans = [(t,) for t in (1, 2, 4, 8, 16, 32)]
             else:
                 chosen = K.sgm_blocked_plan(
-                    D, blocked[horizontal].shape[0], acc)[:2]
+                    D, blocked[horizontal].shape[0], acc, esize)[:2]
                 plans = list(itertools.product((8, 16), (1, 2, 4, 8)))
-            row = dict(kernel=name, shape=[D, H, W], axis=axis,
+            row = dict(kernel=name, dtype=dtype, shape=[D, H, W], axis=axis,
                        second_input=acc, plan=list(chosen),
                        bound_ms=_bound_ms(3 if acc else 2, v_bytes))
             if ablation:
@@ -315,13 +327,26 @@ def _smi() -> str:
                           text=True, check=True).stdout.strip()
 
 
+def _root_dtype(arg: str) -> tuple[str, str]:
+    """``ROOT`` or ``ROOT:DTYPE`` as (root, dtype)."""
+    root, _, dtype = arg.partition(":")
+    dtype = dtype or "float32"
+    if dtype not in DTYPES:
+        raise SystemExit(f"kernel_ab: unknown dtype {dtype!r}")
+    return root, dtype
+
+
 def main() -> int:
-    if sys.argv[1:] in (["--ablate"], ["--plans"]):
+    if sys.argv[1:2] in (["--ablate"], ["--plans"]) and (
+            len(sys.argv) == 2 or (len(sys.argv) == 4
+                                   and sys.argv[2] == "--dtype")):
+        dtype = _root_dtype(":" + sys.argv[3])[1] if len(sys.argv) == 4 \
+            else "float32"
         print(_smi())
-        _study(ablation=sys.argv[1] == "--ablate")
+        _study(ablation=sys.argv[1] == "--ablate", dtype=dtype)
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(sys.argv[2])))
+        print(json.dumps(turn(*_root_dtype(sys.argv[2]))))
         return 0
     import torch
 

@@ -90,13 +90,14 @@ class StereoConfig:
     lr_threshold_final: float = 3.0  # post-refinement threshold (ref :161)
     margin_undefined: int = 24       # invalid-mask dilation (ref constants.py:64)
     cost_type: str = "census_ad"     # census hamming + abs-diff mix
-    # Storage dtype of the (D, H, W) cost/aggregation volumes — the
-    # matcher's HBM traffic is dominated by streaming these, so bf16
-    # halves the memory-bound stages. All arithmetic (box aggregation, SGM
-    # recurrence state, WTA parabola) stays float32; only the stored
-    # volumes quantise (~0.4% of a unit-scale cost — measured: no change
-    # in height RMSE at the bench gates). "auto": bfloat16 on TPU, float32
-    # elsewhere (keeps CPU kernel-parity tests bit-exact).
+    # Storage dtype of the (D, H, W) cost/aggregation volumes: the
+    # matcher's memory traffic is dominated by streaming these, so
+    # "bfloat16" halves the bytes of the memory-bound stages. Box
+    # aggregation, the SGM recurrence state and the WTA planes stay
+    # float32; the stored volumes quantise (~0.4% of a unit-scale cost)
+    # and sums of stored volumes are bfloat16 adds, so the mode has
+    # results of its own. "auto" is float32 on every device here (the
+    # reference takes bfloat16 on its accelerator).
     cost_dtype: str = "auto"
     census_window: int = 7           # census transform window (<=7 for 48-bit)
     ad_weight: float = 0.3           # weight of AD term vs census term

@@ -53,6 +53,16 @@ def scene_from_arrays(images, terrain, ground_origin, ground_gsd: float,
         h_range=tuple(h_range))
 
 
+def tensor_from_reference(a) -> torch.Tensor:
+    """A reference array as a CPU tensor of the same element type. numpy
+    has no bfloat16 of its own, so such an array travels through float32
+    (every bfloat16 value is a float32 value: exact both ways)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
 def metas_from_reference(metas) -> list[ImageMeta]:
     """The port's :class:`ImageMeta` records from the reference's."""
     return [ImageMeta(index=int(m.index),

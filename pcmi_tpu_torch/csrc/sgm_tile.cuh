@@ -1,7 +1,8 @@
 // The SGM scan machinery shared by K1 sgm_dir (csrc/sgm_dir.cu), K5
 // sgm_blocked (csrc/sgm_blocked.cu) and K4 sgm_hwd (csrc/sgm_hwd.cu).
 //
-// Recurrence (Hirschmueller 2008), state zero at the path start, float32:
+// Recurrence (Hirschmueller 2008), state zero at the path start, float32
+// whatever the volume stores:
 //   L(p, d) = C(p, d) + min(L'(d), L'(d-1) + P1, L'(d+1) + P1, min L' + P2)
 //             - min L'
 // with "no neighbour" (1e9, as the reference's BIG padding) outside [0, D).
@@ -15,7 +16,8 @@
 // and the min over D is one redux.sync on the floats' order-preserving
 // integer images (scan_step). A scan step has no block-wide barrier.
 //
-// K1 and K5 share one kernel, sgm_tile_kernel. A block holds P
+// K1 and K5 share one kernel, sgm_tile_kernel (described here for float32
+// volumes; "Element types" below says what bfloat16 changes). A block holds P
 // neighbouring paths and streams the volume through shared memory in tiles
 // of T scan steps, described in element strides (Scan), so the (D, H, W)
 // volume on either axis and the blocked (nb, S, Dp, 128) volume are three
@@ -45,6 +47,25 @@
 // that defines SGM_TILE_KERNEL before the include (csrc/sgm_dir.cu) gets
 // the kernel and the definition of launch_tiles; the others call it.
 //
+// Element types. The tile kernel is instantiated for float32 and for
+// bfloat16 volumes (Scan.bf16). A bfloat16 tile rides the ring as stored,
+// in half the bytes; the scan widens each cost it reads, keeps its state
+// in float32 registers and rounds (nearest-even) what it writes back into
+// the tile, so the stores move finished bfloat16. A 16-byte copy is then 8
+// elements, a 4-byte one 2, and a volume whose rows are not even 4-byte
+// aligned (odd W) takes plain 2-byte loads and stores, below cp.async's
+// smallest copy. Planes lie 16 bytes more than O*R elements apart, so
+// every plane starts 16-byte aligned (in bfloat16 the 8-byte accesses of
+// the 4-steps-at-a-time scan then meet 2-way bank conflicts). The second
+// input is added by one of the TPU kernels' two rules:
+// * at the store (K1's accumulate; float32 always): the direction as
+//   stored plus the stored second input, the sum rounded: a bfloat16 add
+//   of two stored volumes, as the reference's `lr + rl`;
+// * in the scan (bfloat16 with Scan.once, K5's `prev`): the float32 state
+//   plus the second input, rounded once, as `_make_blocked_kernel` stores
+//   `(st + prev)`.
+// In float32 the two rules are one.
+//
 // Measurement switches (kernel_ab.py --ablate): -DSGM_NO_SCAN builds the
 // kernels with the scan left out (the copies and stores alone),
 // -DSGM_NO_COPY with the device-memory traffic left out (the scan alone, on
@@ -52,8 +73,10 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <type_traits>
 
 namespace {
 
@@ -73,7 +96,9 @@ constexpr bool kCopy = false;
 constexpr bool kCopy = true;
 #endif
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool vec) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (vec)
@@ -91,6 +116,45 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until this thread's copies have all landed
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// An element widened to float32, and a float32 rounded (nearest-even) into
+// an element.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ float lo_of(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_of(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// bfloat16 add of two packed pairs: widened, added, rounded
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  return pack2(lo_of(a) + lo_of(b), hi_of(a) + hi_of(b));
+}
+
+// Four consecutive elements as they lie in a tile (16 or 8 bytes), widened
+// to four float32 and rounded back
+template <typename E> struct Quad { using type = float4; };
+template <> struct Quad<bf16> { using type = uint2; };
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 u) {
+  return make_float4(lo_of(u.x), hi_of(u.x), lo_of(u.y), hi_of(u.y));
+}
+__device__ __forceinline__ void narrow(float4& q, float4 v) { q = v; }
+__device__ __forceinline__ void narrow(uint2& q, float4 v) {
+  q = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
 }
 
 // Floats as ints that order like the floats (NaN aside), so the warp's min
@@ -134,18 +198,22 @@ __device__ __forceinline__ void scan_step(float (&prev)[kPer],
 
 // Kernels above 48 KB of dynamic shared memory must opt in, once each.
 inline cudaError_t allow_smem(const void* fn) {
-  static const void* seen[4 * kMaxPer];
+  static const void* seen[8 * kMaxPer];
   static int n = 0;
   for (int i = 0; i < n; ++i)
     if (seen[i] == fn) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-  if (e == cudaSuccess && n < 4 * kMaxPer) seen[n++] = fn;
+  if (e == cudaSuccess && n < 8 * kMaxPer) seen[n++] = fn;
   return e;
 }
 
 inline bool aligned16(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+inline bool aligned4(const void* p) {
+  return reinterpret_cast<size_t>(p) % 4 == 0;
 }
 
 // The tile of scan-order steps [j*T, j*T + nt) covers the volume's steps
@@ -170,16 +238,34 @@ struct Scan {
   long long sB;           // element stride between bands (blockIdx.y)
   int horizontal, reverse;
   int T, P;               // a tile's steps; a block's paths
-  int R, O, Sp;           // a plane's runs of R floats, O runs, Sp apart
-  int vec;                // 1: 16-byte copies and stores, else 4-byte
+  int R, O, Sp;           // a plane's runs of R elements, O runs, Sp apart
+  int vec;                // copies and stores: 1: 16 bytes (4 float32 or 8
+                          // bfloat16); 0: one element (float32: 4 bytes;
+                          // bfloat16: 2 bytes, no cp.async); 2: 4 bytes
+                          // of bfloat16 (2 elements)
+  int bf16;               // the volumes are bfloat16, else float32
+  int once;               // bfloat16 second input: add in the scan (above)
 };
+
+// Scan.vec for runs of `run` elements in rows of W elements of `esize`
+// bytes, `a` and `b` the volumes' base pointers.
+static inline int copy_mode(int esize, int W, int run, const void* a,
+                            const void* b) {
+  const int per16 = 16 / esize;
+  if (W % per16 == 0 && run % per16 == 0 && aligned16(a) && aligned16(b))
+    return 1;
+  if (esize == 2 && W % 2 == 0 && run % 2 == 0 && aligned4(a) && aligned4(b))
+    return 2;
+  return 0;
+}
 
 // Launch the tile kernel over `bands` bands of g.span paths each: blocks of
 // g.P paths (a power of 2 from 4 to 16) and 8 warps or one warp per path,
 // whichever is more; tiles of g.T steps (a power of 2 up to 32) that fit
-// the shared memory. acc_in may be null (no second input) or `out`.
+// the shared memory. acc_in may be null (no second input) or `out`. The
+// pointers are float32 or, with g.bf16, bfloat16 volumes.
 // Returns a cudaError_t.
-int launch_tiles(const float* cost, const float* acc_in, float* out, Scan g,
+int launch_tiles(const void* cost, const void* acc_in, void* out, Scan g,
                  int bands, float p1, float p2, void* stream);
 
 #ifdef SGM_TILE_KERNEL
@@ -191,12 +277,14 @@ constexpr int kTileThreads = 512;  // most threads of a block: 16 paths
 inline bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
 
 // One thread's share of a tile's copies and stores: the element (or the
-// float4) at offset `off` of each plane d0, d0 + dstep, ...; `off` lies on
-// path `p` (0 .. P-1) at step `ls` of the tile.
+// vector of w elements) at offset `off` of each plane d0, d0 + dstep, ...;
+// `off` lies on path `p` (0 .. P-1) at step `ls` of the tile.
+template <typename E>
 struct Part {
   int off, p, ls, d0, dstep;
   __device__ __forceinline__ explicit Part(const Scan& g) {
-    const int w = g.vec ? 4 : 1;
+    const int w = sizeof(E) == 4 ? (g.vec ? 4 : 1)
+                                 : (g.vec == 1 ? 8 : g.vec == 2 ? 2 : 1);
     const int n = g.O * g.R / w;       // items of one plane (divides threads)
     off = (threadIdx.x % n) * w;
     const int o = off / g.R, r = off % g.R;
@@ -209,9 +297,9 @@ struct Part {
 
 // f(device index, shared index) for each of this thread's items of the
 // tile [s_lo, s_lo + nt) of the paths from `lo`. An item lies wholly inside
-// or wholly outside the volume (a float4 run starts at a multiple of 4).
-template <typename F>
-__device__ __forceinline__ void for_tile(const Scan& g, const Part& t,
+// or wholly outside the volume (a run of w elements starts at a multiple of w).
+template <typename E, typename F>
+__device__ __forceinline__ void for_tile(const Scan& g, const Part<E>& t,
                                          int lo, int s_lo, int nt, F&& f) {
   const int path = lo + t.p;
   if (t.ls >= nt || path >= g.span) return;
@@ -235,13 +323,21 @@ __device__ __forceinline__ float4 reversed(float4 v) {
 
 // One direction over the band blockIdx.y of `cost`: out = L, or with kAcc
 // out = acc_in + L (acc_in may be out itself: a tile of it is read before
-// that tile of out is written).
-template <int kPer, bool kAcc>
-__global__ void __launch_bounds__(kTileThreads)
-sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
-                float* out, Scan g, float p1, float p2) {
-  extern __shared__ __align__(16) float smem[];
-  const int tile = g.D * g.Sp;                   // floats of one tile
+// that tile of out is written). kAcc 1 adds at the store, 2 (bfloat16
+// only, vertical scans only) in the scan.
+// (One block per SM is promised to the compiler, so that it may take up to
+// 128 registers: with no promise it holds the kernels of 33-96 disparities
+// to 64 registers and spills inside the scan loop, which cost the float32
+// vertical scans at D = 80 up to 45 % on the H100. The shared memory, not
+// the registers, decides how many blocks an SM holds.)
+template <typename E, int kPer, int kAcc>
+__global__ void __launch_bounds__(kTileThreads, 1)
+sgm_tile_kernel(const E* __restrict__ cost, const E* acc_in, E* out, Scan g,
+                float p1, float p2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* const smem = reinterpret_cast<E*>(smem_raw);
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  const int tile = g.D * g.Sp;                   // elements of one tile
   const int slot = kAcc ? 2 * tile : tile;       // cost tile (+ acc_in tile)
   const int lo = blockIdx.x * g.P;
   const int ntiles = (g.S + g.T - 1) / g.T;
@@ -249,7 +345,7 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
   const int warp = threadIdx.x >> 5;             // this warp's path
   const bool active =
       kScan && warp < g.P && lo + warp < g.span;  // warp-uniform
-  const Part part(g);
+  const Part<E> part(g);
   const long long band = blockIdx.y * g.sB;
   cost += band;
   out += band;
@@ -260,11 +356,19 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
     if (!kCopy) return;
     int s_lo, nt;
     tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
-    float* c = cbuf(j);
-    for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-      cp_async(c + si, cost + gi, g.vec);
-      if (kAcc) cp_async(c + tile + si, acc_in + gi, g.vec);
-    });
+    E* c = cbuf(j);
+    if (kF32 || g.vec) {
+      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+        cp_async(c + si, cost + gi, kF32 ? g.vec : g.vec == 1);
+        if (kAcc)
+          cp_async(c + tile + si, acc_in + gi, kF32 ? g.vec : g.vec == 1);
+      });
+    } else {
+      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+        c[si] = cost[gi];
+        if (kAcc) c[tile + si] = acc_in[gi];
+      });
+    }
   };
 
   load(0);
@@ -273,10 +377,11 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
   // this lane's disparities: d = lane + 32 k, valid for k < nvalid
   const int nvalid = (g.D - lane + 31) >> 5;
   const int kstride = 32 * g.Sp;
-  // horizontal tiles of whole float4 runs are scanned 4 steps at a time:
-  // one 16-byte read and write per disparity, free of bank conflicts
-  const bool by4 = g.horizontal && g.vec;
-  // one scan step moves this many floats through the tile
+  // horizontal tiles of whole 16-byte runs are scanned 4 steps at a time:
+  // one read and write of 4 elements per disparity (in float32 16 bytes,
+  // free of bank conflicts)
+  const bool by4 = g.horizontal && (kF32 ? g.vec : g.vec == 1);
+  // one scan step moves this many elements through the tile
   const int dat = (g.horizontal ? 1 : g.R) * (g.reverse ? -1 : 1);
   float prev[kPer];
 #pragma unroll
@@ -292,14 +397,15 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
     int s_lo, nt;
     tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
     if (active && by4) {
-      float* row = cbuf(j) + lane * g.Sp + warp * g.R;
+      E* row = cbuf(j) + lane * g.Sp + warp * g.R;
       for (int q = 0; q < nt; q += 4) {
-        float4* at = reinterpret_cast<float4*>(
-            row + (g.reverse ? nt - 4 - q : q));
+        using Q = typename Quad<E>::type;
+        Q* at = reinterpret_cast<Q*>(row + (g.reverse ? nt - 4 - q : q));
         float4 cc[kPer];
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-          cc[k] = k < nvalid ? at[k * (kstride / 4)] : make_float4(0, 0, 0, 0);
+          cc[k] = k < nvalid ? widen(at[k * (kstride / 4)])
+                             : make_float4(0, 0, 0, 0);
           if (g.reverse) cc[k] = reversed(cc[k]);
         }
 #pragma unroll
@@ -313,27 +419,31 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
         }
 #pragma unroll
         for (int k = 0; k < kPer; ++k)
-          if (k < nvalid) at[k * (kstride / 4)] = g.reverse ? reversed(cc[k]) : cc[k];
+          if (k < nvalid)
+            narrow(at[k * (kstride / 4)], g.reverse ? reversed(cc[k]) : cc[k]);
       }
     } else if (active) {
       const int ls0 = g.reverse ? nt - 1 : 0;
-      float* at = cbuf(j) + lane * g.Sp +
-                  (g.horizontal ? warp * g.R + ls0 : ls0 * g.R + warp);
+      E* at = cbuf(j) + lane * g.Sp +
+              (g.horizontal ? warp * g.R + ls0 : ls0 * g.R + warp);
       float c[kPer];
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) c[k] = k < nvalid ? at[k * kstride] : 0.f;
+      for (int k = 0; k < kPer; ++k)
+        c[k] = k < nvalid ? ld(at + k * kstride) : 0.f;
       for (int q = 0; q < nt; ++q) {
         // the next step's costs, read before this step's results land
         float cn[kPer];
         if (q + 1 < nt) {
 #pragma unroll
           for (int k = 0; k < kPer; ++k)
-            cn[k] = k < nvalid ? at[dat + k * kstride] : 0.f;
+            cn[k] = k < nvalid ? ld(at + dat + k * kstride) : 0.f;
         }
         scan_step<kPer>(prev, c, m, lane, g.D, nvalid, p1, p2);
 #pragma unroll
         for (int k = 0; k < kPer; ++k) {
-          if (k < nvalid) at[k * kstride] = prev[k];
+          if (k < nvalid)
+            st(at + k * kstride,
+               kAcc == 2 ? prev[k] + ld(at + tile + k * kstride) : prev[k]);
           c[k] = cn[k];
         }
         at += dat;
@@ -341,73 +451,122 @@ sgm_tile_kernel(const float* __restrict__ cost, const float* acc_in,
     }
     __syncthreads();  // the tile's results are complete
     if (!kCopy) continue;
-    const float* res = cbuf(j);
-    if (g.vec) {
+    const E* res = cbuf(j);
+    if constexpr (kF32) {
+      if (g.vec) {
+        for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+          float4 v = *reinterpret_cast<const float4*>(res + si);
+          if (kAcc) {
+            const float4 a = *reinterpret_cast<const float4*>(res + tile + si);
+            v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+          }
+          *reinterpret_cast<float4*>(out + gi) = v;
+        });
+      } else {
+        for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+          out[gi] = kAcc ? res[tile + si] + res[si] : res[si];
+        });
+      }
+    } else if (g.vec == 1) {
       for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        float4 v = *reinterpret_cast<const float4*>(res + si);
-        if (kAcc) {
-          const float4 a = *reinterpret_cast<const float4*>(res + tile + si);
-          v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+        uint4 v = *reinterpret_cast<const uint4*>(res + si);
+        if (kAcc == 1) {
+          const uint4 a = *reinterpret_cast<const uint4*>(res + tile + si);
+          v = make_uint4(add2(a.x, v.x), add2(a.y, v.y), add2(a.z, v.z),
+                         add2(a.w, v.w));
         }
-        *reinterpret_cast<float4*>(out + gi) = v;
+        *reinterpret_cast<uint4*>(out + gi) = v;
+      });
+    } else if (g.vec == 2) {
+      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+        unsigned v = *reinterpret_cast<const unsigned*>(res + si);
+        if (kAcc == 1)
+          v = add2(*reinterpret_cast<const unsigned*>(res + tile + si), v);
+        *reinterpret_cast<unsigned*>(out + gi) = v;
       });
     } else {
       for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        out[gi] = kAcc ? res[tile + si] + res[si] : res[si];
+        if (kAcc == 1)
+          st(out + gi, ld(res + tile + si) + ld(res + si));
+        else
+          out[gi] = res[si];
       });
     }
   }
   cp_async_wait_all();
 }
 
-using TileKernel = void (*)(const float*, const float*, float*, Scan, float,
-                            float);
+template <typename E>
+using TileKernel = void (*)(const E*, const E*, E*, Scan, float, float);
 
-// The kernel for nper = ceil(D / 32) disparities per lane, nper <= kPer.
-template <int kPer>
+// The kernel for nper = ceil(D / 32) disparities per lane, nper <= kPer,
+// and the rule `mode` (kAcc above) for the second input.
+template <typename E, int kPer>
 struct TileKernels {
-  static TileKernel get(int nper, bool acc) {
-    if (nper == kPer)
-      return acc ? sgm_tile_kernel<kPer, true> : sgm_tile_kernel<kPer, false>;
-    return TileKernels<kPer - 1>::get(nper, acc);
+  static TileKernel<E> get(int nper, int mode) {
+    if (nper == kPer) {
+      if constexpr (!std::is_same<E, float>::value)
+        if (mode == 2) return sgm_tile_kernel<E, kPer, 2>;
+      return mode ? sgm_tile_kernel<E, kPer, 1> : sgm_tile_kernel<E, kPer, 0>;
+    }
+    return TileKernels<E, kPer - 1>::get(nper, mode);
   }
 };
 
-template <>
-struct TileKernels<0> {
-  static TileKernel get(int, bool) { return nullptr; }
+template <typename E>
+struct TileKernels<E, 0> {
+  static TileKernel<E> get(int, int) { return nullptr; }
 };
 
 // Shared memory of one block: the ring of two tiles of D planes of
-// paths * tile + 4 floats, twice that with a second input (its tile beside
-// the cost tile).
-inline long long tile_smem_bytes(int D, int paths, int tile, bool acc) {
-  return (long long)kStages * D * (paths * tile + 4) * (acc ? 2 : 1) *
-         (long long)sizeof(float);
+// paths * tile elements plus 16 bytes, twice that with a second input (its
+// tile beside the cost tile).
+inline long long tile_smem_bytes(int D, int paths, int tile, bool acc,
+                                 int esize) {
+  return (long long)kStages * D * (paths * tile + 16 / esize) *
+         (acc ? 2 : 1) * esize;
 }
 
-}  // namespace
-
-int launch_tiles(const float* cost, const float* acc_in, float* out, Scan g,
-                 int bands, float p1, float p2, void* stream) {
+template <typename E>
+int launch_typed(const E* cost, const E* acc_in, E* out, Scan g, int bands,
+                 float p1, float p2, void* stream) {
+  const int esize = (int)sizeof(E);
   const int threads = g.P * 32 > 256 ? g.P * 32 : 256;
   const int nper = (g.D + 31) / 32;
   const bool acc = acc_in != nullptr;
-  const long long smem = tile_smem_bytes(g.D, g.P, g.T, acc);
+  const int mode = !acc ? 0 : (esize == 2 && g.once ? 2 : 1);
+  const long long smem = tile_smem_bytes(g.D, g.P, g.T, acc, esize);
   if (g.D < 1 || nper > kMaxPer || g.S < 1 || g.span < 1 || bands < 1 ||
       bands > 65535 || !pow2(g.P) || g.P < 4 || threads > kTileThreads ||
-      !pow2(g.T) || g.T > 32 || g.P * g.T > threads || smem > kSmemMax)
+      !pow2(g.T) || g.T > 32 || g.P * g.T > threads || smem > kSmemMax ||
+      (mode == 2 && g.horizontal))
     return (int)cudaErrorInvalidValue;
-  const TileKernel fn = TileKernels<kMaxPer>::get(nper, acc);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
-  if (e != cudaSuccess) return (int)e;
   g.R = g.horizontal ? g.T : g.P;
   g.O = g.horizontal ? g.P : g.T;
-  g.Sp = g.P * g.T + 4;
+  g.Sp = g.P * g.T + 16 / esize;
+  const int w = g.vec == 1 ? 16 / esize : g.vec == 2 ? 2 : 1;
+  if (g.vec < 0 || g.vec > (esize == 2 ? 2 : 1) || g.R % w)
+    return (int)cudaErrorInvalidValue;
+  const TileKernel<E> fn = TileKernels<E, kMaxPer>::get(nper, mode);
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((g.span + g.P - 1) / g.P, bands);
   fn<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(cost, acc_in, out,
                                                             g, p1, p2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+int launch_tiles(const void* cost, const void* acc_in, void* out, Scan g,
+                 int bands, float p1, float p2, void* stream) {
+  if (g.bf16)
+    return launch_typed(static_cast<const bf16*>(cost),
+                        static_cast<const bf16*>(acc_in),
+                        static_cast<bf16*>(out), g, bands, p1, p2, stream);
+  return launch_typed(static_cast<const float*>(cost),
+                      static_cast<const float*>(acc_in),
+                      static_cast<float*>(out), g, bands, p1, p2, stream);
 }
 
 #endif  // SGM_TILE_KERNEL

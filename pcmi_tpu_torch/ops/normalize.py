@@ -25,6 +25,18 @@ def _counts(xf: torch.Tensor, mf: torch.Tensor, ts: torch.Tensor) -> torch.Tenso
     return torch.searchsorted(s, ts.contiguous(), right=True).float()
 
 
+def _masked_quantile(x: torch.Tensor, mask: torch.Tensor, q) -> torch.Tensor:
+    """Exact quantiles of ``x[mask]``: masked values go to ``+inf``, the
+    flat array is sorted once and read at ``int(q * (n_valid - 1))``. ``q``
+    is a scalar or a vector; an empty mask reads element 0 (``+inf``)."""
+    flat = torch.where(mask.reshape(-1), x.reshape(-1), float("inf"))
+    order = torch.sort(flat).values
+    n_valid = torch.clamp(mask.sum(), min=1)
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+    idx = (q * (n_valid - 1)).to(torch.int32).clamp(0, flat.numel() - 1)
+    return order[idx.long()]
+
+
 def _first_true(b: torch.Tensor) -> torch.Tensor:
     return torch.argmax(b.to(torch.uint8))
 
@@ -94,14 +106,13 @@ def masked_median_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,
 
 def robust_bounds(img: torch.Tensor, mask: torch.Tensor, nb: float = 8.0,
                   subsample: int = 1):
-    """Median -+ nb*MAD bounds over valid pixels, on the reference's grid
-    path: ``subsample > 1`` on a 2-D image runs two-stage 64-bin grid
-    quantiles at full resolution (the reference's sort path for
-    ``subsample == 1`` is off the ported slice)."""
+    """Median -+ nb*MAD bounds over valid pixels. ``subsample > 1`` on a
+    2-D image runs two-stage 64-bin grid quantiles at full resolution;
+    otherwise both medians are exact (one sort each)."""
     if not (subsample > 1 and img.dim() == 2):
-        raise NotImplementedError(
-            "robust_bounds: only the grid path (subsample > 1, 2-D) is "
-            "ported; see ROADMAP.md")
+        med = _masked_quantile(img, mask, 0.5)
+        mad = _masked_quantile((img - med).abs(), mask, 0.5)
+        return med - nb * mad, med + nb * mad
     inf = torch.tensor(float("inf"), device=img.device)
     lo = torch.where(mask, img, inf).amin()
     hi = torch.where(mask, img, -inf).amax()
@@ -126,10 +137,32 @@ def normalise_image(img: torch.Tensor, mask: torch.Tensor | None = None,
     return torch.where(mask, out, torch.zeros_like(out)), mask
 
 
-def snr_ratio(img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def percentile_stretch(img: torch.Tensor, mask: torch.Tensor | None = None,
+                       p_lo: float = 2.0, p_hi: float = 98.0) -> torch.Tensor:
+    """``p_lo``-``p_hi`` percentile contrast stretch to [0, 1]; invalid
+    pixels (non-finite ones without a mask) at 0."""
+    img = img.float()
+    if mask is None:
+        mask = torch.isfinite(img)
+    img = torch.where(mask, img, torch.zeros_like(img))
+    lo, hi = _masked_quantile(img, mask, [p_lo / 100.0, p_hi / 100.0])
+    scale = torch.where(hi > lo, 1.0 / (hi - lo), torch.zeros_like(hi))
+    out = ((img - lo) * scale).clamp(0.0, 1.0)
+    return torch.where(mask, out, torch.zeros_like(out))
+
+
+def to_uint8(img01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> uint8 (truncating), the display layers' convention."""
+    return (img01 * 255.0).clamp(0, 255).to(torch.uint8)
+
+
+def snr_ratio(img: torch.Tensor, mask: torch.Tensor,
+              subsample: int = 4) -> torch.Tensor:
     """Per-scene noise/signal ratio: Immerkaer's Laplacian noise estimate
     over the high-pass amplitude ``|f - G_2(f)|``, both as full-resolution
-    grid medians."""
+    grid medians. ``subsample`` is accepted for the reference's signature
+    and, as there, not used."""
+    del subsample
     from pcmi_tpu_torch.ops.filters import gaussian_filter
 
     f = img.float()

@@ -3,7 +3,8 @@ with the headers ``*.cuh`` they share).
 
 Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
 started together, and the objects are linked into one shared library with
-a plain C interface, bound with :mod:`ctypes`. The build runs at first use,
+a plain C interface, bound with :mod:`ctypes`; the entry points of K1, K2,
+K3, K5 and K6 take the element type (float32 or bfloat16) as an argument. The build runs at first use,
 from the sources in the checkout only, into ``build/pcmi_tpu_torch/``
 beside the package; the file name carries a hash of the sources, headers
 and flags, so an edited source or header rebuilds and an unchanged tree
@@ -127,23 +128,23 @@ def load() -> ctypes.CDLL:
     except OSError as exc:
         raise KernelError(f"cannot load the kernel library: {exc}") from exc
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, i, i, p]
+    lib.pcmi_sgm_dir.argtypes = [p, p, i, i, i, i, i, i, f, f, i, i, i, p]
     lib.pcmi_sgm_dir.restype = i
     lib.pcmi_sgm_dir_max_disp.argtypes = []
     lib.pcmi_sgm_dir_max_disp.restype = i
-    lib.pcmi_wta.argtypes = [p, p, i, i, i, f, f, f, i, p, p, p, p, p]
+    lib.pcmi_wta.argtypes = [p, p, i, i, i, f, f, f, i, p, p, p, p, i, p]
     lib.pcmi_wta.restype = i
-    lib.pcmi_derive_right.argtypes = [p, p, i, i, i, i, i, f, p]
+    lib.pcmi_derive_right.argtypes = [p, p, i, i, i, i, i, f, i, p]
     lib.pcmi_derive_right.restype = i
     lib.pcmi_sgm_hwd.argtypes = [p, p, i, i, i, i, i, i, f, f, i, p]
     lib.pcmi_sgm_hwd.restype = i
     lib.pcmi_sgm_hwd_max_disp.argtypes = []
     lib.pcmi_sgm_hwd_max_disp.restype = i
-    lib.pcmi_sgm_blocked.argtypes = [p, p, p, i, i, i, f, f, i, i, i, p]
+    lib.pcmi_sgm_blocked.argtypes = [p, p, p, i, i, i, f, f, i, i, i, i, p]
     lib.pcmi_sgm_blocked.restype = i
     lib.pcmi_sgm_blocked_max_disp.argtypes = []
     lib.pcmi_sgm_blocked_max_disp.restype = i
-    lib.pcmi_derive_right_wdh.argtypes = [p, p, i, i, i, i, i, i, i, f, p]
+    lib.pcmi_derive_right_wdh.argtypes = [p, p, i, i, i, i, i, i, i, f, i, p]
     lib.pcmi_derive_right_wdh.restype = i
     _LIB = lib
     return lib

@@ -21,8 +21,9 @@ their wrappers.
   layout; replaces ``derive_right_wdh_pallas`` /
   ``_make_derive_wdh_kernel``. Source ``csrc/derive_right_wdh.cu``.
 
-Each wrapper takes float32, contiguous tensors, on any device, and raises
-(``TypeError`` for another dtype, ``ValueError`` for a wrong shape or
+Each wrapper takes contiguous float32 or bfloat16 tensors (all tensors of
+one call the same; K4 float32 only, as its TPU kernel), on any device, and
+raises (``TypeError`` for another dtype, ``ValueError`` for a wrong shape or
 layout) before it runs anything. A tensor on the CPU then goes through the
 kernel's plain PyTorch version; a CUDA tensor launches the kernel on the
 current stream, or raises :class:`KernelError` (a failed build or a
@@ -30,8 +31,14 @@ refused launch). There is no fallback from the card to the plain version.
 :data:`LAUNCHES` counts kernel launches per kernel; only a launch adds to
 it.
 
-Volumes are float32 on every device (the matcher refuses
-``StereoConfig.cost_dtype="bfloat16"``). Each source file
+Volumes are stored in float32 or, under
+``StereoConfig.cost_dtype="bfloat16"``, in bfloat16, with the TPU kernels'
+rounding rules: a kernel widens what it reads, keeps the recurrence state
+and every (H, W) plane in float32, and rounds a volume to nearest-even
+where it stores it; sums of two stored volumes are bfloat16 adds (both
+operands already rounded, the sum rounded again). ``BIG`` and ``fill``
+take the stored dtype's value where they are stored (998244352 and, for
+``fill=1e4``, 9984 in bfloat16). Each source file
 notes what bounds its kernel on the card and what its design does about it.
 K1-K3 run on the matcher's main path; K4-K6 behind the alternative-layout
 entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`. K1 and K5 are one
@@ -60,9 +67,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor | None) -> bool:
+VOLUME_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor | None,
+             dtypes=VOLUME_DTYPES) -> bool:
     """True for CUDA tensors, False for CPU ones, after checking that all
-    lie on one device and are float32 and contiguous."""
+    lie on one device, share one of ``dtypes`` and are contiguous."""
     ts = [t for t in tensors if t is not None]
     devs = {t.device for t in ts}
     if len(devs) != 1:
@@ -71,8 +82,11 @@ def _on_cuda(name: str, *tensors: torch.Tensor | None) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != ts[0].dtype:
+            raise TypeError(
+                f"{name}: expected all tensors in one of "
+                f"{[str(d).split('.')[-1] for d in dtypes]}, got "
+                f"{[str(u.dtype).split('.')[-1] for u in ts]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return dev.type == "cuda"
@@ -93,17 +107,23 @@ def _stream() -> int:
 
 
 def _scan_plain(cost: torch.Tensor, axis: int, d_axis: int, p1: float,
-                p2: float, reverse: bool,
-                out: torch.Tensor | None) -> torch.Tensor:
+                p2: float, reverse: bool, out: torch.Tensor | None,
+                round_first: bool = True) -> torch.Tensor:
     """One SGM direction along ``axis`` of ``cost`` (``matching._sgm_scan``);
     ``d_axis`` is the disparity axis of a scan step's state. With ``out``
     given the direction is added into it (in place), else a new volume is
-    returned. The output is preallocated and written step by step."""
+    returned. The output is preallocated and written step by step.
+
+    The state is float32 whatever ``cost`` stores. A bfloat16 ``out`` takes
+    the direction by one of the reference's two rules: ``round_first``
+    rounds the direction to bfloat16 and adds two stored values (K1: ``lr +
+    rl`` of two stored volumes), else the float32 state is added and the sum
+    rounded once (K5's ``prev`` form). In float32 the two are one."""
     n = cost.shape[axis]
     acc = out is not None
     if out is None:
         out = torch.empty_like(cost)
-    prev = torch.zeros_like(cost.select(axis, 0))
+    prev = torch.zeros_like(cost.select(axis, 0), dtype=torch.float32)
     nd = prev.shape[d_axis]
     big = torch.full_like(prev.narrow(d_axis, 0, 1), BIG)
     for t in range(n):
@@ -115,10 +135,13 @@ def _scan_plain(cost: torch.Tensor, axis: int, d_axis: int, p1: float,
         best = torch.minimum(torch.minimum(prev, m + p2),
                              torch.minimum(up + p1, dn + p1))
         prev = c + best - m
-        if acc:
-            out.select(axis, s).add_(prev)
+        o = out.select(axis, s)
+        if not acc:
+            o.copy_(prev)
+        elif round_first:
+            o.add_(prev.to(o.dtype))
         else:
-            out.select(axis, s).copy_(prev)
+            o.copy_(prev + o)
     return out
 
 
@@ -128,7 +151,11 @@ def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
 
     ``horizontal`` scans along W (state (D, H)), else along H (state
     (D, W)); ``reverse`` scans from the far end. With ``out`` given the
-    direction is added into it (in place), else a new volume is returned."""
+    direction is added into it (in place), else a new volume is returned.
+    A bfloat16 volume is widened as it is read and the direction rounded
+    as it is stored; added into ``out`` it is rounded first, so ``out``
+    is the bfloat16 sum of two stored volumes, as the reference's
+    ``lr + rl``."""
     return _scan_plain(cost, 2 if horizontal else 1, 0, p1, p2, reverse, out)
 
 
@@ -145,17 +172,26 @@ class SgmDirPlan(NamedTuple):
     smem: int
 
 
-def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool) -> int:
+def _esize(dtype: torch.dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool,
+                 esize: int = 4) -> int:
     """Shared memory of one block of the tile kernel of K1 and K5
     (``tile_smem_bytes`` in ``csrc/sgm_tile.cuh``): a ring of two tiles of
-    ``D`` planes of ``paths * tile + 4`` floats, twice that with
-    ``accumulate`` (the tile of the second input beside the cost tile)."""
-    return 2 * D * (paths * tile + 4) * (2 if accumulate else 1) * 4
+    ``D`` planes of ``paths * tile`` elements of ``esize`` bytes plus 16
+    bytes, twice that with ``accumulate`` (the tile of the second input
+    beside the cost tile)."""
+    return (2 * D * (paths * tile + 16 // esize) * (2 if accumulate else 1)
+            * esize)
 
 
-def sgm_dir_plan(D: int, span: int, horizontal: bool,
-                 accumulate: bool) -> SgmDirPlan:
-    """K1's launch plan for ``span`` paths of ``D`` disparities.
+def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
+                 esize: int = 4) -> SgmDirPlan:
+    """K1's launch plan for ``span`` paths of ``D`` disparities stored in
+    ``esize`` bytes each (a bfloat16 tile is half the bytes, so a deep
+    volume may take a longer tile than in float32).
 
     Horizontal scans take blocks of 4 rows and the longest tile (32, 16,
     ... steps: the run of x each (d, row) moves); vertical ones blocks of
@@ -168,7 +204,7 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool,
     else:
         paths, tiles = (16 if span >= 16 * 64 else 8), (8, 4, 2, 1)
     for tile in tiles:
-        smem = sgm_dir_smem(D, paths, tile, accumulate)
+        smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
         if smem <= SMEM_BLOCK_MAX:
             return SgmDirPlan(paths, tile, smem)
     raise ValueError(f"sgm_dir: no launch plan fits D={D}")
@@ -188,13 +224,14 @@ def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
     lib = load()
     D, H, W = cost.shape
     acc = out is not None
-    plan = sgm_dir_plan(D, H if horizontal else W, horizontal, acc)
+    esize = _esize(cost.dtype)
+    plan = sgm_dir_plan(D, H if horizontal else W, horizontal, acc, esize)
     if out is None:
         out = torch.empty_like(cost)
     rc = lib.pcmi_sgm_dir(cost.data_ptr(), out.data_ptr(), D, H, W,
                           int(horizontal), int(reverse), int(acc),
                           float(p1), float(p2), plan.paths, plan.tile,
-                          _stream())
+                          int(esize == 2), _stream())
     _check("sgm_dir", rc)
     LAUNCHES["sgm_dir"] += 1
     return out
@@ -221,11 +258,23 @@ def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
     Returns ``(disp, best, margin)``; ``margin`` is None without
     ``with_margin``. With ``with_aggregate`` the combined (D, H, W) volume
     ``s`` is a fourth value (``sgm4_wta_fused_pallas(with_aggregate=True)``,
-    in this port's layout)."""
-    vol = (a + b) * scale if b is not None else a * scale
+    in this port's layout).
+
+    On bfloat16 volumes ``a + b`` and the product are bfloat16 operations
+    (each rounded to nearest-even, ``scale`` rounded too: 1, 0.5 and 0.25,
+    the scales the matcher uses, are exact); ``s`` is then widened and the
+    argmin, the parabola, the best cost and the margin are float32."""
+    if a.dtype == torch.bfloat16:
+        vol = a + b if b is not None else a
+        if scale != 1.0:
+            sc = torch.tensor(scale, dtype=torch.bfloat16).item()
+            vol = (vol.float() * sc).to(torch.bfloat16)
+    else:
+        vol = (a + b) * scale if b is not None else a * scale
     if with_aggregate:
-        return (*wta_plain(vol, None, 1.0, d_min, stride, subpixel,
+        return (*wta_plain(vol.float(), None, 1.0, d_min, stride, subpixel,
                            with_margin), vol)
+    vol = vol.float()
     D = vol.shape[0]
     best_d = vol.argmin(0)
     best = vol.amin(0)
@@ -273,7 +322,8 @@ def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,
                       D, H, W, float(scale), float(d_min), float(stride),
                       int(subpixel), disp.data_ptr(), best.data_ptr(),
                       margin.data_ptr() if margin is not None else None,
-                      agg.data_ptr() if agg is not None else None, _stream())
+                      agg.data_ptr() if agg is not None else None,
+                      int(a.dtype == torch.bfloat16), _stream())
     _check("wta", rc)
     LAUNCHES["wta"] += 1
     return (disp, best, margin, agg) if with_aggregate else (disp, best,
@@ -288,7 +338,8 @@ def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,
 def derive_right_plain(vol: torch.Tensor, d_min: int, fill: float = 1.0,
                        stride: int = 1) -> torch.Tensor:
     """``out[i, y, x] = vol[i, y, x + d_min + i*stride]``, ``fill`` outside
-    (``matching.derive_right_volume``)."""
+    (``matching.derive_right_volume``); ``fill`` in the volume's dtype
+    (1e4 is 9984 in bfloat16)."""
     D, h, w = vol.shape
     pad = max(abs(d_min), abs(d_min + (D - 1) * stride)) + 1
     volp = torch.nn.functional.pad(vol, (pad, pad), value=fill)
@@ -312,7 +363,8 @@ def derive_right(vol: torch.Tensor, d_min: int, fill: float = 1.0,
     D, H, W = vol.shape
     out = torch.empty_like(vol)
     rc = lib.pcmi_derive_right(vol.data_ptr(), out.data_ptr(), D, H, W,
-                               int(d_min), int(stride), float(fill), _stream())
+                               int(d_min), int(stride), float(fill),
+                               int(vol.dtype == torch.bfloat16), _stream())
     _check("derive_right", rc)
     LAUNCHES["derive_right"] += 1
     return out
@@ -368,14 +420,15 @@ def sgm_hwd_plan(D: int, accumulate: bool) -> SgmHwdPlan:
 
 def sgm_hwd(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
             reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
-    """K4 wrapper: see :func:`sgm_hwd_plain` for the semantics."""
+    """K4 wrapper: see :func:`sgm_hwd_plain` for the semantics. float32
+    only: the TPU kernel it replaces raises for a bfloat16 volume."""
     if cost.dim() != 3:
         raise ValueError(f"sgm_hwd: expected (H, W, D), got {tuple(cost.shape)}")
     if scan_axis not in (0, 1):
         raise ValueError(f"sgm_hwd: scan_axis must be 0 or 1, got {scan_axis}")
     if out is not None and out.shape != cost.shape:
         raise ValueError("sgm_hwd: out must have the cost volume's shape")
-    if not _on_cuda("sgm_hwd", cost, out):
+    if not _on_cuda("sgm_hwd", cost, out, dtypes=(torch.float32,)):
         return sgm_hwd_plain(cost, p1, p2, scan_axis, reverse, out)
     from pcmi_tpu_torch.ops.stereo._build import load
 
@@ -405,15 +458,17 @@ def sgm_blocked_plain(cost: torch.Tensor, p1: float, p2: float,
                       prev: torch.Tensor | None = None) -> torch.Tensor:
     """One SGM direction over a blocked (nb, S, Dp, 128) volume, scanning S
     (state (nb, Dp, 128)); with ``prev`` the output is that direction plus
-    ``prev`` (the reference's ``with_prev`` backward pass)."""
+    ``prev`` (the reference's ``with_prev`` backward pass). In bfloat16
+    the float32 state is added to ``prev`` and the sum rounded once."""
     out = prev.clone() if prev is not None else None
-    return _scan_plain(cost, 1, 1, p1, p2, reverse, out)
+    return _scan_plain(cost, 1, 1, p1, p2, reverse, out, round_first=False)
 
 
 SGM_BLOCKED_MAX_DISP = SGM_DIR_MAX_DISP   # the tile kernel is K1's
 
 
-def sgm_blocked_plan(Dp: int, nb: int, with_prev: bool) -> SgmDirPlan:
+def sgm_blocked_plan(Dp: int, nb: int, with_prev: bool,
+                     esize: int = 4) -> SgmDirPlan:
     """K5's launch plan for ``nb`` bands of ``Dp`` disparities: that of
     K1's vertical scans over ``nb * 128`` columns (blocks of 16
     neighbouring lanes of a band where that gives 64 blocks, else 8; the
@@ -422,7 +477,7 @@ def sgm_blocked_plan(Dp: int, nb: int, with_prev: bool) -> SgmDirPlan:
     if not 1 <= Dp <= SGM_BLOCKED_MAX_DISP:
         raise ValueError(f"sgm_blocked: Dp={Dp} outside "
                          f"[1, {SGM_BLOCKED_MAX_DISP}]")
-    return sgm_dir_plan(Dp, nb * BAND, False, with_prev)
+    return sgm_dir_plan(Dp, nb * BAND, False, with_prev, esize)
 
 
 def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
@@ -439,14 +494,16 @@ def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
 
     lib = load()
     nb, S, Dp, _ = cost.shape
-    plan = sgm_blocked_plan(Dp, nb, prev is not None)
+    esize = _esize(cost.dtype)
+    plan = sgm_blocked_plan(Dp, nb, prev is not None, esize)
     if any(t.data_ptr() % 16 for t in (cost, prev) if t is not None):
         raise ValueError("sgm_blocked: inputs must be 16-byte aligned")
     out = torch.empty_like(cost)
     rc = lib.pcmi_sgm_blocked(cost.data_ptr(),
                               prev.data_ptr() if prev is not None else None,
                               out.data_ptr(), nb, S, Dp, float(p1), float(p2),
-                              int(reverse), plan.paths, plan.tile, _stream())
+                              int(reverse), plan.paths, plan.tile,
+                              int(esize == 2), _stream())
     _check("sgm_blocked", rc)
     LAUNCHES["sgm_blocked"] += 1
     return out
@@ -462,7 +519,8 @@ def derive_right_wdh_plain(vol: torch.Tensor, d_real: int, w: int, d_min: int,
     """Right-view volume in the padded (Wp, Dp, Hp) layout:
     ``out[x, d, y] = vol[x + d_min + d*stride, d, y]`` for ``x < w`` and
     ``d < d_real``, ``fill`` where that column lies outside ``[0, w)``,
-    ``BIG`` for ``d >= d_real`` and 0 for ``x >= w`` (which wins)."""
+    ``BIG`` for ``d >= d_real`` and 0 for ``x >= w`` (which wins); ``fill``
+    and ``BIG`` in the volume's dtype."""
     wp, dp, hp = vol.shape
     out = torch.zeros_like(vol)
     out[:w, d_real:] = BIG
@@ -493,7 +551,9 @@ def derive_right_wdh(vol: torch.Tensor, d_real: int, w: int, d_min: int,
     out = torch.empty_like(vol)
     rc = lib.pcmi_derive_right_wdh(vol.data_ptr(), out.data_ptr(), wp, dp, hp,
                                    int(d_real), int(w), int(d_min),
-                                   int(stride), float(fill), _stream())
+                                   int(stride), float(fill),
+                                   int(vol.dtype == torch.bfloat16),
+                                   _stream())
     _check("derive_right_wdh", rc)
     LAUNCHES["derive_right_wdh"] += 1
     return out

@@ -15,7 +15,11 @@ functions of ``pcmi_tpu/ops/stereo/pallas_kernels.py`` that run TPU kernels
 
 All three give the same numbers as the main path's K1-K3 forms: the
 reference's add orders commute, and its disparity (``BIG``) and spatial
-(zero) padding wash out of the result. The main path calls only
+(zero) padding wash out of the result. Volumes are float32 or bfloat16
+(:func:`sgm_aggregate_hwd` float32 only, as the reference's); disparities
+are padded to a multiple of 8 for either type, where the reference pads a
+bfloat16 volume to 16 for its chip's tiles: the padding is cropped, so no
+result depends on it. The main path calls only
 :func:`right_disparity_fused` without ``use_wdh_derive``. The relayouts
 around the kernels are plain PyTorch, as the reference's are XLA ops.
 """
@@ -47,7 +51,8 @@ def sgm_aggregate_hwd(vol_hwd: torch.Tensor, p1: float, p2: float,
     """The (H, W, D) mean of the four SGM directions,
     ``(tb + bt + (lr + rl)) * 0.25``. ``band`` and ``chunk`` set the TPU's
     padding granularity and do not change the result; they are accepted
-    for the reference's signature."""
+    for the reference's signature. A bfloat16 volume raises ``TypeError``,
+    as the reference's kernel refuses one."""
     vert = K.sgm_hwd(vol_hwd, p1, p2, scan_axis=0, reverse=False)
     K.sgm_hwd(vol_hwd, p1, p2, scan_axis=0, reverse=True, out=vert)
     horiz = K.sgm_hwd(vol_hwd, p1, p2, scan_axis=1, reverse=False)

@@ -22,15 +22,18 @@ cross-checker (``band_check_mode="vertical"``).
 
 Which device runs a step is decided only inside the kernel wrappers
 (:mod:`pcmi_tpu_torch.ops.stereo.kernels`): CUDA tensors launch the
-kernels, CPU tensors run their plain versions. Volumes are float32 on both
-devices. ``StereoConfig.sgm_backend`` selects among the reference's TPU
-code paths and is not read. ``cost_dtype="bfloat16"`` raises
-``NotImplementedError``: the reference then stores the aggregated volume
-and runs the WTA in bfloat16 on every backend, which changes its
-disparities, and the kernels are float32-only (ROADMAP Queue 1 item 6);
-``"auto"`` and ``"float32"`` run in float32. The cost volume is plain
-PyTorch on every device, as the reference builds it outside any Pallas
-kernel.
+kernels, CPU tensors run their plain versions.
+``StereoConfig.sgm_backend`` selects among the reference's TPU code paths
+and is not read: every branch here computes what the reference's
+``sgm_backend="pallas"`` branch does. ``cost_dtype`` sets the stored type
+of every volume on both devices: ``"float32"``, or ``"bfloat16"`` with the
+reference's rounding (the cost is computed in float32 and rounded once as
+it is stored; the kernels keep their recurrence state and the (H, W)
+planes in float32 and round each volume they store; sums and means of
+stored volumes are bfloat16 operations). It is a mode with results of its
+own, not only a smaller volume. ``"auto"`` is float32 on every device. The
+cost volume is plain PyTorch on every device, as the reference builds it
+outside any Pallas kernel.
 
 Where the reference scans a static disparity range to avoid gathers on its
 chip (L/R check), this port gathers: the result is the same element.
@@ -131,7 +134,14 @@ def _vertical_box(vol: torch.Tensor, k: int) -> torch.Tensor:
     """Edge-padded mean over the H axis of a (D, H, W) volume: the
     aggregation of the vertical-support cross-checker."""
     padded = _edge_pad(vol, k // 2, -2)
-    return _sliding_sum(padded, k, 1, vol.shape[1]) / k
+    acc = _sliding_sum(padded, k, 1, vol.shape[1])
+    if acc.dtype == torch.bfloat16:
+        # a tensor divisor (made on the device, so no step waits for a
+        # copy): a true bfloat16 division on every device, where a Python
+        # scalar may become a product with the rounded reciprocal
+        return acc / torch.full((), float(k), dtype=acc.dtype,
+                                device=acc.device)
+    return acc / k
 
 
 def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
@@ -148,13 +158,20 @@ def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
 _COST_CHUNK = 16
 
 
+def cost_dtype(cfg: StereoConfig) -> torch.dtype:
+    """The stored type of the matcher's volumes (``StereoConfig.cost_dtype``;
+    ``"auto"`` is float32 on every device)."""
+    return torch.bfloat16 if cfg.cost_dtype == "bfloat16" else torch.float32
+
+
 def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
                       valid_l: torch.Tensor, valid_r: torch.Tensor,
                       cfg: StereoConfig) -> torch.Tensor:
-    """(D, H, W) float32 box-aggregated census+AD matching cost; slice i
-    holds disparity ``min_disparity + i * disp_stride``. Disparities are
-    processed ``_COST_CHUNK`` at a time into a preallocated volume, which
-    bounds the temporaries to a few chunk-sized tensors."""
+    """(D, H, W) box-aggregated census+AD matching cost, computed in
+    float32 and stored as :func:`cost_dtype` says (one rounding per chunk);
+    slice i holds disparity ``min_disparity + i * disp_stride``.
+    Disparities are processed ``_COST_CHUNK`` at a time into a preallocated
+    volume, which bounds the temporaries to a few chunk-sized tensors."""
     h, w = left.shape
     dev = left.device
     n_census = cfg.census_window ** 2 - 1
@@ -171,7 +188,7 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
     valid_l = valid_l.bool()
     ds = torch.arange(0, cfg.max_disp, cfg.disp_stride,
                       device=dev) + cfg.min_disparity
-    vol = torch.empty((len(ds), h, w), dtype=torch.float32, device=dev)
+    vol = torch.empty((len(ds), h, w), dtype=cost_dtype(cfg), device=dev)
     for i0 in range(0, len(ds), _COST_CHUNK):
         starts = pad - ds[i0:i0 + _COST_CHUNK]
 
@@ -277,11 +294,6 @@ def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
         raise NotImplementedError(
             f"compute_disparity: {bad} select matcher variants that are not "
             f"ported yet (see ROADMAP.md)")
-    if cfg.cost_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_disparity: cost_dtype='bfloat16' (bfloat16 volumes and "
-            "WTA) is not ported; the kernels are float32-only (ROADMAP.md "
-            "Queue 1 item 6). Use 'auto' or 'float32'.")
 
 
 def compute_disparity(left: torch.Tensor, right: torch.Tensor,

@@ -194,3 +194,54 @@ def test_pair_core_vertical_checker(products, check_margin):
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     np.testing.assert_allclose(got.disparity.numpy(),
                                np.asarray(ref.disparity), atol=1e-4, rtol=0)
+
+
+# measured (this comparison): masks identical in both modes; norm_subsample=1:
+# disparity max |diff| 2.1e-5 px over every pixel, heights 1.5e-5 m;
+# bfloat16: 5,401 valid pixels, on them heights max |diff| 2.7e-3 m, 0.02%
+# above 1e-3 m (the two cost volumes differ by one bfloat16 step at a few
+# elements, test_torch_stereo.py::test_bf16_build_cost_volume); over the
+# invalid rest of the canvas 4.9% of the disparities differ
+_MODES = {
+    "norm_subsample_1": (dict(norm_subsample=1), 1e-4, 1e-3, 1.0),
+    "bfloat16": (dict(cost_dtype="bfloat16", sgm_backend="pallas"), 1e-3,
+                 1e-2, 0.999),
+}
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+def test_pair_core_modes(products, mode):
+    """pair_core on the same rectified pair under two configs the port
+    used to refuse: ``norm_subsample=1`` (normalise_image's exact sort
+    path) and ``cost_dtype="bfloat16"`` (against the reference's TPU
+    branch, kernels in interpret mode). Valid masks agree on >= 99.99% of
+    the canvas; on commonly valid pixels disparity within 1e-4 px and
+    heights within 1e-3 m everywhere (norm_subsample=1), within 1e-3 px
+    and 1e-2 m on >= 99.9% (bfloat16)."""
+    import dataclasses
+
+    kw, disp_tol, h_tol, share = _MODES[mode]
+    tg = products["tgeom"]
+    scene = products["scene"]
+    cfg = dataclasses.replace(
+        products["jpipe"].stereo_cfg_for([products["jgeom"]]), **kw)
+    r1, r2 = jh._rectify_pair(
+        scene.images[0], scene.images[1],
+        jnp.asarray(tg.H1, jnp.float32), jnp.asarray(tg.H2, jnp.float32),
+        tg.out_shape)
+    M, b = jh.triangulation_operator(products["jgeom"])
+    ref = jh.pair_core(r1, r2, M, b, cfg, with_plane=False)
+    got = th.pair_core(torch.from_numpy(np.array(r1)),
+                       torch.from_numpy(np.array(r2)),
+                       torch.from_numpy(np.array(M)),
+                       torch.from_numpy(np.array(b)),
+                       convert.config_from_reference(cfg), with_plane=False)
+    jax.block_until_ready(ref.valid)
+    rv, gv = np.asarray(ref.valid), got.valid.numpy()
+    assert (rv == gv).mean() >= 0.9999
+    assert gv.mean() > 0.03
+    both = rv & gv
+    for f, tol in (("disparity", disp_tol), ("height", h_tol)):
+        diff = np.abs(np.asarray(getattr(ref, f))
+                      - getattr(got, f).numpy())[both]
+        assert (diff <= tol).mean() >= share, f

@@ -13,6 +13,7 @@ import torch
 
 from pcmi_tpu.config import StereoConfig
 from pcmi_tpu.ops.stereo import pallas_kernels as jpk
+from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.convert import config_from_reference as _c
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo import layouts as L
@@ -85,6 +86,91 @@ def test_right_disparity_fused_wdh_matches_pallas(rng, shape, stride, d_min):
     np.testing.assert_array_equal(got.numpy(), ref)
     default = L.right_disparity_fused(_t(vol), *args, stride=stride)
     np.testing.assert_array_equal(got.numpy(), default.numpy())
+
+
+# --- bfloat16 volumes (cost_dtype="bfloat16"): stored volumes bit-exact ------
+
+
+def _bf(rng, shape):
+    """A seeded volume rounded once to bfloat16, as a JAX array and as the
+    port's tensor (the same values)."""
+    j = jnp.asarray(rng.uniform(0, 1, shape).astype(np.float32)).astype(
+        jnp.bfloat16)
+    return j, convert.tensor_from_reference(j)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_sgm_aggregate_blocked_matches_pallas(rng, shape):
+    """K5's entry point on a bfloat16 volume vs
+    sgm_aggregate_pallas_blocked(chunk=8): bit-exact (the float32 state
+    plus `prev`, rounded once; `(vert + horiz) * 0.25` in bfloat16). The
+    reference pads D to 16 here, the port to 8: cropped, no result depends
+    on it. Against the port's K1 sgm_aggregate, which adds two stored
+    volumes per axis, elements differ by up to a few bfloat16 steps
+    (asserted: some differ, none by more than 4 steps of its value)."""
+    jv, tv = _bf(rng, shape)
+    ref = jpk.sgm_aggregate_pallas_blocked(jv, CFG.sgm_p1, CFG.sgm_p2,
+                                           chunk=8)
+    got = L.sgm_aggregate_blocked(tv, CFG.sgm_p1, CFG.sgm_p2, chunk=8)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(ref))
+    k1 = _f32(tm.sgm_aggregate(tv, _c(CFG)))
+    assert (np.abs(_f32(got) - k1) <= 4 * k1 / 128).all()
+    assert (_f32(got) != k1).any()
+
+
+@pytest.mark.parametrize("d_min,stride,fill", [(0, 1, 1.0), (-4, 2, 1.0),
+                                               (-12, 1, 1e4)])
+def test_bf16_derive_right_wdh_exact(rng, d_min, stride, fill):
+    """K6 on a padded bfloat16 (Wp, Dp, Hp) volume vs
+    derive_right_wdh_pallas: bit-exact, with `fill`, BIG and 0 in bfloat16
+    (1e4 -> 9984, 1e9 -> 998244352)."""
+    d_real, w = 13, 37
+    jv, tv = _bf(rng, (48, 16, 20))
+    ref = jpk.derive_right_wdh_pallas(jv, d_real, w, d_min, stride=stride,
+                                      fill=fill)
+    got = K.derive_right_wdh(tv, d_real, w, d_min, stride, fill)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(ref))
+    assert float(got.float().max()) == 998244352.0
+
+
+@pytest.mark.parametrize("shape,stride,d_min", [((16, 24, 40), 1, 0),
+                                                ((16, 19, 33), 2, -4)])
+def test_bf16_right_disparity_fused_wdh(rng, shape, stride, d_min):
+    """The (W, Dp, H)-derive right view on a bfloat16 volume equals the
+    port's default chain exactly, and right_disparity_fused_pallas(
+    use_wdh_derive=True) but for tie pixels (<= 1%; see
+    test_bf16_fused_right_matches_pallas in test_torch_stereo.py)."""
+    jv, tv = _bf(rng, shape)
+    args = (CFG.sgm_p1, CFG.sgm_p2, d_min)
+    got = L.right_disparity_fused(tv, *args, stride=stride, band=8, chunk=8,
+                                  use_wdh_derive=True)
+    default = L.right_disparity_fused(tv, *args, stride=stride)
+    np.testing.assert_array_equal(got.numpy(), default.numpy())
+    ref = np.asarray(jpk.right_disparity_fused_pallas(
+        jv, *args, stride=stride, band=8, chunk=8, use_wdh_derive=True))
+    assert (got.numpy() != ref).mean() <= 0.01
+    assert (got.numpy() <= ref).all()
+
+
+def test_bf16_sgm_aggregate_hwd_refused(rng):
+    """K4 is float32 only, as the TPU kernel it replaces: the reference's
+    sgm_aggregate_pallas raises for a bfloat16 volume, and so do K4's
+    wrapper and its entry point (TypeError), before anything runs."""
+    jv, tv = _bf(rng, (8, 8, 16))
+    with pytest.raises(Exception):
+        jpk.sgm_aggregate_pallas(jv, CFG.sgm_p1, CFG.sgm_p2, band=8, chunk=8)
+    with pytest.raises(TypeError, match="float32"):
+        L.sgm_aggregate_hwd(tv, CFG.sgm_p1, CFG.sgm_p2)
+    with pytest.raises(TypeError, match="float32"):
+        K.sgm_hwd(tv, CFG.sgm_p1, CFG.sgm_p2, 1, True, out=tv.clone())
 
 
 _BAD = {

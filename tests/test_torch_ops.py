@@ -45,6 +45,81 @@ def test_normalise_image_grid_path(rng):
                                rtol=0)
 
 
+@pytest.mark.parametrize("mask_kind", ["some", "all", "none"])
+def test_masked_quantile_sort_path(rng, mask_kind):
+    """The exact (one sort) quantile against the reference's, scalar and
+    vector q: the same element of the same sorted array, exact; an empty
+    mask reads +inf in both."""
+    x, mask = _image(rng)
+    x = x ** 2 * 5.0 - 1.0
+    mask = {"some": mask, "all": np.ones_like(mask),
+            "none": np.zeros_like(mask)}[mask_kind]
+    for q in (0.5, 0.0, 1.0, [0.02, 0.98], [0.25, 0.5, 0.75]):
+        ref = np.asarray(jn._masked_quantile(jnp.asarray(x), jnp.asarray(mask),
+                                             jnp.asarray(q)))
+        got = tn._masked_quantile(_t(x), _t(mask), q).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+        assert np.isinf(got).all() == (mask_kind == "none")
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_normalise_image_default_path(rng, with_mask):
+    """normalise_image with its own defaults (subsample=1: exact medians)
+    and robust_bounds on a 3-D input, against the reference's: bounds
+    within 1e-6, image within 1e-6."""
+    img, mask = _image(rng)
+    img = img * 3.0 + 0.5
+    if not with_mask:
+        img[~mask] = -1.0          # the sentinel convention: mask = img >= 0
+    margs = (jnp.asarray(mask),) if with_mask else ()
+    targs = (_t(mask),) if with_mask else ()
+    ref, rmask = jn.normalise_image(jnp.asarray(img), *margs)
+    got, gmask = tn.normalise_image(_t(img), *targs)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(rmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+    cube = np.stack([img, img * 0.5, img + 1.0])
+    cmask = np.stack([mask, mask, ~mask])
+    for r, g in zip(jn.robust_bounds(jnp.asarray(cube), jnp.asarray(cmask),
+                                     subsample=4),
+                    tn.robust_bounds(_t(cube), _t(cmask), subsample=4)):
+        np.testing.assert_allclose(float(g), float(r), atol=1e-6, rtol=0)
+
+
+def test_normalise_image_empty_mask(rng):
+    """No valid pixel: the reference's bounds are infinite and its image
+    all zeros; so are the port's."""
+    img, mask = _image(rng)
+    none = np.zeros_like(mask)
+    ref, _ = jn.normalise_image(jnp.asarray(img), jnp.asarray(none))
+    got, _ = tn.normalise_image(_t(img), _t(none))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert not got.any()
+
+
+def test_percentile_stretch_and_to_uint8(rng):
+    """percentile_stretch (with a mask, and on non-finite pixels without
+    one) within 1e-6 of the reference's; to_uint8 exact on its output and
+    on values outside [0, 1]."""
+    img, mask = _image(rng)
+    img = img * 40.0 - 3.0
+    ref = jn.percentile_stretch(jnp.asarray(img), jnp.asarray(mask))
+    got = tn.percentile_stretch(_t(img), _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+    holes = img.copy()
+    holes[~mask] = np.nan
+    ref2 = jn.percentile_stretch(jnp.asarray(holes), p_lo=5.0, p_hi=90.0)
+    got2 = tn.percentile_stretch(_t(holes), p_lo=5.0, p_hi=90.0)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(ref2), atol=1e-6,
+                               rtol=0)
+    for x in (np.asarray(ref), np.linspace(-0.5, 1.5, 41, dtype=np.float32)):
+        np.testing.assert_array_equal(tn.to_uint8(_t(x)).numpy(),
+                                      np.asarray(jn.to_uint8(jnp.asarray(x))))
+    assert tn.to_uint8(got).dtype == torch.uint8
+
+
 @pytest.mark.parametrize("q,stages", [(0.5, 2), (0.02, 2), (0.98, 1)])
 def test_masked_quantile_grid(rng, q, stages):
     x, mask = _image(rng)
@@ -78,6 +153,11 @@ def test_snr_ratio(rng):
     ref = jn.snr_ratio(jnp.asarray(img), jnp.asarray(mask))
     got = tn.snr_ratio(_t(img), _t(mask))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    # the reference's `subsample` argument is accepted (and, as there,
+    # changes nothing)
+    again = tn.snr_ratio(_t(img), _t(mask), subsample=4)
+    assert float(again) == float(got)
+    assert float(tn.snr_ratio(_t(img), _t(mask), 2)) == float(got)
 
 
 @pytest.mark.parametrize("iterations", [1, 3, 8])

@@ -190,6 +190,50 @@ def test_sgm_blocked_plan_fits_every_disparity_count(nb, with_prev):
                                                          else 8)
 
 
+@pytest.mark.parametrize("span", [53, 896, 1152])
+@pytest.mark.parametrize("horizontal", [True, False])
+def test_sgm_dir_plan_bf16_fits_every_disparity_count(span, horizontal):
+    """K1's launch plan for 2-byte elements fits one block's shared memory
+    for every D (planes padded by 16 bytes: 8 elements), passes the checks
+    of ``launch_typed`` (csrc/sgm_tile.cuh), and never takes a shorter
+    tile than the float32 plan."""
+    src = (PKG / "csrc" / "sgm_tile.cuh").read_text()
+    assert "(paths * tile + 16 / esize)" in src
+    assert "g.Sp = g.P * g.T + 16 / esize;" in src
+    for D in range(1, K.SGM_DIR_MAX_DISP + 1):
+        for acc in (False, True):
+            p = K.sgm_dir_plan(D, span, horizontal, acc, esize=2)
+            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, acc, 2) \
+                == 2 * D * (p.paths * p.tile + 8) * (2 if acc else 1) * 2 \
+                <= K.SMEM_BLOCK_MAX
+            assert _pow2(p.paths) and 4 <= p.paths <= 16
+            assert _pow2(p.tile) and p.tile <= 32
+            assert p.paths * p.tile <= max(256, 32 * p.paths)
+            p4 = K.sgm_dir_plan(D, span, horizontal, acc)
+            assert p.paths == p4.paths and p.tile >= p4.tile
+            assert K.sgm_dir_plan(D, span, horizontal, acc, esize=4) == p4
+    # a deep volume takes a longer tile in half the bytes
+    assert K.sgm_dir_plan(144, 1152, True, True).tile == 16
+    assert K.sgm_dir_plan(144, 1152, True, True, esize=2).tile == 32
+
+
+@pytest.mark.parametrize("nb", [1, 7, 9])
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_sgm_blocked_plan_bf16_fits_every_disparity_count(nb, with_prev):
+    """K5's launch plan for 2-byte elements: as the float32 test."""
+    for Dp in range(1, K.SGM_BLOCKED_MAX_DISP + 1):
+        p = K.sgm_blocked_plan(Dp, nb, with_prev, esize=2)
+        assert p.smem == K.sgm_dir_smem(Dp, p.paths, p.tile, with_prev, 2) \
+            <= K.SMEM_BLOCK_MAX
+        threads = max(256, 32 * p.paths)
+        assert p.paths in (8, 16) and threads <= 512
+        assert K.BAND % p.paths == 0
+        assert _pow2(p.tile) and p.tile <= 32
+        assert p.paths * p.tile <= threads
+        assert p.tile >= K.sgm_blocked_plan(Dp, nb, with_prev).tile
+    assert K.sgm_blocked_plan(144, 9, with_prev, esize=2)[:2] == (16, 8)
+
+
 @pytest.mark.parametrize("accumulate", [False, True])
 def test_sgm_hwd_plan_fits_every_disparity_count(accumulate):
     """K4's launch plan fits one block's shared memory and thread limit

@@ -15,6 +15,7 @@ import torch
 from pcmi_tpu.config import StereoConfig
 from pcmi_tpu.ops.stereo import matching as jm
 from pcmi_tpu.ops.stereo import pallas_kernels as jpk
+from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.convert import config_from_reference as _c
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo import matching as tm
@@ -349,12 +350,312 @@ def test_compute_disparity_variants(rng, variant):
     assert got.valid.float().mean() > 0.5
 
 
-def test_cost_dtype_bfloat16_refused(rng):
-    """The reference stores the aggregated volume and runs the WTA in
-    bfloat16 under cost_dtype="bfloat16" on every backend, which changes its
-    disparities on the small pair; the port's kernels are float32-only, so
-    it refuses that config. "float32" and "auto" run and equal the
-    reference's float32 result."""
+# --- cost_dtype="bfloat16": the TPU kernels' stored-dtype mode ---------------
+#
+# Inputs are rounded once to bfloat16 and the same values go into both
+# packages. Stored volumes and argmin indices must be bit-exact; disparity
+# within 1e-5 px; best cost and margin within one bfloat16 step of the cost
+# (measured: 0 everywhere).
+
+
+def _bf(rng, shape, lo=0.0, hi=1.0):
+    """A seeded volume rounded once to bfloat16, as a JAX array and as the
+    port's tensor (the same values)."""
+    j = jnp.asarray(rng.uniform(lo, hi, shape).astype(np.float32)).astype(
+        jnp.bfloat16)
+    return j, convert.tensor_from_reference(j)
+
+
+def _f32(a):
+    """Any array or tensor, bfloat16 ones included, as float32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _bf16_step(x):
+    """One bfloat16 step at the magnitude of ``x`` (float32 numpy)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+def _assert_wta_bf16(got, ref):
+    np.testing.assert_allclose(_f32(got[0]), _f32(ref[0]), atol=DISP_TOL,
+                               rtol=0)
+    for g, r in zip(got[1:3], ref[1:3]):
+        assert (np.abs(_f32(g) - _f32(r)) <= _bf16_step(_f32(ref[1]))).all()
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 40), (20, 19, 33)])
+@pytest.mark.parametrize("dirs", ["4", "h", "v"])
+def test_bf16_sgm_plain_matches_pallas_sub(rng, dirs, shape):
+    """K1's plain version on a bfloat16 volume, forward and accumulate
+    (`lr + rl`, `tb + bt`: bfloat16 adds of two stored volumes), and the
+    matcher's bfloat16 means around it, against sgm_aggregate_pallas_sub:
+    bit-exact, stored as bfloat16."""
+    jv, tv = _bf(rng, shape)
+    cfg = StereoConfig(max_disp=32, cost_dtype="bfloat16")
+    ref = jpk.sgm_aggregate_pallas_sub(jv, cfg.sgm_p1, cfg.sgm_p2, band=8,
+                                       chunk=8, dirs=dirs)
+    got = tm.sgm_aggregate(tv, _c(cfg), dirs=dirs)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(ref))
+
+
+@pytest.mark.parametrize("shape,stride,d_min", [((16, 24, 40), 1, -8),
+                                                ((16, 19, 33), 2, -4)])
+@pytest.mark.parametrize("with_aggregate", [False, True])
+def test_bf16_fused_left_matches_sgm4_wta_pallas(rng, with_aggregate, shape,
+                                                 stride, d_min):
+    """4 sgm_dir + wta((h + v) * 0.25) on a bfloat16 volume against
+    sgm4_wta_fused_pallas: `hsum = lr + rl` and `(vert + hsum) * 0.25` in
+    bfloat16, WTA in float32. S (bfloat16) bit-exact, the rest as stated
+    above."""
+    d, h, w = shape
+    jv, tv = _bf(rng, shape)
+    cfg = StereoConfig(max_disp=16)
+    ref = jpk.sgm4_wta_fused_pallas(jv, cfg.sgm_p1, cfg.sgm_p2, d_min,
+                                    stride=stride, band=8, chunk=8,
+                                    with_aggregate=with_aggregate)
+    hz = K.sgm_pair(tv, cfg.sgm_p1, cfg.sgm_p2, horizontal=True)
+    vt = K.sgm_pair(tv, cfg.sgm_p1, cfg.sgm_p2, horizontal=False)
+    got = K.wta(hz, vt, 0.25, d_min, stride, with_aggregate=with_aggregate)
+    assert all(g.dtype == torch.float32 for g in got[:3])
+    _assert_wta_bf16(got, ref)
+    idx = K.wta(hz, vt, 0.25, d_min, stride, subpixel=False)[0]
+    ref_idx = jpk.sgm4_wta_fused_pallas(jv, cfg.sgm_p1, cfg.sgm_p2, d_min,
+                                        stride=stride, band=8, chunk=8,
+                                        subpixel=False)[0]
+    np.testing.assert_array_equal(_f32(idx), _f32(ref_idx))
+    if with_aggregate:
+        assert got[3].dtype == torch.bfloat16 and ref[3].dtype == jnp.bfloat16
+        s_ref = np.transpose(_f32(ref[3])[:w, :d, :h], (1, 2, 0))
+        np.testing.assert_array_equal(_f32(got[3]), s_ref)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_wta_plain_matches_pallas(rng, stride):
+    """K2 on one bfloat16 volume (the checker's form) against
+    wta_fused_pallas, ties and boundary minima included."""
+    vol = jnp.asarray(_wta_volume(rng)).astype(jnp.bfloat16)
+    tv = convert.tensor_from_reference(vol)
+    for sub in (True, False):
+        ref = jpk.wta_fused_pallas(vol, -12, stride=stride, subpixel=sub)
+        got = K.wta(tv, None, 1.0, -12, stride, subpixel=sub)
+        if not sub:
+            np.testing.assert_array_equal(_f32(got[0]), _f32(ref[0]))
+        _assert_wta_bf16(got, ref)
+
+
+@pytest.mark.parametrize("shape,stride", [((16, 24, 40), 2),
+                                          ((16, 19, 33), 2),
+                                          ((16, 24, 40), 1)])
+def test_bf16_fused_right_matches_pallas(rng, shape, stride):
+    """derive -> 2 horizontal sgm_dir -> argmin of `lr + rl` in bfloat16.
+
+    Exact against the reference's unfused chain (derive_right_pallas,
+    sgm_aggregate_pallas_sub(dirs="h"), argmin), which
+    right_disparity_fused_pallas states bit parity with. Against that
+    kernel itself in interpret mode a few pixels differ (measured 4 of 960,
+    0 of 627 and 2 of 960 on the three cases): XLA's CPU compiler keeps the
+    kernel's `(a + b).astype(float32)` in float32 without rounding the sum
+    to bfloat16, which breaks ties of the bfloat16 sum differently. Every
+    such pixel must be a tie: the reference's index is also a minimum of
+    the bfloat16 sum, and the port's is the lowest."""
+    jv, tv = _bf(rng, shape)
+    cfg = StereoConfig(max_disp=16)
+    d_min = cfg.min_disparity
+    vr = K.derive_right(tv, d_min, fill=1.0, stride=stride)
+    hr = K.sgm_pair(vr, cfg.sgm_p1, cfg.sgm_p2, horizontal=True)
+    got = _f32(K.wta(hr, None, 0.5, d_min, stride, subpixel=False,
+                     with_margin=False)[0])
+    chain = jpk.sgm_aggregate_pallas_sub(
+        jpk.derive_right_pallas(jv, d_min, fill=1.0, stride=stride),
+        cfg.sgm_p1, cfg.sgm_p2, band=8, chunk=8, dirs="h")
+    np.testing.assert_array_equal(_f32(hr * 0.5), _f32(chain))
+    np.testing.assert_array_equal(
+        got, d_min + stride * np.asarray(jnp.argmin(chain, axis=0),
+                                         np.float32))
+    ref = _f32(jpk.right_disparity_fused_pallas(
+        jv, cfg.sgm_p1, cfg.sgm_p2, d_min, stride=stride, band=8, chunk=8))
+    differ = got != ref
+    assert differ.mean() <= 0.01
+    col = _f32(hr)
+    ref_i = ((ref - d_min) / stride).astype(np.int64)
+    at_ref = np.take_along_axis(col, ref_i[None], 0)[0]
+    np.testing.assert_array_equal(at_ref, col.min(0))
+    assert (got <= ref).all()
+
+
+@pytest.mark.parametrize("d_min,stride,fill", [(-4, 1, 1.0), (-8, 2, 1e4),
+                                               (0, 1, 1.0), (3, 1, 1e4)])
+def test_bf16_derive_right_exact(rng, d_min, stride, fill):
+    """K3 on a bfloat16 volume: a copy, `fill` cast to bfloat16 (1e4
+    becomes 9984), against both reference forms: bit-exact."""
+    jv, tv = _bf(rng, (8, 20, 141))
+    got = tm.derive_right_volume(tv, d_min, fill=fill, stride=stride)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(jm.derive_right_volume(
+        jv, d_min, fill=fill, stride=stride)))
+    np.testing.assert_array_equal(_f32(got), _f32(jpk.derive_right_pallas(
+        jv, d_min, fill=fill, stride=stride)))
+    assert float(got.float().max()) == (9984.0 if fill == 1e4 else 1.0)
+
+
+def test_bf16_accumulate_rules_differ(rng):
+    """The two rules for a second bfloat16 input: K1 adds two STORED
+    volumes (the direction is rounded, then the sum), K5's `prev` form adds
+    the float32 state and rounds once. On the same volume the two differ
+    (measured: 10,602 of 61,440 elements, each by one bfloat16 step), and each
+    plain version follows its own reference kernel bit for bit."""
+    d, s, lanes = 16, 30, 128
+    jv, tv = _bf(rng, (d, s, lanes))
+    cfg = StereoConfig(max_disp=16)
+    p1, p2 = cfg.sgm_p1, cfg.sgm_p2
+    # K1: tb + bt over the (D, H, W) volume
+    k1 = K.sgm_pair(tv, p1, p2, horizontal=False)
+    ref1 = jpk.sgm_aggregate_pallas_sub(jv, p1, p2, band=8, chunk=8,
+                                        dirs="v")
+    np.testing.assert_array_equal(_f32(k1 * 0.5), _f32(ref1))
+    # K5: the same volume as one band (1, S, D, 128), forward then
+    # backward + forward
+    jb = jnp.transpose(jv, (1, 0, 2))[None]
+    tb = tv.permute(1, 0, 2)[None].contiguous()
+    fwd = K.sgm_blocked(tb, p1, p2, reverse=False)
+    k5 = K.sgm_blocked(tb, p1, p2, reverse=True, prev=fwd)
+    ref5 = jpk._blocked_dir_sum(jb, s // 6, 6, p1, p2)
+    assert k5.dtype == torch.bfloat16 and ref5.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_f32(k5), _f32(ref5))
+    a, b = _f32(k1), _f32(k5[0].permute(1, 0, 2))
+    differ = a != b
+    assert differ.mean() >= 0.05
+    assert (np.abs(a - b) <= _bf16_step(a)).all()
+    # in float32 the two rules are one
+    f = tv.float()
+    f1 = K.sgm_pair(f, p1, p2, horizontal=False)
+    fb = f.permute(1, 0, 2)[None].contiguous()
+    f5 = K.sgm_blocked(fb, p1, p2, True,
+                       prev=K.sgm_blocked(fb, p1, p2, False))
+    np.testing.assert_array_equal(_f32(f1), _f32(f5[0].permute(1, 0, 2)))
+
+
+def test_bf16_wrappers_dtypes():
+    """A wrapper takes float32 or bfloat16, all tensors of one call the
+    same, and raises TypeError for anything else and for bfloat16 into K4,
+    before anything runs."""
+    b = torch.zeros(4, 5, 6, dtype=torch.bfloat16)
+    f = torch.zeros(4, 5, 6)
+    K.reset_launches()
+    for call in (lambda: K.sgm_dir(b, 0.03, 0.48, True, False, out=f),
+                 lambda: K.wta(b, f, 1.0, 0),
+                 lambda: K.wta(b.half(), None, 1.0, 0),
+                 lambda: K.derive_right(b.double(), 0),
+                 lambda: K.sgm_hwd(b, 0.03, 0.48, 0, False),
+                 lambda: K.sgm_blocked(torch.zeros(1, 4, 8, 128), 0.03, 0.48,
+                                       True, prev=torch.zeros(
+                                           1, 4, 8, 128,
+                                           dtype=torch.bfloat16))):
+        with pytest.raises(TypeError):
+            call()
+    assert K.sgm_dir(b, 0.03, 0.48, True, False).dtype == torch.bfloat16
+    assert K.derive_right(b, 1).dtype == torch.bfloat16
+    assert not any(K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_build_cost_volume(rng, stride):
+    """The cost volume under cost_dtype="bfloat16": float32 arithmetic,
+    one rounding. The port's float32 costs match the reference's within
+    1e-6, not bit for bit, so a value next to a rounding midpoint may land
+    one bfloat16 step away: at most 0.1% of the elements (measured: 2 of
+    73,728 on the small pair), none further."""
+    left, right, vl, vr = _small_pair(rng)
+    cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                       disp_stride=stride, cost_dtype="bfloat16")
+    ref = jm.build_cost_volume(*[jnp.asarray(a) for a in
+                                 (left, right, vl, vr)], cfg)
+    got = tm.build_cost_volume(*[_t(a) for a in (left, right, vl, vr)],
+                               _c(cfg))
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert tuple(got.shape) == ref.shape
+    r, g = _f32(ref), _f32(got)
+    assert (r != g).mean() <= 1e-3
+    assert (np.abs(r - g) <= _bf16_step(r)).all()
+
+
+def _reference_volumes(monkeypatch):
+    """Make the port's matcher build its cost volumes with the reference's
+    build_cost_volume (carried over exactly), so that a comparison of
+    compute_disparity holds everything after the cost volume to bit
+    parity."""
+    def build(left, right, valid_l, valid_r, cfg):
+        rcfg = StereoConfig(**dataclasses.asdict(cfg))
+        return convert.tensor_from_reference(jm.build_cost_volume(
+            jnp.asarray(left.numpy()), jnp.asarray(right.numpy()),
+            jnp.asarray(valid_l.numpy()), jnp.asarray(valid_r.numpy()), rcfg))
+
+    monkeypatch.setattr(tm, "build_cost_volume", build)
+
+
+def _compare_bf16(rng, monkeypatch, kw, aggregation):
+    """compute_disparity under cost_dtype="bfloat16" against the
+    reference's TPU branch (sgm_backend="pallas", kernels in interpret
+    mode) on the small pair.
+
+    From the images: the two cost volumes differ at a few elements by one
+    bfloat16 step (test_bf16_build_cost_volume), so every field must agree
+    within _assert_results_agree's tolerances on >= 99% of the pixels
+    (measured: all, but for the right view below). From the reference's
+    own volumes: every field exact, except the right disparity of the
+    fused right view (right_sgm="horizontal" without right_subpixel), where
+    the reference's kernel in interpret mode breaks bfloat16 ties
+    differently (test_bf16_fused_right_matches_pallas): there <= 0.5% of
+    the pixels may differ (measured: 4 of 4,608), and `valid` still
+    agrees."""
+    left, right, vl, vr = _small_pair(rng)
+    cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                       cost_dtype="bfloat16", sgm_backend="pallas", **kw)
+    ref = jm.compute_disparity(*[jnp.asarray(a) for a in
+                                 (left, right, vl, vr)], cfg,
+                               aggregation=aggregation)
+    targs = [_t(a) for a in (left, right, vl, vr)]
+    got = tm.compute_disparity(*targs, _c(cfg), aggregation=aggregation)
+    tols = dict(disparity=1e-4, check_disparity=1e-4, disparity_right=1e-4,
+                cost=1e-5, margin=1e-5, check_margin=1e-5)
+    for f, tol in tols.items():
+        r, g = getattr(ref, f), getattr(got, f)
+        if r is None:
+            assert g is None, f
+            continue
+        assert g.dtype == torch.float32, f
+        assert (np.abs(_f32(g) - _f32(r)) <= tol).mean() >= 0.99, f
+    assert (np.asarray(ref.valid) == got.valid.numpy()).mean() >= 0.99
+    assert got.valid.float().mean() > 0.5
+
+    _reference_volumes(monkeypatch)
+    exact = tm.compute_disparity(*targs, _c(cfg), aggregation=aggregation)
+    fused_right = (aggregation == "sgm" and cfg.right_sgm == "horizontal"
+                   and not cfg.right_subpixel)
+    for f in tols:
+        r, g = getattr(ref, f), getattr(exact, f)
+        if r is None:
+            continue
+        if f == "disparity_right" and fused_right:
+            assert (_f32(g) != _f32(r)).mean() <= 0.005
+        elif f in ("disparity", "disparity_right", "check_disparity"):
+            np.testing.assert_allclose(_f32(g), _f32(r), atol=DISP_TOL,
+                                       rtol=0, err_msg=f)
+        else:
+            np.testing.assert_array_equal(_f32(g), _f32(r), err_msg=f)
+    np.testing.assert_array_equal(exact.valid.numpy(), np.asarray(ref.valid))
+
+
+def test_cost_dtype_bfloat16(rng, monkeypatch):
+    """cost_dtype="bfloat16" is a mode with results of its own: on the
+    small pair the reference's bfloat16 disparities differ from its
+    float32 ones (measured: 43 pixels by more than 0.01 px, the largest by
+    5.6 px), and the port follows each: "float32" and "auto" equal the
+    reference's float32 result, "bfloat16" its bfloat16 one
+    (_compare_bf16)."""
     left, right, vl, vr = _small_pair(rng)
     args = [jnp.asarray(a) for a in (left, right, vl, vr)]
     base = StereoConfig(max_disp=16, block_size=5, census_window=5,
@@ -363,14 +664,23 @@ def test_cost_dtype_bfloat16_refused(rng):
            for d in ("float32", "bfloat16", "auto")}
     r32 = jm.compute_disparity(*args, cfg["float32"])
     r16 = jm.compute_disparity(*args, cfg["bfloat16"])
-    # measured: 43 pixels move by more than 0.01 px, the largest by 5.6 px
     diff = np.abs(np.asarray(r32.disparity) - np.asarray(r16.disparity))
     assert (diff > 0.01).sum() >= 10 and diff.max() > 1.0
     targs = [_t(a) for a in (left, right, vl, vr)]
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tm.compute_disparity(*targs, _c(cfg["bfloat16"]))
     for d in ("float32", "auto"):
         _assert_results_agree(tm.compute_disparity(*targs, _c(cfg[d])), r32)
+    t16 = tm.compute_disparity(*targs, _c(cfg["bfloat16"]))
+    tdiff = np.abs(_f32(t16.disparity) - np.asarray(r32.disparity))
+    assert (tdiff > 0.01).sum() >= 10
+    _compare_bf16(rng, monkeypatch, {}, "sgm")
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_compute_disparity_bf16_variants(rng, monkeypatch, variant):
+    """Each ported matcher variant under cost_dtype="bfloat16" against the
+    reference's TPU branch: see _compare_bf16."""
+    kw, aggregation = _VARIANTS[variant]
+    _compare_bf16(rng, monkeypatch, kw, aggregation)
 
 
 def test_compute_disparity_rejects_unported_variants():
