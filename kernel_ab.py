@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's SGM and right-view kernels (K1 ``sgm_dir``, K3
-``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``) of one or more
-checkouts on one CUDA card, in turns, one process per turn.
+"""Time the port's hand-written kernels (K1 ``sgm_dir``, K2 ``wta``, K3
+``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``, K6
+``derive_right_wdh``) of one or more checkouts on one CUDA card, in turns,
+one process per turn.
 
     python3 kernel_ab.py ROOT[:DTYPE] [ROOT[:DTYPE] ...]
 
@@ -16,20 +17,29 @@ them. Each turn builds that checkout's kernels, checks each kernel bit-exact aga
 its plain version, and times, with CUDA events over 10 launches after a
 warm-up, K1's and K4's four launch kinds (horizontal / vertical, forward /
 accumulate), K5's (both scan axes' blocked volumes, forward / with
-``prev``) and K3 at (80, 896, 896) stride 1 and (144, 1152, 1152) stride 2.
+``prev``), K3, K2's four forms (:data:`WTA_FORMS`: the left view with and
+without the combined aggregate, the right view's argmin, the checker's
+WTA) and K6 on the (W, D, H) copy of the volume, at (80, 896, 896) stride 1
+and (144, 1152, 1152) stride 2.
 It prints one JSON line per turn, each time beside its bound: the bytes the
 launch must move (each input read once, each output written once, 4 or 2
-bytes an element) over the H100's 3.35 TB/s. The card's name and power limit come first.
+bytes a volume element, 4 a plane element) over the H100's 3.35 TB/s. The
+card's name and power limit come first.
 
-    python3 kernel_ab.py --ablate [--dtype DTYPE]
+    python3 kernel_ab.py --ablate [--dtype DTYPE] [--only wta]
 
-takes K1, K4 and K5 of this checkout apart at their launch plans, through
-the switches of ``csrc/sgm_tile.cuh``: each launch kind at both shapes
-timed as built, with the scan left out (``-DSGM_NO_SCAN``: the copies and
-stores alone) and with the device-memory traffic left out
-(``-DSGM_NO_COPY``: the scan alone, on whatever the ring holds); one JSON
-line each; then ``torch.profiler``'s device time of the kernels one
-``sgm_pair`` per axis launches.
+takes K1, K4, K5 and K2 of this checkout apart through build-time
+switches: each launch kind at both shapes timed as built (``full``), as
+``copy_only`` and as ``scan_only``. For K1, K4 and K5 (``csrc/sgm_tile.cuh``)
+``copy_only`` leaves the scan out (``-DSGM_NO_SCAN``: the copies and stores
+alone) and ``scan_only`` the device-memory traffic (``-DSGM_NO_COPY``: the
+scan alone, on whatever the ring holds); for K2 (``csrc/wta.cu``, each form
+of :data:`WTA_FORMS`) ``copy_only`` folds the combined values into a sum in
+place of the walk (``-DWTA_NO_CHAIN``: loads, combine and stores alone) and
+``scan_only`` makes the values in registers from the pixel and slice index
+(``-DWTA_NO_LOADS``: combine and walk alone). One JSON line each; then
+``torch.profiler``'s device time of the kernels one ``sgm_pair`` per axis
+launches. ``--only wta`` builds and times K2 alone.
 
     python3 kernel_ab.py --plans [--dtype DTYPE]
 
@@ -50,6 +60,16 @@ HBM_BYTES_PER_S = 3.35e12
 SHAPES = (((80, 896, 896), 1), ((144, 1152, 1152), 2))
 P1, P2 = 0.03, 0.48
 AXES = ((True, "h"), (False, "v"))   # (horizontal, name)
+# K2's forms: (second input?, scale, subpixel, margin, aggregate out,
+# volumes moved, (H, W) planes written); the left view with and without
+# the combined aggregate S, the right view's integer argmin and the
+# cross-checker's one-volume WTA
+WTA_FORMS = {
+    "left": (True, 0.25, True, True, False, 2, 3),
+    "left_s": (True, 0.25, True, True, True, 3, 3),
+    "right": (False, 0.5, False, False, False, 1, 2),
+    "checker": (False, 1.0, True, True, False, 1, 3),
+}
 
 
 def _events_ms(fn, reps: int = 10) -> float:
@@ -67,8 +87,24 @@ def _events_ms(fn, reps: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _bound_ms(volumes: float, v_bytes: int) -> float:
-    return volumes * v_bytes / HBM_BYTES_PER_S * 1e3
+def _bound_ms(volumes: float, v_bytes: int, plane_bytes: int = 0) -> float:
+    return (volumes * v_bytes + plane_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def _wta_row(K, form: str, a, b, d_min: int, stride: int) -> dict:
+    """K2 in one form of :data:`WTA_FORMS` on ``a`` (and ``b``): every
+    output bit-exact against its plain version, its time and its bound."""
+    import torch
+
+    two, scale, sub, mg, with_s, vols, planes = WTA_FORMS[form]
+    args = (a, b if two else None, scale, d_min, stride, sub, mg, with_s)
+    got, ref = K.wta(*args), K.wta_plain(*args)
+    ok = all(torch.equal(g, r) for g, r in zip(got, ref) if r is not None)
+    del got, ref
+    ms = _events_ms(lambda: K.wta(*args))
+    D, H, W = a.shape
+    bound = _bound_ms(vols, a.numel() * a.element_size(), planes * H * W * 4)
+    return dict(exact=bool(ok), ms=ms, bound_ms=bound, share=bound / ms)
 
 
 DTYPES = ("float32", "bfloat16")
@@ -137,7 +173,22 @@ def turn(root: str, dtype: str = "float32") -> dict:
         row["derive_right"] = dict(exact=bool(ok), ms=ms,
                                    bound_ms=_bound_ms(2, v_bytes),
                                    share=_bound_ms(2, v_bytes) / ms)
+        for form in WTA_FORMS:
+            row[f"wta_{form}"] = _wta_row(K, form, vol, acc, d_min, stride)
         del acc
+        # K6 on the (W, D, H) copy of the volume, unpadded (as chip_smoke's
+        # phase 3 runs it)
+        wdh = vol.permute(2, 0, 1).contiguous()
+        got = K.derive_right_wdh(wdh, D, W, d_min, stride, 1.0)
+        ok = torch.equal(got, K.derive_right_wdh_plain(wdh, D, W, d_min,
+                                                       stride, 1.0))
+        del got
+        ms = _events_ms(lambda: K.derive_right_wdh(wdh, D, W, d_min, stride,
+                                                   1.0))
+        row["derive_right_wdh"] = dict(exact=bool(ok), ms=ms,
+                                       bound_ms=_bound_ms(2, v_bytes),
+                                       share=_bound_ms(2, v_bytes) / ms)
+        del wdh
         hwd = vol.permute(1, 2, 0).contiguous()
         for horizontal, axis in AXES if dtype == "float32" else ():
             ax = 1 if horizontal else 0
@@ -171,25 +222,29 @@ def _bind(lib):
         "pcmi_sgm_dir": [p, p, i, i, i, i, i, i, f, f, i, i, i, p],
         "pcmi_sgm_hwd": [p, p, i, i, i, i, i, i, f, f, i, p],
         "pcmi_sgm_blocked": [p, p, p, i, i, i, f, f, i, i, i, i, p],
+        "pcmi_wta": [p, p, i, i, i, f, f, f, i, p, p, p, p, i, p],
     }
     for name, types in argtypes.items():
+        if not hasattr(lib, name):  # a build of K2 alone (--only wta)
+            continue
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = i
     return lib
 
 
 _SGM = ("sgm_dir.cu", "sgm_hwd.cu", "sgm_blocked.cu")
-# variant: extra nvcc flags; the switches are in sgm_tile.cuh
+_WTA = ("wta.cu",)
+# variant: extra nvcc flags; the switches are in sgm_tile.cuh and wta.cu
 ABLATIONS = {
     "full": (),
-    "copy_only": ("-DSGM_NO_SCAN",),
-    "scan_only": ("-DSGM_NO_COPY",),
+    "copy_only": ("-DSGM_NO_SCAN", "-DWTA_NO_CHAIN"),
+    "scan_only": ("-DSGM_NO_COPY", "-DWTA_NO_LOADS"),
 }
 PLANS = {"full": ()}
 
 
-def _ablation_libs(root: Path, variants: dict) -> dict:
-    """Build each variant of the SGM kernels (one nvcc each, all started
+def _ablation_libs(root: Path, variants: dict, sources=_SGM) -> dict:
+    """Build each variant of ``sources`` (one nvcc each, all started
     together) into ``build/kernel_ab`` and load it."""
     import ctypes
 
@@ -198,12 +253,13 @@ def _ablation_libs(root: Path, variants: dict) -> dict:
     out = root / "build/kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
+    tag = "_".join(s.split(".")[0] for s in sources)
     for name, flags in variants.items():
-        so = out / f"sgm_{name}.so"
+        so = out / f"{tag}_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "--threads",
-             str(len(_SGM)), "-shared", "-o",
-             str(so), *(str(_build.CSRC_DIR / s) for s in _SGM)],
+             str(len(sources)), "-shared", "-o",
+             str(so), *(str(_build.CSRC_DIR / s) for s in sources)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -258,18 +314,55 @@ def _timed(call, *args) -> float | None:
     return _events_ms(run)
 
 
-def _study(ablation: bool, dtype: str = "float32") -> None:
+def _wta_ablation(libs: dict, vol, second, d_min: int, stride: int) -> None:
+    """One JSON line per K2 form: its time in each build variant."""
+    import torch
+
+    D, H, W = vol.shape
+    disp, best, margin = (torch.empty((H, W), device="cuda")
+                          for _ in range(3))
+    agg = torch.empty_like(vol)
+    bf16 = int(vol.dtype == torch.bfloat16)
+    for form, (two, scale, sub, mg, with_s, vols, planes) in \
+            WTA_FORMS.items():
+        def call(lib):
+            return lib.pcmi_wta(
+                vol.data_ptr(), second.data_ptr() if two else None, D, H, W,
+                scale, float(d_min), float(stride), int(sub),
+                disp.data_ptr(), best.data_ptr(),
+                margin.data_ptr() if mg else None,
+                agg.data_ptr() if with_s else None, bf16,
+                torch.cuda.current_stream().cuda_stream)
+
+        row = dict(kernel="wta", form=form, dtype=str(vol.dtype)[6:],
+                   shape=[D, H, W], bound_ms=_bound_ms(
+                       vols, vol.numel() * vol.element_size(),
+                       planes * H * W * 4))
+        for variant, lib in libs.items():
+            row[f"{variant}_ms"] = _timed(call, lib)
+        print(json.dumps(row), flush=True)
+
+
+def _study(ablation: bool, dtype: str = "float32",
+           only_wta: bool = False) -> None:
     import torch
 
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
-    libs = {n: _bind(lib) for n, lib in _ablation_libs(
-        root, ABLATIONS if ablation else PLANS).items()}
+    variants = ABLATIONS if ablation else PLANS
+    wta_libs = {n: _bind(lib) for n, lib in _ablation_libs(
+        root, variants, _WTA).items()} if ablation else {}
+    libs = {} if only_wta else {n: _bind(lib) for n, lib in _ablation_libs(
+        root, variants).items()}
     esize = 2 if dtype == "bfloat16" else 4
-    for (D, H, W), _ in SHAPES:
+    for (D, H, W), stride in SHAPES:
         vol, out = _volumes((D, H, W), dtype)
+        if wta_libs:
+            _wta_ablation(wta_libs, vol, out, -(D * stride) // 2, stride)
+        if only_wta:
+            continue
         hwd = vol.permute(1, 2, 0).contiguous()
         hwd_out = torch.empty_like(hwd)
         blocked = {hz: _blocked(vol, hz) for hz, _ in AXES}
@@ -337,25 +430,37 @@ def _root_dtype(arg: str) -> tuple[str, str]:
 
 
 def main() -> int:
-    if sys.argv[1:2] in (["--ablate"], ["--plans"]) and (
-            len(sys.argv) == 2 or (len(sys.argv) == 4
-                                   and sys.argv[2] == "--dtype")):
-        dtype = _root_dtype(":" + sys.argv[3])[1] if len(sys.argv) == 4 \
-            else "float32"
+    import argparse
+
+    ap = argparse.ArgumentParser(description="time the port's kernels")
+    ap.add_argument("roots", nargs="*", metavar="ROOT[:DTYPE]")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--ablate", action="store_true")
+    mode.add_argument("--plans", action="store_true")
+    mode.add_argument("--turn", metavar="ROOT[:DTYPE]")
+    ap.add_argument("--dtype", choices=DTYPES, default="float32")
+    ap.add_argument("--only", choices=("wta",))
+    args = ap.parse_args()
+    if args.ablate or args.plans:
+        if args.roots or (args.only and not args.ablate):
+            ap.error("--ablate / --plans time this checkout; --only goes "
+                     "with --ablate")
         print(_smi())
-        _study(ablation=sys.argv[1] == "--ablate", dtype=dtype)
+        _study(ablation=args.ablate, dtype=args.dtype,
+               only_wta=args.only == "wta")
         return 0
-    if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(*_root_dtype(sys.argv[2]))))
+    if args.turn:
+        print(json.dumps(turn(*_root_dtype(args.turn))))
         return 0
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    if not torch.cuda.is_available() or not args.roots:
         print("kernel_ab: needs a CUDA card and at least one ROOT",
               file=sys.stderr)
         return 1
     print(_smi())
-    for root in sys.argv[1:]:
+    for root in args.roots:
+        _root_dtype(root)
         proc = subprocess.run([sys.executable, __file__, "--turn", root],
                               capture_output=True, text=True)
         if proc.returncode != 0:
