@@ -13,21 +13,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
    (both directions, with and without ``prev``) bit-exact against their
    plain versions on small awkward volumes (``RAGGED``,
-   ``RAGGED_BLOCKED``), K1, K3, K5 and K6 ``derive_right_wdh`` in
-   float32 and in bfloat16 (odd W, and storage 2 and 4 bytes past an
-   aligned address), K4 in float32 (in bfloat16 it must raise
-   ``TypeError``); then each kernel against
-   its plain PyTorch version on seeded
+   ``RAGGED_BLOCKED``), K2 ``wta`` in every instantiation (one or two
+   inputs, parabola, margin, combined aggregate) on the same volumes and
+   on ``RAGGED_WTA`` (D from 1 to 5 and past its 4- and 8-slice chunks,
+   odd and even H * W), K6 ``derive_right_wdh`` on ``RAGGED_WDH`` (rows that are
+   not a multiple of 16 bytes, Dp == d_real, w == Wp, shifts that leave
+   whole rows to ``fill``, fills 1.0 and 1e4); K1, K2, K3, K5 and K6 in
+   float32 and in bfloat16 (storage 2, 4 and 8 bytes past an aligned
+   address), K4 in float32 (in bfloat16 it must raise ``TypeError``);
+   then each kernel against its plain PyTorch version on seeded
    inputs on the card at two volume shapes, (80, 896, 896) (the headline
    pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2),
    each time beside its bound (``bound``: bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger) and, for K3, one
-   ``torch.gather`` computing the same volume (its ``library_ms``);
+   operations over 67 TFLOP/s, whichever is larger), K2 in each of its
+   four main-path forms (``WTA_FORMS``) beside its own bound, and one
+   PyTorch call computing the same function (``library_ms``): for K3 and
+   K6 a ``torch.gather`` over a volume prepared beforehand, for K2 a
+   ``torch.min`` over D (its one-input integer form);
    K1 ``sgm_dir``, K3 ``derive_right``, K4 ``sgm_hwd``, K5 ``sgm_blocked``
    and K6 ``derive_right_wdh`` must be bit-exact, K2 ``wta`` exact in its
    argmin indices, disparity within 1e-5 px, best cost and margin within
-   1e-6, its combined aggregate (``with_aggregate``) bit-exact and the
-   diagonal argmin over it equal to the derived right view's; the two alternative-layout SGMs (``layouts.sgm_aggregate_hwd`` and
+   1e-6 (on the ragged volumes every output bit-exact), its combined
+   aggregate (``with_aggregate``) bit-exact and the diagonal argmin over
+   it equal to the derived right view's; the two alternative-layout SGMs
+   (``layouts.sgm_aggregate_hwd`` and
    ``sgm_aggregate_blocked``) within 1e-4 of K1's ``sgm_aggregate``, and
    the (W, Dp, H)-derive right view equal to the default one; then all
    of this once more on bfloat16 volumes (every kernel but K4), with the
@@ -129,12 +138,33 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # per (D, H, W) volume: (volumes moved, planes moved, operations per
 # element); the SGMs are the mean of a forward launch (2 volumes) and an
-# accumulating one (3), K2 is the left view (2 inputs, 3 planes out)
+# accumulating one (3), K2 ("wta") is the left view (2 inputs, 3 planes
+# out), "wta:<form>" each form of WTA_FORMS
 WORK = {
     "sgm_dir": (2.5, 0, 8.5), "sgm_hwd": (2.5, 0, 8.5),
     "sgm_blocked": (2.5, 0, 8.5), "wta": (2, 3, 6),
+    "wta:left": (2, 3, 6), "wta:left_s": (3, 3, 6),
+    "wta:right": (1, 2, 3), "wta:checker": (1, 3, 5),
     "derive_right": (2, 0, 0), "derive_right_wdh": (2, 0, 0),
 }
+# K2's forms on the main path: (second input?, scale, subpixel, margin,
+# combined aggregate out): the left view, with S (right_sgm="diagonal"),
+# the right view's integer argmin and the cross-checker's WTA
+WTA_FORMS = {
+    "left": (True, 0.25, True, True, False),
+    "left_s": (True, 0.25, True, True, True),
+    "right": (False, 0.5, False, False, False),
+    "checker": (False, 1.0, True, True, False),
+}
+# K2's ragged volumes: D from 1 to 5 and D past a multiple of its d-chunks
+# (4 slices in float32, 8 in bfloat16), odd and even H * W
+RAGGED_WTA = tuple((D, h, w) for D in (1, 2, 3, 4, 5, 13, 21, 37)
+                   for h, w in ((7, 9), (6, 10)))
+# K6's ragged padded (Wp, Dp, Hp) volumes with (d_real, w): rows of 84, 24
+# and 512 bytes in float32 (42, 12, 256 in bfloat16), Dp == d_real and
+# w == Wp, d_real < Dp and w < Wp
+RAGGED_WDH = (((48, 16, 21), 13, 37), ((40, 12, 32), 12, 40),
+              ((33, 9, 6), 9, 30), ((20, 8, 128), 5, 20))
 # small awkward volumes for K1, K3 and (moved to (H, W, D)) K4: partial
 # tiles and ring tails, rows that are not 16-byte aligned, a ragged last
 # 128-wide chunk, odd D, D > 256
@@ -230,6 +260,28 @@ def _gather_right(vol, d_min: int, stride: int):
     idx = (shift[:, None, None] + torch.arange(W, device=vol.device)
            ).expand(D, H, W)
     return lambda: torch.gather(volp, 2, idx)
+
+
+def _gather_wdh(vol, d_real: int, w: int, d_min: int, stride: int,
+                fill: float):
+    """K6's yardstick: one ``torch.gather`` along Wp over a volume
+    prepared beforehand: the image's columns padded with ``fill`` on both
+    sides, ``BIG`` rows for ``d >= d_real`` and a zero row at the end, to
+    which the index sends every ``x >= w``."""
+    wp, dp, hp = vol.shape
+    pad = abs(d_min) + (dp - 1) * abs(stride) + 1
+    side = torch.full((pad, dp, hp), fill, dtype=vol.dtype,
+                      device=vol.device)
+    src = torch.cat([side, vol[:w], side,
+                     torch.zeros_like(vol[:1])]).contiguous()
+    src[:, d_real:] = 1e9
+    src[-1] = 0
+    x = torch.arange(wp, device=vol.device)[:, None]
+    d = torch.arange(dp, device=vol.device)[None, :]
+    idx = torch.where(x < w, pad + x + d_min + d * stride,
+                      src.shape[0] - 1)
+    idx = idx[:, :, None].expand(wp, dp, hp)
+    return lambda: torch.gather(src, 0, idx)
 
 
 def phase_parity(shape, stride: int, seed: int,
@@ -330,18 +382,32 @@ def phase_parity(shape, stride: int, seed: int,
         lambda: diag_right_disparity(s_vol, d_min, stride), 5)
     ms_der = _median_ms(derived_right, 5)
     del s_vol
-    ms_s = _median_ms(lambda: K.wta(h, v, 0.25, d_min, stride, True, True,
-                                    with_aggregate=True), 5)
-    bound_s = ((3 * D * H * W * esize + 3 * H * W * 4)
-               / HBM_BYTES_PER_S * 1e3)
     print(f"  wta[left + aggregate] D={D} S_err={s_err:.3g} "
-          f"{'ok' if s_ok else 'FAIL'}: {ms_s:.3f} ms ({bound_s / ms_s:.1%} "
-          f"of its {bound_s:.3f} ms bound), without S {ms:.3f} ms; "
-          f"diag_right_disparity(S) {ms_diag:.3f} ms (plain), equal to "
-          f"derive_right + integer wta on S ({ms_der:.3f} ms) {diag_ok}")
+          f"{'ok' if s_ok else 'FAIL'}; diag_right_disparity(S) "
+          f"{ms_diag:.3f} ms (plain), equal to derive_right + integer wta "
+          f"on S ({ms_der:.3f} ms) {diag_ok}")
     ok &= s_ok and diag_ok
+    # each form's time against its own bound (WORK["wta:<form>"]), on the
+    # left view's inputs
+    form_ms = {}
+    for form, (two, sc, sub, mg, agg) in WTA_FORMS.items():
+        form_ms[form] = ms if form == "left" else _median_ms(
+            lambda: K.wta(h, v if two else None, sc, d_min, stride, sub, mg,
+                          agg), 5)
+        bf = bound(f"wta:{form}", shape, esize)[0]
+        print(f"  wta form {form}: {form_ms[form]:.3f} ms "
+              f"({bf / form_ms[form]:.1%} of its {bf:.3f} ms bound)")
+    # K2's yardstick: one torch.min over D, the one-input integer form up to
+    # the affine d_min + stride * index (the port never calls it)
+    lib_ms = _median_ms(lambda: torch.min(h, dim=0), 5)
+    idx = torch.min(h, dim=0).indices
+    same = torch.equal(d_min + stride * idx.float(),
+                       K.wta(h, None, 0.5, d_min, stride, False, False)[0])
+    print(f"  wta: torch.min(dim=0) {lib_ms:.3f} ms, the same indices as "
+          f"K2's right form {same}; K2's right form "
+          f"{'faster' if form_ms['right'] < lib_ms else 'SLOWER'}")
     res["wta"] = dict(max_abs_err=max(werr, s_err), exact=wexact and s_ok,
-                      ms=ms, plain_ms=pms)
+                      ms=ms, plain_ms=pms, library_ms=lib_ms, forms=form_ms)
 
     # K3, and its yardstick: one torch.gather (the port never calls it)
     got = K.derive_right(vol, d_min, 1.0, stride)
@@ -383,14 +449,47 @@ def phase_parity(shape, stride: int, seed: int,
     return res
 
 
+def _wta_all_forms(a, b, d_min: int, stride: int) -> list:
+    """K2 in each of its instantiations (one or two inputs, with or without
+    the parabola, with or without the margin, and with the combined
+    aggregate) on ``a`` (and ``b``): the forms whose outputs are not all
+    bit-exact against the plain version's."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    bad = []
+    for two, sub, mg in itertools.product((True, False), repeat=3):
+        for agg in (False, True) if two else (False,):
+            scale = 0.25 if two else (1.0 if mg else 0.5)
+            args = (a, b if two else None, scale, d_min, stride, sub, mg,
+                    agg)
+            got, ref = K.wta(*args), K.wta_plain(*args)
+            torch.cuda.synchronize()
+            if not all((g is None and r is None) or torch.equal(g, r)
+                       for g, r in zip(got, ref)):
+                bad.append((two, sub, mg, agg))
+    return bad
+
+
+def _offset_rand(shape, offset: int, dt, gen):
+    """A seeded volume of ``shape`` whose storage starts ``offset``
+    elements past an aligned address."""
+    n = math.prod(shape)
+    return torch.rand(n + offset, generator=gen, device="cuda").to(dt)[
+        offset:].view(shape)
+
+
 def phase_ragged() -> None:
     """K1 and K4 (all four directions, forward and accumulate) and K3
     (shifts of either sign, one past the row) bit-exact against their plain
     versions on :data:`RAGGED`, and once more on a volume whose storage
-    starts 4 bytes past an aligned address; K2 (two inputs, with the
-    aggregate) on the same volumes; K5 (both directions, with and
-    without ``prev``) on :data:`RAGGED_BLOCKED`; K6 on a padded volume.
-    K1, K2, K3, K5 and K6 in float32 and in bfloat16."""
+    starts 4 bytes past an aligned address; K2 in every instantiation on
+    the same volumes and on :data:`RAGGED_WTA` (storage 0, 4 and, in
+    bfloat16, 2 bytes past an aligned address); K5 (both directions, with
+    and without ``prev``) on :data:`RAGGED_BLOCKED`; K6 on the padded
+    volumes of :data:`RAGGED_WDH` (storage 0, 4, 8 and, in bfloat16, 2
+    bytes past an aligned address; shifts that copy, that leave rows
+    wholly outside the image, fills 1.0 and 1e4). K1, K2, K3, K5 and K6
+    in float32 and in bfloat16; every output bit-exact."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
     from pcmi_tpu_torch.ops.stereo._build import load
 
@@ -437,17 +536,10 @@ def phase_ragged() -> None:
                 bad.append(("derive_right", _name(dt), shape, d_min,
                             _maxerr(got, ref)))
         # K2 on the same extents (an odd H * W, or storage off a 4-byte
-        # address, takes bfloat16 one pixel per thread): indices and the
-        # aggregate exact, best and margin within 1e-6
-        got = K.wta(vol, base, 0.25, -(D * stride) // 2, stride, False, True,
-                    with_aggregate=True)
-        ref = K.wta_plain(vol, base, 0.25, -(D * stride) // 2, stride, False,
-                          True, with_aggregate=True)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
-                and _maxerr(got[1], ref[1]) <= 1e-6
-                and _maxerr(got[2], ref[2]) <= 1e-6):
-            bad.append(("wta", _name(dt), shape, offset))
+        # address, takes bfloat16 one pixel per thread)
+        forms = _wta_all_forms(vol, base, -(D * stride) // 2, stride)
+        if forms:
+            bad.append(("wta", _name(dt), shape, offset, forms))
         if dt == b16:
             print(f"ragged bfloat16 {shape} stride={stride} offset={offset}:"
                   f" sgm_dir plans {sorted(tuple(p) for p in plans)}")
@@ -482,23 +574,42 @@ def phase_ragged() -> None:
                             reverse, pv is not None, _maxerr(got, ref)))
         print(f"ragged blocked {_name(dt)} {tuple(vb.shape)}: sgm_blocked "
               f"plans {[tuple(K.sgm_blocked_plan(Dp, nb, a, _esize(dt))) for a in (False, True)]}")
-    # K6 in both types on a padded (Wp, Dp, Hp) volume with an odd Hp
-    for dt, (d_min, stride, fill) in itertools.product(
-            (f32, b16), ((0, 1, 1.0), (-4, 2, 1.0), (-12, 1, 1e4))):
-        wdh = torch.rand((48, 16, 21), generator=gen, device="cuda").to(dt)
-        got = K.derive_right_wdh(wdh, 13, 37, d_min, stride, fill)
-        ref = K.derive_right_wdh_plain(wdh, 13, 37, d_min, stride, fill)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            bad.append(("derive_right_wdh", _name(dt), d_min, stride, fill,
-                        _maxerr(got, ref)))
+    n_wta = 0
+    for dt, (D, h, w) in itertools.product((f32, b16), RAGGED_WTA):
+        stride = 1 + D % 2
+        for offset in (0, 1, 2) if dt == b16 else (0, 1):
+            a = _offset_rand((D, h, w), offset, dt, gen)
+            b = _offset_rand((D, h, w), offset, dt, gen)
+            forms = _wta_all_forms(a, b, -(D * stride) // 2, stride)
+            n_wta += 1
+            if forms:
+                bad.append(("wta", _name(dt), (D, h, w), offset, forms))
+    # K6 in both types on padded (Wp, Dp, Hp) volumes: rows copied, rows
+    # whose source lies wholly outside [0, w) (all `fill`), BIG and 0 rows
+    n_wdh = 0
+    for dt, (shape, d_real, w) in itertools.product((f32, b16), RAGGED_WDH):
+        dp = shape[1]
+        for offset in (0, 1, 2, 4) if dt == b16 else (0, 1, 2):
+            wdh = _offset_rand(shape, offset, dt, gen)
+            for d_min, stride, fill in ((0, 1, 1.0), (-4, 2, 1.0),
+                                        (-12, 1, 1e4), (w + 3, 1, 1e4),
+                                        (-w - 2 * dp, 2, 1.0)):
+                got = K.derive_right_wdh(wdh, d_real, w, d_min, stride, fill)
+                ref = K.derive_right_wdh_plain(wdh, d_real, w, d_min, stride,
+                                               fill)
+                torch.cuda.synchronize()
+                n_wdh += 1
+                if not torch.equal(got, ref):
+                    bad.append(("derive_right_wdh", _name(dt), shape, offset,
+                                d_min, stride, fill, _maxerr(got, ref)))
     try:
         K.sgm_hwd(torch.zeros((4, 5, 8), dtype=b16, device="cuda"), p1, p2,
                   0, False)
         bad.append(("sgm_hwd", "took a bfloat16 volume"))
     except TypeError:
         pass
-    print(f"ragged: {len(cases)} + {2 * len(RAGGED_BLOCKED)} volumes, "
+    print(f"ragged: {len(cases)} + {2 * len(RAGGED_BLOCKED)} volumes, K2 "
+          f"every form on {n_wta} more, K6 {n_wdh} launches, "
           f"mismatches {bad}")
     if bad:
         raise SystemExit(f"ragged parity failed: {bad}")
@@ -613,7 +724,12 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     ms = _median_ms(lambda: K.derive_right_wdh(wdh, D, W, d_min, stride), 5)
     pms = _median_ms(
         lambda: K.derive_right_wdh_plain(wdh, D, W, d_min, stride), 3)
-    del wdh
+    gather = _gather_wdh(wdh, D, W, d_min, stride, 1.0)
+    g_same = torch.equal(gather(), K.derive_right_wdh_plain(
+        wdh, D, W, d_min, stride))
+    print(f"  derive_right_wdh: torch.gather gives the same volume {g_same}")
+    lib_ms = _median_ms(gather, 5)
+    del wdh, gather
     r_wdh = L.right_disparity_fused(vol, p1, p2, d_min, stride,
                                     use_wdh_derive=True)
     r_def = L.right_disparity_fused(vol, p1, p2, d_min, stride)
@@ -621,7 +737,7 @@ def _parity_layouts(vol, ref4, p1, p2, d_min, stride) -> dict:
     print(f"  right_disparity_fused: use_wdh_derive equal to the default "
           f"{same}")
     res["derive_right_wdh"] = dict(max_abs_err=err, exact=exact and same,
-                                   ms=ms, plain_ms=pms)
+                                   ms=ms, plain_ms=pms, library_ms=lib_ms)
     return res
 
 

@@ -17,29 +17,29 @@ them. Each turn builds that checkout's kernels, checks each kernel bit-exact aga
 its plain version, and times, with CUDA events over 10 launches after a
 warm-up, K1's and K4's four launch kinds (horizontal / vertical, forward /
 accumulate), K5's (both scan axes' blocked volumes, forward / with
-``prev``), K3, K2's four forms (:data:`WTA_FORMS`: the left view with and
-without the combined aggregate, the right view's argmin, the checker's
-WTA) and K6 on the (W, D, H) copy of the volume, at (80, 896, 896) stride 1
+``prev``), K3, K2's four forms (``chip_smoke.WTA_FORMS``: the left view
+with and without the combined aggregate, the right view's argmin, the
+checker's WTA) and K6 on the (W, D, H) copy of the volume, at (80, 896, 896) stride 1
 and (144, 1152, 1152) stride 2.
 It prints one JSON line per turn, each time beside its bound: the bytes the
 launch must move (each input read once, each output written once, 4 or 2
 bytes a volume element, 4 a plane element) over the H100's 3.35 TB/s. The
 card's name and power limit come first.
 
-    python3 kernel_ab.py --ablate [--dtype DTYPE] [--only wta]
+    python3 kernel_ab.py --ablate [--dtype DTYPE]
 
 takes K1, K4, K5 and K2 of this checkout apart through build-time
 switches: each launch kind at both shapes timed as built (``full``), as
 ``copy_only`` and as ``scan_only``. For K1, K4 and K5 (``csrc/sgm_tile.cuh``)
 ``copy_only`` leaves the scan out (``-DSGM_NO_SCAN``: the copies and stores
 alone) and ``scan_only`` the device-memory traffic (``-DSGM_NO_COPY``: the
-scan alone, on whatever the ring holds); for K2 (``csrc/wta.cu``, each form
-of :data:`WTA_FORMS`) ``copy_only`` folds the combined values into a sum in
+scan alone, on whatever the ring holds); for K2 (``csrc/wta.cu``, each
+form) ``copy_only`` folds the combined values into a sum in
 place of the walk (``-DWTA_NO_CHAIN``: loads, combine and stores alone) and
 ``scan_only`` makes the values in registers from the pixel and slice index
 (``-DWTA_NO_LOADS``: combine and walk alone). One JSON line each; then
 ``torch.profiler``'s device time of the kernels one ``sgm_pair`` per axis
-launches. ``--only wta`` builds and times K2 alone.
+launches.
 
     python3 kernel_ab.py --plans [--dtype DTYPE]
 
@@ -56,20 +56,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+# K2's four main-path forms (second input?, scale, subpixel, margin,
+# aggregate out) and each form's volumes and (H, W) planes moved
+from chip_smoke import WORK, WTA_FORMS
+
 HBM_BYTES_PER_S = 3.35e12
 SHAPES = (((80, 896, 896), 1), ((144, 1152, 1152), 2))
 P1, P2 = 0.03, 0.48
 AXES = ((True, "h"), (False, "v"))   # (horizontal, name)
-# K2's forms: (second input?, scale, subpixel, margin, aggregate out,
-# volumes moved, (H, W) planes written); the left view with and without
-# the combined aggregate S, the right view's integer argmin and the
-# cross-checker's one-volume WTA
-WTA_FORMS = {
-    "left": (True, 0.25, True, True, False, 2, 3),
-    "left_s": (True, 0.25, True, True, True, 3, 3),
-    "right": (False, 0.5, False, False, False, 1, 2),
-    "checker": (False, 1.0, True, True, False, 1, 3),
-}
 
 
 def _events_ms(fn, reps: int = 10) -> float:
@@ -96,7 +90,8 @@ def _wta_row(K, form: str, a, b, d_min: int, stride: int) -> dict:
     output bit-exact against its plain version, its time and its bound."""
     import torch
 
-    two, scale, sub, mg, with_s, vols, planes = WTA_FORMS[form]
+    two, scale, sub, mg, with_s = WTA_FORMS[form]
+    vols, planes, _ = WORK[f"wta:{form}"]
     args = (a, b if two else None, scale, d_min, stride, sub, mg, with_s)
     got, ref = K.wta(*args), K.wta_plain(*args)
     ok = all(torch.equal(g, r) for g, r in zip(got, ref) if r is not None)
@@ -148,6 +143,7 @@ def _pair_row(fwd, acc, fwd_plain, acc_plain, v_bytes: int) -> dict:
 
 
 def turn(root: str, dtype: str = "float32") -> dict:
+    root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
     from pcmi_tpu_torch.ops.stereo import kernels as K
@@ -225,15 +221,12 @@ def _bind(lib):
         "pcmi_wta": [p, p, i, i, i, f, f, f, i, p, p, p, p, i, p],
     }
     for name, types in argtypes.items():
-        if not hasattr(lib, name):  # a build of K2 alone (--only wta)
-            continue
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = i
     return lib
 
 
-_SGM = ("sgm_dir.cu", "sgm_hwd.cu", "sgm_blocked.cu")
-_WTA = ("wta.cu",)
+_ABLATED = ("sgm_dir.cu", "sgm_hwd.cu", "sgm_blocked.cu", "wta.cu")
 # variant: extra nvcc flags; the switches are in sgm_tile.cuh and wta.cu
 ABLATIONS = {
     "full": (),
@@ -243,9 +236,9 @@ ABLATIONS = {
 PLANS = {"full": ()}
 
 
-def _ablation_libs(root: Path, variants: dict, sources=_SGM) -> dict:
-    """Build each variant of ``sources`` (one nvcc each, all started
-    together) into ``build/kernel_ab`` and load it."""
+def _ablation_libs(root: Path, variants: dict) -> dict:
+    """Build each variant of the SGM kernels and K2 (one nvcc each, all
+    started together) into ``build/kernel_ab`` and load it."""
     import ctypes
 
     from pcmi_tpu_torch.ops.stereo import _build
@@ -253,13 +246,12 @@ def _ablation_libs(root: Path, variants: dict, sources=_SGM) -> dict:
     out = root / "build/kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    tag = "_".join(s.split(".")[0] for s in sources)
     for name, flags in variants.items():
-        so = out / f"{tag}_{name}.so"
+        so = out / f"ablated_{name}.so"
         procs[name] = (so, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "--threads",
-             str(len(sources)), "-shared", "-o",
-             str(so), *(str(_build.CSRC_DIR / s) for s in sources)],
+             str(len(_ABLATED)), "-shared", "-o",
+             str(so), *(str(_build.CSRC_DIR / s) for s in _ABLATED)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -323,8 +315,9 @@ def _wta_ablation(libs: dict, vol, second, d_min: int, stride: int) -> None:
                           for _ in range(3))
     agg = torch.empty_like(vol)
     bf16 = int(vol.dtype == torch.bfloat16)
-    for form, (two, scale, sub, mg, with_s, vols, planes) in \
-            WTA_FORMS.items():
+    for form, (two, scale, sub, mg, with_s) in WTA_FORMS.items():
+        vols, planes, _ = WORK[f"wta:{form}"]
+
         def call(lib):
             return lib.pcmi_wta(
                 vol.data_ptr(), second.data_ptr() if two else None, D, H, W,
@@ -343,26 +336,20 @@ def _wta_ablation(libs: dict, vol, second, d_min: int, stride: int) -> None:
         print(json.dumps(row), flush=True)
 
 
-def _study(ablation: bool, dtype: str = "float32",
-           only_wta: bool = False) -> None:
+def _study(ablation: bool, dtype: str = "float32") -> None:
     import torch
 
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
-    variants = ABLATIONS if ablation else PLANS
-    wta_libs = {n: _bind(lib) for n, lib in _ablation_libs(
-        root, variants, _WTA).items()} if ablation else {}
-    libs = {} if only_wta else {n: _bind(lib) for n, lib in _ablation_libs(
-        root, variants).items()}
+    libs = {n: _bind(lib) for n, lib in _ablation_libs(
+        root, ABLATIONS if ablation else PLANS).items()}
     esize = 2 if dtype == "bfloat16" else 4
     for (D, H, W), stride in SHAPES:
         vol, out = _volumes((D, H, W), dtype)
-        if wta_libs:
-            _wta_ablation(wta_libs, vol, out, -(D * stride) // 2, stride)
-        if only_wta:
-            continue
+        if ablation:
+            _wta_ablation(libs, vol, out, -(D * stride) // 2, stride)
         hwd = vol.permute(1, 2, 0).contiguous()
         hwd_out = torch.empty_like(hwd)
         blocked = {hz: _blocked(vol, hz) for hz, _ in AXES}
@@ -430,37 +417,25 @@ def _root_dtype(arg: str) -> tuple[str, str]:
 
 
 def main() -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="time the port's kernels")
-    ap.add_argument("roots", nargs="*", metavar="ROOT[:DTYPE]")
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--ablate", action="store_true")
-    mode.add_argument("--plans", action="store_true")
-    mode.add_argument("--turn", metavar="ROOT[:DTYPE]")
-    ap.add_argument("--dtype", choices=DTYPES, default="float32")
-    ap.add_argument("--only", choices=("wta",))
-    args = ap.parse_args()
-    if args.ablate or args.plans:
-        if args.roots or (args.only and not args.ablate):
-            ap.error("--ablate / --plans time this checkout; --only goes "
-                     "with --ablate")
+    if sys.argv[1:2] in (["--ablate"], ["--plans"]) and (
+            len(sys.argv) == 2 or (len(sys.argv) == 4
+                                   and sys.argv[2] == "--dtype")):
+        dtype = _root_dtype(":" + sys.argv[3])[1] if len(sys.argv) == 4 \
+            else "float32"
         print(_smi())
-        _study(ablation=args.ablate, dtype=args.dtype,
-               only_wta=args.only == "wta")
+        _study(ablation=sys.argv[1] == "--ablate", dtype=dtype)
         return 0
-    if args.turn:
-        print(json.dumps(turn(*_root_dtype(args.turn))))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
+        print(json.dumps(turn(*_root_dtype(sys.argv[2]))))
         return 0
     import torch
 
-    if not torch.cuda.is_available() or not args.roots:
+    if not torch.cuda.is_available() or len(sys.argv) < 2:
         print("kernel_ab: needs a CUDA card and at least one ROOT",
               file=sys.stderr)
         return 1
     print(_smi())
-    for root in args.roots:
-        _root_dtype(root)
+    for root in sys.argv[1:]:
         proc = subprocess.run([sys.executable, __file__, "--turn", root],
                               capture_output=True, text=True)
         if proc.returncode != 0:

@@ -12,40 +12,94 @@
 // in W segments sized to fit VMEM).
 //
 // What bounds it: pure data movement, one read and one write of the volume
-// (2 x Wp*Dp*Hp elements of 4 or 2 bytes). One thread per output element,
-// threads along y, so each warp reads and writes 128 consecutive bytes (64
-// in bfloat16); the shift rides the major axis and goes straight into the
-// address. A copy: bit-exact. The kernel is blind to the element type but
-// for its three constants: `fill`, 1e9 and 0 arrive in the stored type
-// (1e9 is 998244352 and 1e4 is 9984 in bfloat16), as the TPU kernel casts
-// them.
+// (2 x Wp*Dp*Hp elements of 4 or 2 bytes; rows that are constant skip
+// their read, so the bytes moved are a little fewer). The volume is Wp*Dp
+// rows of Hp contiguous elements, and every output row (x, d) is one
+// thing: a copy of source row (x + d_min + d*stride, d), or all `fill`, all
+// 1e9 or all 0. So one warp takes one row, decides its case once, and
+// moves it in 16-byte units, eight per lane issued before any is stored
+// (4 KB of a row in flight per warp), with streaming cache hints (nothing
+// is read twice); a constant row is only written. The first design ran one
+// thread per element and one 128-thread block per 512 bytes, so its time
+// followed the element count: bfloat16 took float32's time.
+//
+// The kernel moves bits and is blind to the element type: `fill`, 1e9 and
+// 0 arrive as bit patterns of the stored type (1e9 is 998244352 and 1e4 is
+// 9984 in bfloat16, as the TPU kernel casts them), repeated over the unit.
+// The unit is the widest of 16, 8, 4 and 2 bytes that divides the row's
+// byte length and both pointers; the padded volumes the layouts build (Hp a
+// multiple of 128) always take 16, and any other row length or storage
+// offset takes a narrower unit. A copy: bit-exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <cstring>
+
 namespace {
 
 constexpr float kBig = 1e9f;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerLane = 8;  // units per lane in flight
 
-template <typename E>
-__global__ void derive_right_wdh_kernel(const E* __restrict__ vol,
-                                        E* __restrict__ out, int Dp,
-                                        int Hp, int d_real, int w, int d_min,
-                                        int stride, E fill, E big, E zero) {
-  const int y = blockIdx.x * blockDim.x + threadIdx.x;
-  const int d = blockIdx.y;
-  const int x = blockIdx.z;
-  if (y >= Hp) return;
-  E v;
-  if (x >= w) {
-    v = zero;
-  } else if (d >= d_real) {
-    v = big;
-  } else {
-    const int xs = x + d_min + d * stride;
-    v = (xs >= 0 && xs < w) ? vol[((long long)xs * Dp + d) * Hp + y] : fill;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    derive_rows_kernel(const T* __restrict__ vol, T* __restrict__ out,
+                       long long rows, int Dp, long long units, int d_real,
+                       int w, int d_min, int stride, T fill, T big) {
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int x = (int)(row / Dp);
+  const int d = (int)(row - (long long)x * Dp);
+  T* dst = out + row * units;
+  const T* src = nullptr;
+  T c{};  // 0 for x >= w
+  if (x < w) {
+    const long long xs = (long long)x + d_min + (long long)d * stride;
+    if (d >= d_real) c = big;
+    else if (xs >= 0 && xs < w) src = vol + (xs * Dp + d) * units;
+    else c = fill;
   }
-  out[((long long)x * Dp + d) * Hp + y] = v;
+  constexpr int kChunk = 32 * kPerLane;
+  if (src) {
+    for (long long i0 = lane; i0 < units; i0 += kChunk) {
+      T r[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (i0 + 32 * k < units) r[k] = __ldcs(src + i0 + 32 * k);
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (i0 + 32 * k < units) __stcs(dst + i0 + 32 * k, r[k]);
+    }
+  } else {
+    for (long long i = lane; i < units; i += 32) __stcs(dst + i, c);
+  }
+}
+
+// `bits` (the element's pattern, esize bytes) repeated over a unit T
+template <typename T>
+T repeated(uint32_t bits, int esize) {
+  const uint32_t word = esize == 4 ? bits : (bits & 0xffffu) * 0x10001u;
+  uint32_t words[4] = {word, word, word, word};
+  T t;
+  std::memcpy(&t, words, sizeof(T));
+  return t;
+}
+
+template <typename T>
+void launch(const void* vol, void* out, int Wp, int Dp, int Hp, int esize,
+            int d_real, int w, int d_min, int stride, uint32_t fill_bits,
+            uint32_t big_bits, cudaStream_t s) {
+  const long long rows = (long long)Wp * Dp;
+  const long long units = (long long)Hp * esize / (long long)sizeof(T);
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  derive_rows_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(vol), static_cast<T*>(out), rows, Dp, units,
+      d_real, w, d_min, stride, repeated<T>(fill_bits, esize),
+      repeated<T>(big_bits, esize));
 }
 
 }  // namespace
@@ -57,20 +111,40 @@ extern "C" int pcmi_derive_right_wdh(const void* vol, void* out, int Wp,
                                      int Dp, int Hp, int d_real, int w,
                                      int d_min, int stride, float fill,
                                      int bf16, void* stream) {
-  if (Wp < 1 || Dp < 1 || Hp < 1 || Wp > 65535 || Dp > 65535 ||
-      d_real < 1 || d_real > Dp || w < 1 || w > Wp)
+  if (Wp < 1 || Dp < 1 || Hp < 1 || d_real < 1 || d_real > Dp || w < 1 ||
+      w > Wp)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const dim3 grid((Hp + threads - 1) / threads, Dp, Wp);
-  if (bf16)
-    derive_right_wdh_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        static_cast<const __nv_bfloat16*>(vol),
-        static_cast<__nv_bfloat16*>(out), Dp, Hp, d_real, w, d_min, stride,
-        __float2bfloat16_rn(fill), __float2bfloat16_rn(kBig),
-        __float2bfloat16_rn(0.f));
+  const int esize = bf16 ? 2 : 4;
+  uint32_t fill_bits, big_bits;
+  if (bf16) {
+    const __nv_bfloat16 f = __float2bfloat16_rn(fill);
+    const __nv_bfloat16 g = __float2bfloat16_rn(kBig);
+    uint16_t fb, gb;
+    std::memcpy(&fb, &f, 2);
+    std::memcpy(&gb, &g, 2);
+    fill_bits = fb;
+    big_bits = gb;
+  } else {
+    std::memcpy(&fill_bits, &fill, 4);
+    std::memcpy(&big_bits, &kBig, 4);
+  }
+  // the widest unit that divides the row's bytes and both addresses
+  const uintptr_t al = reinterpret_cast<uintptr_t>(vol) |
+                       reinterpret_cast<uintptr_t>(out) |
+                       (uintptr_t)((size_t)Hp * esize);
+  if (al % esize) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (al % 16 == 0)
+    launch<uint4>(vol, out, Wp, Dp, Hp, esize, d_real, w, d_min, stride,
+                  fill_bits, big_bits, s);
+  else if (al % 8 == 0)
+    launch<uint2>(vol, out, Wp, Dp, Hp, esize, d_real, w, d_min, stride,
+                  fill_bits, big_bits, s);
+  else if (al % 4 == 0)
+    launch<unsigned int>(vol, out, Wp, Dp, Hp, esize, d_real, w, d_min,
+                         stride, fill_bits, big_bits, s);
   else
-    derive_right_wdh_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        static_cast<const float*>(vol), static_cast<float*>(out), Dp, Hp,
-        d_real, w, d_min, stride, fill, kBig, 0.f);
+    launch<unsigned short>(vol, out, Wp, Dp, Hp, esize, d_real, w, d_min,
+                           stride, fill_bits, big_bits, s);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,5 @@
 // K2 wta: combine one or two (D, H, W) float32 or bfloat16 aggregates and
-// take the
-// winner-takes-all disparity, its cost and its uniqueness margin.
+// take the winner-takes-all disparity, its cost and its uniqueness margin.
 //
 // Replaces three TPU kernels in pcmi_tpu/ops/stereo/pallas_kernels.py:
 //   sgm4_wta_fused_pallas / _make_wta3_kernel   left view, (a + b) * 0.25,
@@ -15,19 +14,20 @@
 //   off    = 0.5 * (prev - next) / max(denom, 1e-9) if 0 < idx < D-1 and
 //            denom > 1e-9, else 0; clipped to [-1, 1]
 //   disp   = d_min + stride * (idx + off)
-//   margin = min_{|d - idx| > 1} s_d - best   (1e9 - best if no such d)
+//   margin = min_{|d - idx| > 1} s_d - best   (BIG - best if no such d,
+//            BIG = 1e9 in the volume's type: 998244352 in bfloat16)
 // Costs must lie below 1e9 (the reference's BIG), as every volume the
 // matcher builds does.
 //
 // On bfloat16 volumes the combine is the TPU kernels' bfloat16 arithmetic:
-// a_d + b_d is a bfloat16 add (widened, added, rounded to nearest-even),
-// as `hsum = lr + rl` and `vert + hsum` are, and the product with `scale`
-// a bfloat16 multiply. The scales the matcher uses (1, 0.5, 0.25) are
-// powers of two and leave the rounded sum exact; another scale is itself
-// rounded to bfloat16 first and the product rounded again, as a bfloat16
-// multiply by a constant is. s_d is then widened: argmin, parabola, best
-// and margin are float32 and go to float32 planes, and agg_out takes s_d
-// as bfloat16.
+// a_d + b_d is a bfloat16 add and the product with `scale` (itself rounded
+// to bfloat16) a bfloat16 multiply, each rounded to nearest-even, as
+// `hsum = lr + rl` and `vert + hsum` are. The card's packed bfloat16x2 add
+// and multiply round the exact result once; widening to float32, computing
+// and rounding gives the same bits (float32 holds more than twice
+// bfloat16's 8 significant bits plus two, so the double rounding is
+// harmless). s_d is then widened: argmin, parabola, best and margin are
+// float32 and go to float32 planes, and agg_out takes s_d as bfloat16.
 //
 // With agg_out the kernel also stores s_d to agg_out[d, y, x] ((D, H, W),
 // where the TPU kernel keeps its padded (W, Dp, H) scan layout): the right
@@ -35,17 +35,39 @@
 // volume (matching.diag_right_disparity).
 //
 // What bounds it: one read of each input volume (D*H*W elements of 4 or 2
-// bytes per input); the outputs are three (H, W) planes, and with agg_out
-// one volume more, written in the same walk. One thread per pixel walks D,
-// so the threads of a warp read 32 consecutive x of one disparity slice
-// (128-byte transactions). In bfloat16 one thread walks two neighbouring
-// pixels, one 32-bit load per input and slice, so a warp's transactions
-// and the bytes each thread keeps in flight stay those of float32 (an odd
-// H*W, whose slices are not 4-byte aligned, takes one pixel per thread). A
-// running sorted top-4 with indices gives the margin in the same pass (the
-// best's two neighbours can hold at most two of the four slots), and the
-// best's neighbours are tracked as the walk passes them, so the volume is
-// read once.
+// bytes per input); the outputs are two or three (H, W) planes, and with
+// agg_out one volume more, written in the same walk. One thread walks D
+// for one pixel (float32) or two neighbouring pixels (bfloat16, one 32-bit
+// load per input and slice; an odd H*W or storage off a 4-byte address
+// takes one pixel per thread), so a warp reads 128 consecutive bytes of
+// one disparity slice per load. The first design (one load per input and
+// step, then a sorted top-4 insertion of ~20 compares and selects per
+// pixel, in every form) was bound by loads in float32 and by that walk in
+// bfloat16, where the bytes per instruction halve (kernel_ab.py --ablate).
+// This one does two things:
+//   - instructions per element: the margin needs no top-4. With strict
+//     `<` the running best changes only on a new first minimum; at that
+//     step the best candidates left of it are the running minimum of
+//     s_0..s_{d-2} (kept one step behind), and those right of it are the
+//     minimum of what comes after s_{idx+1}. So the walk keeps the best,
+//     its index and neighbours, the minimum of those candidates and that
+//     lagging minimum: 9 instructions per element in the full form, 3 for
+//     the right view's integer argmin (each form is its own
+//     instantiation). In bfloat16 the combine is two packed instructions
+//     per pair of pixels.
+//   - bytes in flight: the d-loop runs in chunks whose loads are all
+//     issued before the chunk is walked, 4 slices in float32 and 8 in
+//     bfloat16 (per thread 32 bytes in flight with two inputs); longer
+//     chunks, or a second buffer that loads the next chunk while this one
+//     is walked, hold more registers, fewer threads per SM and measured
+//     no faster.
+// The result is the same value, bit for bit, as the plain version's.
+//
+// Ablation switches (kernel_ab.py --ablate; never in the library the
+// package builds): -DWTA_NO_CHAIN replaces the walk by a float sum of the
+// combined values (loads, combine and stores alone); -DWTA_NO_LOADS makes
+// the raw values from the pixel and slice index instead of loading them
+// and stores no aggregate (the combine and the walk alone).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,141 +75,265 @@
 namespace {
 
 constexpr float kBig = 1e9f;
+constexpr int kThreads = 256;
 using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
 
-__device__ __forceinline__ float rounded(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+// BIG in bfloat16: the margin's value where no slice is far enough
+inline float big16() { return __bfloat162float(__float2bfloat16_rn(kBig)); }
 
-// bfloat16 s_d from widened inputs: `scale` arrives rounded to bfloat16
-__device__ __forceinline__ float combine16(float a, float b, bool two,
-                                           float scale) {
-  return rounded((two ? rounded(a + b) : a) * scale);
-}
-
-__device__ __forceinline__ float lo_of(unsigned u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float hi_of(unsigned u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// s_d of kPix neighbouring pixels from offset o, and its store into agg
-template <int kPix>
-__device__ __forceinline__ void combine(const float* a, const float* b,
-                                        long long o, float scale,
-                                        float (&val)[kPix]) {
-  static_assert(kPix == 1, "float32 walks one pixel per thread");
-  val[0] = b ? (a[o] + b[o]) * scale : a[o] * scale;
-}
-template <int kPix>
-__device__ __forceinline__ void combine(const bf16* a, const bf16* b,
-                                        long long o, float scale,
-                                        float (&val)[kPix]) {
-  if (kPix == 1) {
-    val[0] = combine16(__bfloat162float(a[o]),
-                       b ? __bfloat162float(b[o]) : 0.f, b != nullptr, scale);
-  } else {
-    const unsigned ua = *reinterpret_cast<const unsigned*>(a + o);
-    const unsigned ub = b ? *reinterpret_cast<const unsigned*>(b + o) : 0u;
-    val[0] = combine16(lo_of(ua), lo_of(ub), b != nullptr, scale);
-    val[kPix - 1] = combine16(hi_of(ua), hi_of(ub), b != nullptr, scale);
+// One element layout: the raw unit a thread loads per input and slice,
+// how it combines, how it widens into kPix float32 values, the slices per
+// chunk of the walk, and BIG in its type.
+struct F32 {  // float32, one pixel per thread
+  using Raw = float;
+  using Scale = float;
+  static constexpr int kPix = 1;
+  static constexpr int kUnroll = 4;
+  static float big() { return kBig; }
+  template <bool kTwo>
+  __device__ static Raw combine(Raw a, Raw b, Scale sc) {
+    return (kTwo ? a + b : a) * sc;
   }
-}
-
-template <int kPix>
-__device__ __forceinline__ void put(float* p, const float (&val)[kPix]) {
-  *p = val[0];
-}
-template <int kPix>
-__device__ __forceinline__ void put(bf16* p, const float (&val)[kPix]) {
-  if (kPix == 1) {
-    *p = __float2bfloat16_rn(val[0]);
-  } else {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(val[0], val[kPix - 1]);
-    *reinterpret_cast<__nv_bfloat162*>(p) = v;
+  __device__ static void widen(Raw s, float (&v)[kPix]) { v[0] = s; }
+};
+struct B16x2 {  // bfloat16, two neighbouring pixels per thread
+  using Raw = bf162;
+  using Scale = bf162;
+  static constexpr int kPix = 2;
+  static constexpr int kUnroll = 8;
+  static float big() { return big16(); }
+  template <bool kTwo>
+  __device__ static Raw combine(Raw a, Raw b, Scale sc) {
+    return __hmul2(kTwo ? __hadd2(a, b) : a, sc);
   }
+  __device__ static void widen(Raw s, float (&v)[kPix]) {
+    v[0] = __low2float(s);
+    v[1] = __high2float(s);
+  }
+};
+struct B16 {  // bfloat16, one pixel per thread
+  using Raw = bf16;
+  using Scale = bf16;
+  static constexpr int kPix = 1;
+  static constexpr int kUnroll = 8;
+  static float big() { return big16(); }
+  template <bool kTwo>
+  __device__ static Raw combine(Raw a, Raw b, Scale sc) {
+    return __hmul(kTwo ? __hadd(a, b) : a, sc);
+  }
+  __device__ static void widen(Raw s, float (&v)[kPix]) {
+    v[0] = __bfloat162float(s);
+  }
+};
+
+#ifdef WTA_NO_LOADS
+// raw values in [0.5, 1) made from a hash, in place of a load
+__device__ __forceinline__ void made(unsigned h, float& r) {
+  r = __uint_as_float(0x3f000000u | (h >> 9));
+}
+__device__ __forceinline__ void made(unsigned h, bf162& r) {
+  const unsigned u = 0x3f003f00u | ((h >> 9) & 0x007f007fu);
+  r = *reinterpret_cast<const bf162*>(&u);
+}
+__device__ __forceinline__ void made(unsigned h, bf16& r) {
+  r = __ushort_as_bfloat16((unsigned short)(0x3f00u | (h >> 25)));
+}
+#endif
+
+// The running state of one pixel's walk over d.
+struct Walk {
+  float v1;     // best so far (first minimum)
+  int i1;       // its index
+  float prev;   // s_{i1-1} (BIG at i1 = 0)
+  float next;   // s_{i1+1} once walked (unread when i1 = D - 1)
+  float far;    // min of s_0..s_{i1-2} and s_{i1+2}..s_d (the margin's)
+  float lag;    // min s_0..s_{d-2}
+  float last;   // s_{d-1}
+  float last2;  // s_{d-2}
+  bool fresh;   // the step before found a new best
+};
+
+__device__ __forceinline__ void init(Walk& w, float big) {
+  w.v1 = __int_as_float(0x7f800000);  // +inf: slice 0 always takes it
+  w.i1 = 0;
+  w.prev = w.next = w.far = w.lag = w.last = w.last2 = big;
+  w.fresh = false;
 }
 
-// One thread walks D for kPix neighbouring pixels (kPix > 1: H*W a multiple
-// of kPix and 4-byte aligned volumes).
-template <typename E, int kPix>
-__global__ void wta_kernel(const E* __restrict__ a,
-                           const E* __restrict__ b, int D, long long HW,
-                           float scale, float d_min, float stride,
-                           int subpixel, float* __restrict__ disp,
-                           float* __restrict__ best_out,
-                           float* __restrict__ margin_out,
-                           E* __restrict__ agg_out) {
-  const long long p =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kPix;
-  if (p >= HW) return;
-  float v1[kPix], v2[kPix], v3[kPix], v4[kPix];
-  int i1[kPix], i2[kPix], i3[kPix], i4[kPix];
-  float prev[kPix], next[kPix], last[kPix];
+template <bool kSub, bool kMargin>
+__device__ __forceinline__ void step(Walk& w, float val, int d) {
+#ifdef WTA_NO_CHAIN
+  w.v1 += val;
+  return;
+#endif
+  const bool nb = val < w.v1;
+  if (kMargin) {
+    // a new best at d: everything left of d - 1 is a candidate, nothing
+    // right of it yet; else every slice but the best's right neighbour
+    w.lag = fminf(w.lag, w.last2);
+    w.far = nb ? w.lag : (w.fresh ? w.far : fminf(w.far, val));
+  }
+  if (kSub) {
+    w.prev = nb ? w.last : w.prev;
+    w.next = w.fresh ? val : w.next;
+  }
+  w.fresh = nb;
+  w.v1 = nb ? val : w.v1;
+  w.i1 = nb ? d : w.i1;
+  w.last2 = w.last;
+  w.last = val;
+}
+
+// Issue the loads of slices d0 .. d0 + count - 1 (count <= U; a literal U
+// for whole chunks, so the guards fold away). Nothing is read twice, so the
+// loads are marked evict-first, but for the form that also stores the
+// aggregate: beside that store stream such loads ran slower than plain
+// ones on the H100.
+template <typename L, bool kTwo, bool kAgg, int U>
+__device__ __forceinline__ void fetch(const typename L::Raw* a,
+                                      const typename L::Raw* b, long long n,
+                                      int d0, int count, long long t,
+                                      typename L::Raw (&ra)[U],
+                                      typename L::Raw (&rb)[U]) {
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
-    v1[q] = v2[q] = v3[q] = v4[q] = kBig;
-    i1[q] = i2[q] = i3[q] = i4[q] = -8;
-    prev[q] = next[q] = last[q] = kBig;
-  }
-  for (int d = 0; d < D; ++d) {
-    const long long o = (long long)d * HW + p;
-    float vals[kPix];
-    combine<kPix>(a, b, o, scale, vals);
-    if (agg_out) put<kPix>(agg_out + o, vals);
-#pragma unroll
-    for (int q = 0; q < kPix; ++q) {
-      const float val = vals[q];
-      const bool b1 = val < v1[q], b2 = val < v2[q], b3 = val < v3[q],
-                 b4 = val < v4[q];
-      if (b1) {
-        prev[q] = last[q];
-        next[q] = kBig;
-      } else if (d == i1[q] + 1) {
-        next[q] = val;
-      }
-      v4[q] = b3 ? v3[q] : (b4 ? val : v4[q]);
-      i4[q] = b3 ? i3[q] : (b4 ? d : i4[q]);
-      v3[q] = b2 ? v2[q] : (b3 ? val : v3[q]);
-      i3[q] = b2 ? i2[q] : (b3 ? d : i3[q]);
-      v2[q] = b1 ? v1[q] : (b2 ? val : v2[q]);
-      i2[q] = b1 ? i1[q] : (b2 ? d : i2[q]);
-      v1[q] = b1 ? val : v1[q];
-      i1[q] = b1 ? d : i1[q];
-      last[q] = val;
+  for (int u = 0; u < U; ++u) {
+    if (u < count) {
+      const long long o = (long long)(d0 + u) * n;
+#ifdef WTA_NO_LOADS
+      const unsigned h = (unsigned)t * 0x9E3779B1u + (d0 + u) * 0x85EBCA77u;
+      made(h, ra[u]);
+      if (kTwo) made(h * 0xC2B2AE35u, rb[u]);
+      (void)o;
+#else
+      ra[u] = kAgg ? a[o] : __ldcs(a + o);
+      if (kTwo) rb[u] = kAgg ? b[o] : __ldcs(b + o);
+      (void)t;
+#endif
     }
   }
+}
+
+// Combine, store and walk the fetched slices d0 .. d0 + count - 1.
+template <typename L, bool kTwo, bool kAgg, bool kSub, bool kMargin, int U>
+__device__ __forceinline__ void walk(Walk (&w)[L::kPix],
+                                     const typename L::Raw (&ra)[U],
+                                     const typename L::Raw (&rb)[U], int d0,
+                                     int count, long long n,
+                                     typename L::Scale sc,
+                                     typename L::Raw* agg) {
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
+  for (int u = 0; u < U; ++u) {
+    if (u < count) {
+      const typename L::Raw s = L::template combine<kTwo>(ra[u], rb[u], sc);
+#ifndef WTA_NO_LOADS
+      if (kAgg) agg[(long long)(d0 + u) * n] = s;
+#endif
+      float v[L::kPix];
+      L::widen(s, v);
+#pragma unroll
+      for (int q = 0; q < L::kPix; ++q)
+        step<kSub, kMargin>(w[q], v[q], d0 + u);
+    }
+  }
+}
+
+template <typename L, bool kTwo, bool kAgg, bool kSub, bool kMargin>
+__global__ void __launch_bounds__(kThreads)
+    wta_kernel(const typename L::Raw* __restrict__ a,
+               const typename L::Raw* __restrict__ b, int D, long long n,
+               typename L::Scale sc, float big, float d_min, float stride,
+               float* __restrict__ disp, float* __restrict__ best_out,
+               float* __restrict__ margin_out,
+               typename L::Raw* __restrict__ agg) {
+  using Raw = typename L::Raw;
+  constexpr int U = L::kUnroll;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  a += t;
+  if (kTwo) b += t;
+  if (kAgg) agg += t;
+  Walk w[L::kPix];
+#pragma unroll
+  for (int q = 0; q < L::kPix; ++q) init(w[q], big);
+
+  // chunks of U slices: all U loads of a chunk are issued before it is
+  // walked; the last chunk may be shorter
+  Raw ra[U], rb[U];
+  for (int d0 = 0; d0 < D; d0 += U) {
+    if (d0 + U <= D) {
+      fetch<L, kTwo, kAgg, U>(a, b, n, d0, U, t, ra, rb);
+      walk<L, kTwo, kAgg, kSub, kMargin, U>(w, ra, rb, d0, U, n, sc, agg);
+    } else {
+      fetch<L, kTwo, kAgg, U>(a, b, n, d0, D - d0, t, ra, rb);
+      walk<L, kTwo, kAgg, kSub, kMargin, U>(w, ra, rb, d0, D - d0, n, sc,
+                                            agg);
+    }
+  }
+
+#pragma unroll
+  for (int q = 0; q < L::kPix; ++q) {
+    const long long p = t * L::kPix + q;
     float off = 0.f;
-    if (subpixel) {
-      const float denom = (prev[q] - 2.f * v1[q]) + next[q];
-      if (denom > 1e-9f && i1[q] > 0 && i1[q] < D - 1)
-        off = 0.5f * (prev[q] - next[q]) / fmaxf(denom, 1e-9f);
+    if (kSub) {
+      const float denom = (w[q].prev - 2.f * w[q].v1) + w[q].next;
+      if (denom > 1e-9f && w[q].i1 > 0 && w[q].i1 < D - 1)
+        off = 0.5f * (w[q].prev - w[q].next) / fmaxf(denom, 1e-9f);
       off = fminf(fmaxf(off, -1.f), 1.f);
     }
-    disp[p + q] = d_min + stride * ((float)i1[q] + off);
-    best_out[p + q] = v1[q];
-    if (margin_out) {
-      const float second = abs(i2[q] - i1[q]) > 1
-                               ? v2[q]
-                               : (abs(i3[q] - i1[q]) > 1 ? v3[q] : v4[q]);
-      margin_out[p + q] = second - v1[q];
-    }
+    disp[p] = d_min + stride * ((float)w[q].i1 + off);
+    best_out[p] = w[q].v1;
+    if (kMargin) margin_out[p] = w[q].far - w[q].v1;
   }
 }
 
-template <typename E, int kPix>
-void launch(const void* a, const void* b, int D, long long HW, float scale,
-            float d_min, float stride, int subpixel, float* disp, float* best,
-            float* margin, void* agg, cudaStream_t stream) {
-  const int threads = 256;
-  const long long n = HW / kPix;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  wta_kernel<E, kPix><<<blocks, threads, 0, stream>>>(
-      static_cast<const E*>(a), static_cast<const E*>(b), D, HW, scale, d_min,
-      stride, subpixel, disp, best, margin, static_cast<E*>(agg));
+struct Args {
+  const void* a;
+  const void* b;
+  int D;
+  long long n;  // raw units per slice
+  float scale;
+  float d_min, stride;
+  float* disp;
+  float* best;
+  float* margin;
+  void* agg;
+};
+
+template <typename L>
+typename L::Scale scale_of(float s);
+template <>
+float scale_of<F32>(float s) { return s; }
+template <>
+bf162 scale_of<B16x2>(float s) { return __float2bfloat162_rn(s); }
+template <>
+bf16 scale_of<B16>(float s) { return __float2bfloat16_rn(s); }
+
+template <typename L, bool kTwo, bool kAgg, bool kSub, bool kMargin>
+void launch(const Args& g, cudaStream_t stream) {
+  using Raw = typename L::Raw;
+  const unsigned blocks = (unsigned)((g.n + kThreads - 1) / kThreads);
+  wta_kernel<L, kTwo, kAgg, kSub, kMargin><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const Raw*>(g.a), static_cast<const Raw*>(g.b), g.D, g.n,
+      scale_of<L>(g.scale), L::big(), g.d_min, g.stride, g.disp, g.best,
+      g.margin, static_cast<Raw*>(g.agg));
+}
+
+template <typename L, bool kTwo, bool kAgg>
+void launch_form(const Args& g, bool sub, cudaStream_t s) {
+  const bool mg = g.margin != nullptr;
+  if (sub && mg) launch<L, kTwo, kAgg, true, true>(g, s);
+  else if (sub) launch<L, kTwo, kAgg, true, false>(g, s);
+  else if (mg) launch<L, kTwo, kAgg, false, true>(g, s);
+  else launch<L, kTwo, kAgg, false, false>(g, s);
+}
+
+// the aggregate output combines two inputs
+template <typename L>
+void launch_inputs(const Args& g, bool sub, cudaStream_t s) {
+  if (g.agg) launch_form<L, true, true>(g, sub, s);
+  else if (g.b) launch_form<L, true, false>(g, sub, s);
+  else launch_form<L, false, false>(g, sub, s);
 }
 
 inline bool aligned4(const void* p) {
@@ -198,25 +344,24 @@ inline bool aligned4(const void* p) {
 
 // a, b: (D, H, W) float32, or bfloat16 with bf16_in != 0, contiguous (b may
 // be null); disp, best: (H, W) float32; margin: (H, W) float32 or null; agg:
-// (D, H, W) of the inputs' type or null. Returns a cudaError_t.
+// (D, H, W) of the inputs' type or null (with b only). Returns a
+// cudaError_t.
 extern "C" int pcmi_wta(const void* a, const void* b, int D, int H, int W,
                         float scale, float d_min, float stride, int subpixel,
                         float* disp, float* best, float* margin, void* agg,
                         int bf16_in, void* stream) {
-  if (D < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || H < 1 || W < 1 || (agg && !b))
+    return (int)cudaErrorInvalidValue;
   const long long HW = (long long)H * W;
   const cudaStream_t s = (cudaStream_t)stream;
+  Args g{a, b, D, HW, scale, d_min, stride, disp, best, margin, agg};
   if (!bf16_in) {
-    launch<float, 1>(a, b, D, HW, scale, d_min, stride, subpixel, disp, best,
-                     margin, agg, s);
+    launch_inputs<F32>(g, subpixel != 0, s);
+  } else if (HW % 2 == 0 && aligned4(a) && aligned4(b) && aligned4(agg)) {
+    g.n = HW / 2;
+    launch_inputs<B16x2>(g, subpixel != 0, s);
   } else {
-    const float sc = __bfloat162float(__float2bfloat16_rn(scale));
-    if (HW % 2 == 0 && aligned4(a) && aligned4(b) && aligned4(agg))
-      launch<bf16, 2>(a, b, D, HW, sc, d_min, stride, subpixel, disp, best,
-                      margin, agg, s);
-    else
-      launch<bf16, 1>(a, b, D, HW, sc, d_min, stride, subpixel, disp, best,
-                      margin, agg, s);
+    launch_inputs<B16>(g, subpixel != 0, s);
   }
   return (int)cudaGetLastError();
 }

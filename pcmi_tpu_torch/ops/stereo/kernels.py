@@ -263,7 +263,11 @@ def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
     On bfloat16 volumes ``a + b`` and the product are bfloat16 operations
     (each rounded to nearest-even, ``scale`` rounded too: 1, 0.5 and 0.25,
     the scales the matcher uses, are exact); ``s`` is then widened and the
-    argmin, the parabola, the best cost and the margin are float32."""
+    argmin, the parabola, the best cost and the margin are float32. Where
+    no slice lies more than one away from the best (D <= 3) the margin is
+    ``BIG - best`` with ``BIG`` in the volume's dtype (998244352 in
+    bfloat16), as the reference's."""
+    stored_big = torch.tensor(BIG, dtype=a.dtype).item()
     if a.dtype == torch.bfloat16:
         vol = a + b if b is not None else a
         if scale != 1.0:
@@ -271,9 +275,7 @@ def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
             vol = (vol.float() * sc).to(torch.bfloat16)
     else:
         vol = (a + b) * scale if b is not None else a * scale
-    if with_aggregate:
-        return (*wta_plain(vol.float(), None, 1.0, d_min, stride, subpixel,
-                           with_margin), vol)
+    agg = vol if with_aggregate else None
     vol = vol.float()
     D = vol.shape[0]
     best_d = vol.argmin(0)
@@ -289,12 +291,15 @@ def wta_plain(a: torch.Tensor, b: torch.Tensor | None, scale: float,
         disp = d_min + stride * (best_d.float() + offset.clamp(-1.0, 1.0))
     else:
         disp = d_min + stride * best_d.float()
-    if not with_margin:
-        return disp, best, None
-    ds = torch.arange(D, device=vol.device).view(D, 1, 1)
-    away = (ds - best_d[None]).abs() > 1
-    second = torch.where(away, vol, torch.full_like(vol, BIG)).amin(0)
-    return disp, best, second - best
+    margin = None
+    if with_margin:
+        ds = torch.arange(D, device=vol.device).view(D, 1, 1)
+        away = (ds - best_d[None]).abs() > 1
+        second = torch.where(away, vol,
+                             torch.full_like(vol, stored_big)).amin(0)
+        margin = second - best
+    return (disp, best, margin, agg) if with_aggregate else (disp, best,
+                                                             margin)
 
 
 def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,

@@ -71,6 +71,38 @@ def test_derive_right_wdh_exact(rng, d_min, stride, fill):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+# K6's edges that the card's kernel decides per row or per launch:
+# ((Wp, Dp, Hp), d_real, w, d_min, stride, fill); rows of 80, 48, 80 and
+# 84 bytes in float32 (40, 24, 40 and 42 in bfloat16: none a multiple of 16)
+_WDH_EDGES = {
+    "dp_is_d_real": ((24, 8, 20), 8, 21, -3, 1, 1.0),
+    "w_is_wp": ((24, 16, 12), 11, 24, -5, 2, 1e4),
+    "all_fill_right": ((24, 16, 20), 13, 20, 23, 1, 1e4),
+    "all_fill_left": ((20, 8, 21), 8, 20, -40, 2, 1.0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_WDH_EDGES))
+def test_derive_right_wdh_edges_match_pallas(rng, case, dtype):
+    """K6's plain version, the card's oracle, against
+    derive_right_wdh_pallas on the edges the card's kernel decides per row
+    or per launch: no BIG rows (Dp == d_real), no zero rows (w == Wp),
+    every source column outside [0, w) (all `fill`, both signs of d_min),
+    rows whose bytes are not a multiple of 16: bit-exact in both types."""
+    shape, d_real, w, d_min, stride, fill = _WDH_EDGES[case]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jv = jnp.asarray(rng.uniform(0, 1, shape).astype(np.float32)).astype(jdt)
+    ref = jpk.derive_right_wdh_pallas(jv, d_real, w, d_min, stride=stride,
+                                      fill=fill)
+    got = K.derive_right_wdh(convert.tensor_from_reference(jv), d_real, w,
+                             d_min, stride, fill)
+    np.testing.assert_array_equal(_f32(got), _f32(ref))
+    if case.startswith("all_fill"):
+        fill_t = float(jnp.asarray(fill, jdt).astype(jnp.float32))
+        assert (_f32(got)[:w, :d_real] == fill_t).all()
+
+
 @pytest.mark.parametrize("shape,stride,d_min", [((16, 24, 40), 1, 0),
                                                 ((16, 19, 33), 2, -4)])
 def test_right_disparity_fused_wdh_matches_pallas(rng, shape, stride, d_min):

@@ -125,6 +125,103 @@ def test_wta_plain_matches_xla_and_pallas(rng, stride):
                                        atol=COST_TOL, rtol=0)
 
 
+def _small_d_volume(rng, D):
+    """A (D, 6, 16) volume with minima on both boundaries and next to one,
+    a column of ties across every slice and ties on every other pixel of
+    another; at D <= 3 some pixels have no slice more than one away from
+    their best."""
+    vol = rng.uniform(0.2, 1.0, (D, 6, 16)).astype(np.float32)
+    vol[0, 0] = 0.01
+    vol[D - 1, 1] = 0.01
+    vol[min(1, D - 1), 2] = 0.01
+    vol[:, 3] = vol[0, 3]
+    vol[:, 4, ::2] = vol[D // 2, 4, ::2]
+    return vol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [2, 3, 5])
+def test_wta_plain_small_d_matches_references(rng, D, dtype):
+    """K2's plain version, the card's oracle, at D in {2, 3, 5} (shorter
+    than the kernel's 8-slice chunks) against wta_fused_pallas (interpret
+    mode) and wta_disparity(backend="xla"), one volume, with and without
+    the parabola: integer disparities exact, sub-pixel ones within
+    DISP_TOL, best and margin within COST_TOL in float32 and exact in
+    bfloat16. Where no slice lies more than one away (every pixel at D = 2)
+    the margin is BIG - best with BIG in the volume's dtype (998244352 in
+    bfloat16), as in both references."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jv = jnp.asarray(_small_d_volume(rng, D)).astype(jdt)
+    tv = convert.tensor_from_reference(jv)
+    big = float(jnp.asarray(1e9, jdt).astype(jnp.float32))
+    for sub in (True, False):
+        got = K.wta(tv, None, 1.0, -3, 2, subpixel=sub, with_margin=True)
+        refs = (jm.wta_disparity(jv, -3, with_margin=True, subpixel=sub,
+                                 stride=2, backend="xla"),
+                jpk.wta_fused_pallas(jv, -3, stride=2, subpixel=sub))
+        for ref in refs:
+            ref = [np.asarray(r, np.float32) for r in ref]
+            if sub:
+                np.testing.assert_allclose(_np(got[0]), ref[0],
+                                           atol=DISP_TOL, rtol=0)
+            else:
+                np.testing.assert_array_equal(_np(got[0]), ref[0])
+            for g, r in zip(got[1:], ref[1:]):
+                if dtype == "bfloat16":
+                    np.testing.assert_array_equal(_np(g), r)
+                else:
+                    np.testing.assert_allclose(_np(g), r, atol=COST_TOL,
+                                               rtol=0)
+        if D == 2:
+            np.testing.assert_array_equal(_np(got[2]), big - _np(got[1]))
+
+
+def _wta_walk(s, d_min, stride, subpixel, big):
+    """csrc/wta.cu's walk over one pixel's combined costs ``s`` (float32):
+    one pass keeping the first minimum, its index and neighbours, the
+    minimum of s_0..s_{d-2} one step behind and ``far``, the margin's
+    candidate minimum (everything left of the best's left neighbour when
+    a new best arrives, then every slice but its right neighbour); no
+    sorted top-4. Returns (disp, best, margin) as float32."""
+    f32 = np.float32
+    v1, i1 = f32(np.inf), 0
+    prev = nxt = far = lag = last = last2 = f32(big)
+    fresh = False
+    for d, val in enumerate(s):
+        nb = val < v1
+        lag = min(lag, last2)
+        far = lag if nb else (far if fresh else min(far, val))
+        prev = last if nb else prev
+        nxt = val if fresh else nxt
+        fresh = nb
+        v1, i1 = (val, d) if nb else (v1, i1)
+        last2, last = last, val
+    off = f32(0)
+    if subpixel:
+        denom = (prev - f32(2) * v1) + nxt
+        if denom > f32(1e-9) and 0 < i1 < len(s) - 1:
+            off = f32(0.5) * (prev - nxt) / max(denom, f32(1e-9))
+        off = min(max(off, f32(-1)), f32(1))
+    return f32(d_min) + f32(stride) * (f32(i1) + off), v1, far - v1
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 7, 8, 9, 17])
+def test_wta_streaming_margin_rule(rng, D):
+    """The kernel's one-pass margin rule (``_wta_walk``, as csrc/wta.cu
+    walks d) against the plain version's argmin / gather / masked-min form,
+    on quantised costs (many ties) and uniform ones, with and without the
+    parabola: every output bit-exact."""
+    for vol in (rng.integers(0, 4, (D, 2, 24)).astype(np.float32) / 4,
+                rng.uniform(0, 1, (D, 2, 24)).astype(np.float32)):
+        for sub in (True, False):
+            ref = K.wta_plain(_t(vol), None, 1.0, -5, 2, subpixel=sub)
+            walked = np.array([_wta_walk(vol[:, y, x], -5, 2, sub, 1e9)
+                               for y in range(2) for x in range(24)],
+                              np.float32).T.reshape(3, 2, 24)
+            for w, r in zip(walked, ref):
+                np.testing.assert_array_equal(w, _np(r))
+
+
 @pytest.mark.parametrize("stride,d_min", [(1, -8)])
 def test_fused_left_matches_sgm4_wta_pallas(rng, stride, d_min):
     """4 sgm_dir launches + wta((h + v) * 0.25) vs sgm4_wta_fused_pallas."""
