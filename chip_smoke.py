@@ -13,14 +13,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
    (both directions, with and without ``prev``) bit-exact against their
    plain versions on small awkward volumes (``RAGGED``,
-   ``RAGGED_BLOCKED``), K2 ``wta`` in every instantiation (one or two
-   inputs, parabola, margin, combined aggregate) on the same volumes and
-   on ``RAGGED_WTA`` (D from 1 to 5 and past its 4- and 8-slice chunks,
-   odd and even H * W), K6 ``derive_right_wdh`` on ``RAGGED_WDH`` (rows that are
-   not a multiple of 16 bytes, Dp == d_real, w == Wp, shifts that leave
-   whole rows to ``fill``, fills 1.0 and 1e4); K1, K2, K3, K5 and K6 in
-   float32 and in bfloat16 (storage 2, 4 and 8 bytes past an aligned
-   address), K4 in float32 (in bfloat16 it must raise ``TypeError``);
+   ``RAGGED_BLOCKED``; both hold volumes of 600 and of 1024 planes, the
+   most the SGM kernels take), K2 ``wta`` in every instantiation (one or
+   two inputs, parabola, margin, combined aggregate) on the same volumes
+   and on ``RAGGED_WTA`` (D from 1 to 5 and past its 4- and 8-slice
+   chunks, odd and even H * W), K6 ``derive_right_wdh`` on
+   ``RAGGED_WDH`` (rows that are not a multiple of 16 bytes, Dp ==
+   d_real, w == Wp, shifts that leave whole rows to ``fill``, fills 1.0
+   and 1e4); K1, K2, K3, K5 and K6 in float32 and in bfloat16 (storage
+   2, 4 and 8 bytes past an aligned address), K4 in float32 (in
+   bfloat16 it must raise ``TypeError``);
    then each kernel against its plain PyTorch version on seeded
    inputs on the card at two volume shapes, (80, 896, 896) (the headline
    pair) and (144, 1152, 1152) at stride 2 (D = 288 search at stride 2),
@@ -71,6 +73,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    strict), 6/3/1 launches (8/3/1 dense), each printed beside its
    float32 run: RMSE, valid fraction, peak memory and ms per pair, timed
    in turns float32, bfloat16, bfloat16, float32 (min, median, max);
+7c. the matchers that narrow the search, on phase 7's strict pair
+   through ``pair_core``: banded (``adapt_band_rows=64``,
+   ``adapt_band_cols=64``, ``adapt_local_disp=96``; 10 ``sgm_dir``, 5
+   ``wta``, 2 ``derive_right`` launches) and hierarchical
+   (``hierarchical_local_disp=16``; 12/6/2), every output finite, banded
+   RMSE <= 1.0 m and valid >= 0.5, hierarchical valid > 0.08; each
+   printed beside the full search (RMSE, valid fraction, peak memory, ms
+   per pair in turns full, banded, hierarchical, hierarchical, banded,
+   full);
 8. the fused D = 288 DSM (``bench.py``'s fused section, uncut): all ten
    pairs of phase 7's scene, dense, on the common 1152x1152 canvas, each
    through ``pair_core`` and ``dsm_update`` (3-sigma gate) on the 0.6 m
@@ -93,8 +104,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     completeness >= 0.4 on every seed (the reference's >= 0.5 is
     printed).
 
-The last lines are a summary of phases 7b-10 (under 1500 characters; each
-phase prints its full line above), a JSON object with each kernel's
+The last lines are a summary of phases 7b-10 (under 1500 characters;
+each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
 time and bound at the same shape; its plain version's time is in phase
@@ -169,13 +180,24 @@ RAGGED_WDH = (((48, 16, 21), 13, 37), ((40, 12, 32), 12, 40),
 # tiles and ring tails, rows that are not 16-byte aligned, a ragged last
 # 128-wide chunk, odd D, D > 256
 RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
-          ((300, 21, 67), 1), ((9, 5, 1028), 2), ((5, 3, 4), 1))
+          ((300, 21, 67), 1), ((9, 5, 1028), 2), ((5, 3, 4), 1),
+          # past 512 planes: 600 (20 per lane, 19 used) and the most the
+          # SGM kernels take, 1024, on 1030 columns (blocks of 16 columns
+          # fall back to 8 where accumulating in float32)
+          ((600, 13, 67), 1), ((1024, 3, 1030), 2))
 # blocked (nb, S, Dp, 128) volumes for K5: Dp = 8, not a multiple of 32 and
-# above 256, one band and several, fewer steps than a tile and ring tails
-RAGGED_BLOCKED = ((1, 3, 8), (3, 13, 40), (2, 21, 300), (1, 37, 37))
+# above 256, one band and several, fewer steps than a tile and ring tails,
+# 600 and 1024 planes (8 bands: blocks of 16 lanes, or 8 with `prev`)
+RAGGED_BLOCKED = ((1, 3, 8), (3, 13, 40), (2, 21, 300), (1, 37, 37),
+                  (1, 9, 600), (8, 3, 1024))
 PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1}
 # the vertical cross-checker adds its 2 vertical directions
 PER_DENSE_PAIR = {**PER_PAIR, "sgm_dir": 8}
+# the banded matcher: the coarse pass (derived right view, no checker:
+# 4 sgm_dir, 2 wta, 1 derive_right) and the narrow main path; the
+# hierarchical one: two main paths
+PER_BANDED_PAIR = {**PER_PAIR, "sgm_dir": 10, "wta": 5, "derive_right": 2}
+PER_HIER_PAIR = {**PER_PAIR, "sgm_dir": 12, "wta": 6, "derive_right": 2}
 
 
 def _run(cmd: list[str]) -> str:
@@ -1159,6 +1181,87 @@ def phase_bf16_pairs(ctx, head: dict, dctx: D288, d288: dict) -> dict:
     return out
 
 
+def _finite_product(prod) -> bool:
+    """Every field of a pair product that is defined everywhere is finite
+    (``height`` and ``rel_height`` are NaN off the valid pixels)."""
+    return all(bool(torch.isfinite(getattr(prod, f)).all())
+               for f in ("disparity", "photo", "xyz", "rect_left",
+                         "rect_right"))
+
+
+def phase_adaptive_pairs(dctx: D288, d288: dict) -> dict:
+    """The D = 288 pair of phase 7 (strict gates) through ``pair_core``
+    with the two matchers that narrow the search: banded
+    (``adapt_band_rows=64``, ``adapt_band_cols=64``,
+    ``adapt_local_disp=96``: a coarse pass at 1/4 scale, then 48 planes at
+    stride 2 around per-tile offsets) and hierarchical
+    (``hierarchical_local_disp=16``: 72 planes at half resolution, then 8
+    around the upsampled base). Each printed beside the full search: RMSE,
+    valid fraction, peak memory, launches and ms per pair, timed in turns
+    full, banded, hierarchical, hierarchical, banded, full (min, median,
+    max of six runs each). Gates: launches as pinned (10/5/2 and 12/6/2),
+    every output finite, banded RMSE <= 1.0 m and valid >= 0.5
+    (``tests/test_banded.py``'s), hierarchical valid > 0.08
+    (``tests/test_hierarchical.py``'s; its RMSE is printed)."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.pipelines.height_map import pair_core
+
+    r1, r2, M, b = _d288_inputs(dctx, 0)
+    pcts = dict(ground_percentile=dctx.cfg.height_percentiles[0],
+                cap_percentile=dctx.cfg.height_percentiles[1])
+    cfgs = {
+        "full": dctx.strict,
+        "banded": dataclasses.replace(dctx.strict, adapt_band_rows=64,
+                                      adapt_band_cols=64,
+                                      adapt_local_disp=96),
+        "hierarchical": dataclasses.replace(dctx.strict, hierarchical=True,
+                                            hierarchical_local_disp=16),
+    }
+    runs = {k: (lambda c=c: pair_core(r1, r2, M, b, c, **pcts))
+            for k, c in cfgs.items()}
+    expected = {"banded": PER_BANDED_PAIR, "hierarchical": PER_HIER_PAIR}
+    out = {}
+    for name in expected:
+        runs[name]()  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        prod = runs[name]()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        finite = _finite_product(prod)
+        rmse, vf = _pair_accuracy(dctx.scene, prod, r1, r2)
+        out[name] = dict(height_rmse_m=rmse, valid_fraction=vf,
+                         peak_mem_mb=peak / 2**20, finite=finite,
+                         launches={k: n for k, n in launches.items() if n})
+    ts = _turns(runs, ("full", "banded", "hierarchical", "hierarchical",
+                       "banded", "full"))
+    for name in expected:
+        out[name]["ms_per_pair"] = _min_med_max(ts[name])
+        print(f"adaptive {name}:", json.dumps(out[name]))
+    out["full"] = dict(height_rmse_m=d288["strict"]["height_rmse_m"],
+                       valid_fraction=d288["strict"]["valid_fraction"],
+                       peak_mem_mb=d288["strict"]["peak_mem_mb"],
+                       ms_per_pair=_min_med_max(ts["full"]))
+    print("adaptive full:", json.dumps(out["full"]))
+    for name, exp in expected.items():
+        _launched(f"adaptive {name}", {**NONE, **out[name]["launches"]}, exp)
+        if not out[name]["finite"]:
+            raise SystemExit(f"adaptive {name}: non-finite output")
+    ban, hier = out["banded"], out["hierarchical"]
+    if not ban["height_rmse_m"] <= 1.0:
+        raise SystemExit(f"adaptive banded: height RMSE "
+                         f"{ban['height_rmse_m']} m > 1.0 m")
+    if not ban["valid_fraction"] >= 0.5:
+        raise SystemExit(f"adaptive banded: valid fraction "
+                         f"{ban['valid_fraction']} < 0.5")
+    if not hier["valid_fraction"] > 0.08:
+        raise SystemExit(f"adaptive hierarchical: valid fraction "
+                         f"{hier['valid_fraction']} <= 0.08")
+    return out
+
+
 def _cell_truth(scene, cell: float):
     """The DSM grid over the scene's terrain at ``cell`` metres, its
     cell-centre truth and in-bounds mask (``bench.py``'s fused scoring)."""
@@ -1442,6 +1545,7 @@ def main() -> int:
     phase_variants(ctx)
     d288, dctx = phase_d288()
     pairs16 = phase_bf16_pairs(ctx, head, dctx, d288)
+    adaptive = phase_adaptive_pairs(dctx, d288)
     fused = phase_fused_d288(dctx, d288)
     md, stream = phase_multiday(dctx)
     lowtex = phase_lowtex()
@@ -1489,7 +1593,11 @@ def main() -> int:
                           v["float32"]["valid_fraction"]],
                 "ms": [v["ms_per_pair"][1], v["float32"]["ms_per_pair"][1]],
                 "peak_mb": [v["peak_mem_mb"], v["float32"]["peak_mem_mb"]]}
-            for k, v in pairs16.items()}}
+            for k, v in pairs16.items()},
+        "adaptive": {
+            k: {"rmse_m": v["height_rmse_m"], "valid": v["valid_fraction"],
+                "ms": v["ms_per_pair"][1], "peak_mb": v["peak_mem_mb"]}
+            for k, v in adaptive.items()}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:

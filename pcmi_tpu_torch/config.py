@@ -395,3 +395,24 @@ class PipelineConfig:
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
 
+
+
+def from_flat_overrides(base: PipelineConfig, overrides: dict) -> PipelineConfig:
+    """Apply ``{"stereo.max_disp": 192, ...}`` style overrides (the CLI's
+    surface): a dotted key replaces one field of a nested config, a plain
+    key a top-level field."""
+    grouped: dict = {}
+    for key, value in overrides.items():
+        if "." in key:
+            section, field = key.split(".", 1)
+            grouped.setdefault(section, {})[field] = value
+        else:
+            grouped[key] = value
+    updates = {}
+    for section, value in grouped.items():
+        current = getattr(base, section)
+        if isinstance(value, dict) and dataclasses.is_dataclass(current):
+            updates[section] = dataclasses.replace(current, **value)
+        else:
+            updates[section] = value
+    return dataclasses.replace(base, **updates)

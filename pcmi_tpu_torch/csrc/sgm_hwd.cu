@@ -138,13 +138,15 @@ sgm_hwd_kernel(const float* __restrict__ cost, float* out, int D, int S,
 using HwdKernel = void (*)(const float*, float*, int, int, int, long long,
                            long long, float, float, int, int, int);
 
-// The kernel for nper = ceil(D / 32) disparities per lane.
+// The kernel for per = per_lane(D) disparities per lane.
 template <int kPer>
 struct HwdKernels {
-  static HwdKernel get(int nper, bool acc) {
-    if (nper == kPer)
-      return acc ? sgm_hwd_kernel<kPer, true> : sgm_hwd_kernel<kPer, false>;
-    return HwdKernels<kPer - 1>::get(nper, acc);
+  static HwdKernel get(int per, bool acc) {
+    if constexpr (kBuilt<kPer>) {
+      if (per == kPer)
+        return acc ? sgm_hwd_kernel<kPer, true> : sgm_hwd_kernel<kPer, false>;
+    }
+    return HwdKernels<kPer - 1>::get(per, acc);
   }
 };
 
@@ -169,10 +171,10 @@ extern "C" int pcmi_sgm_hwd(const float* cost, float* out, int H, int W,
                             void* stream) {
   const long long smem = (long long)kWarps * kStages * (accumulate ? 2 : 1) *
                          tile * ((D + 3) & ~3) * (long long)sizeof(float);
-  if (D < 1 || D > 32 * kMaxPer || H < 1 || W < 1 ||
+  if (per_lane(D) == 0 || H < 1 || W < 1 ||
       (scan_axis != 0 && scan_axis != 1) || tile < 1 || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  const HwdKernel fn = HwdKernels<kMaxPer>::get((D + 31) / 32, accumulate != 0);
+  const HwdKernel fn = HwdKernels<kMaxPer>::get(per_lane(D), accumulate != 0);
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
   if (e != cudaSuccess) return (int)e;
   const long long rowW = (long long)W * D;

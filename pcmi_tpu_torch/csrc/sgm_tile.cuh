@@ -11,10 +11,14 @@
 // versions.
 //
 // All three kernels give one warp to a path: lane l holds the disparities
-// d = l + 32k (k < kPer, kPer = ceil(D / 32), a template parameter) in
-// registers, the d +- 1 neighbours are 2 * kPer rotating shuffles per step
-// and the min over D is one redux.sync on the floats' order-preserving
-// integer images (scan_step). A scan step has no block-wide barrier.
+// d = l + 32k (k < kPer, a template parameter) in registers, the d +- 1
+// neighbours are 2 * kPer rotating shuffles per step and the min over D is
+// one redux.sync on the floats' order-preserving integer images
+// (scan_step). A scan step has no block-wide barrier. kPer is
+// ceil(D / 32) up to 16 (D <= 512); above that it is rounded up to a
+// multiple of 4, up to kMaxPer = 32 (D <= 1024): kernels exist for 20, 24,
+// 28 and 32 per lane, so the build grows by four kernels per kind and not
+// sixteen, and a lane's slots past D stay idle (per_lane).
 //
 // K1 and K5 share one kernel, sgm_tile_kernel (described here for float32
 // volumes; "Element types" below says what bfloat16 changes). A block holds P
@@ -80,7 +84,7 @@
 
 namespace {
 
-constexpr int kMaxPer = 16;    // disparities per lane: D <= 512
+constexpr int kMaxPer = 32;    // disparities per lane: D <= 1024
 constexpr float kBig = 1e9f;   // the reference's no-neighbour value
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemMax = 232448;  // dynamic shared memory of one block
@@ -195,6 +199,19 @@ __device__ __forceinline__ void scan_step(float (&prev)[kPer],
   m = __int_as_float(
       ordered(__reduce_min_sync(kFull, ordered(__float_as_int(local)))));
 }
+
+// The kernel's disparities per lane for D disparities: ceil(D / 32), above
+// 16 rounded up to the next kernel built (a multiple of 4); 0 past kMaxPer.
+inline int per_lane(int D) {
+  const int n = (D + 31) / 32;
+  const int per = n <= 16 ? n : (n + 3) / 4 * 4;
+  return D < 1 || per > kMaxPer ? 0 : per;
+}
+
+// Whether kernels are built for kPer disparities per lane (per_lane's
+// values).
+template <int kPer>
+constexpr bool kBuilt = kPer <= 16 || kPer % 4 == 0;
 
 // Kernels above 48 KB of dynamic shared memory must opt in, once each.
 inline cudaError_t allow_smem(const void* fn) {
@@ -499,17 +516,20 @@ sgm_tile_kernel(const E* __restrict__ cost, const E* acc_in, E* out, Scan g,
 template <typename E>
 using TileKernel = void (*)(const E*, const E*, E*, Scan, float, float);
 
-// The kernel for nper = ceil(D / 32) disparities per lane, nper <= kPer,
-// and the rule `mode` (kAcc above) for the second input.
+// The kernel for per = per_lane(D) disparities per lane, per <= kPer, and
+// the rule `mode` (kAcc above) for the second input.
 template <typename E, int kPer>
 struct TileKernels {
-  static TileKernel<E> get(int nper, int mode) {
-    if (nper == kPer) {
-      if constexpr (!std::is_same<E, float>::value)
-        if (mode == 2) return sgm_tile_kernel<E, kPer, 2>;
-      return mode ? sgm_tile_kernel<E, kPer, 1> : sgm_tile_kernel<E, kPer, 0>;
+  static TileKernel<E> get(int per, int mode) {
+    if constexpr (kBuilt<kPer>) {
+      if (per == kPer) {
+        if constexpr (!std::is_same<E, float>::value)
+          if (mode == 2) return sgm_tile_kernel<E, kPer, 2>;
+        return mode ? sgm_tile_kernel<E, kPer, 1>
+                    : sgm_tile_kernel<E, kPer, 0>;
+      }
     }
-    return TileKernels<E, kPer - 1>::get(nper, mode);
+    return TileKernels<E, kPer - 1>::get(per, mode);
   }
 };
 
@@ -532,11 +552,11 @@ int launch_typed(const E* cost, const E* acc_in, E* out, Scan g, int bands,
                  float p1, float p2, void* stream) {
   const int esize = (int)sizeof(E);
   const int threads = g.P * 32 > 256 ? g.P * 32 : 256;
-  const int nper = (g.D + 31) / 32;
+  const int per = per_lane(g.D);
   const bool acc = acc_in != nullptr;
   const int mode = !acc ? 0 : (esize == 2 && g.once ? 2 : 1);
   const long long smem = tile_smem_bytes(g.D, g.P, g.T, acc, esize);
-  if (g.D < 1 || nper > kMaxPer || g.S < 1 || g.span < 1 || bands < 1 ||
+  if (per == 0 || g.S < 1 || g.span < 1 || bands < 1 ||
       bands > 65535 || !pow2(g.P) || g.P < 4 || threads > kTileThreads ||
       !pow2(g.T) || g.T > 32 || g.P * g.T > threads || smem > kSmemMax ||
       (mode == 2 && g.horizontal))
@@ -547,7 +567,7 @@ int launch_typed(const E* cost, const E* acc_in, E* out, Scan g, int bands,
   const int w = g.vec == 1 ? 16 / esize : g.vec == 2 ? 2 : 1;
   if (g.vec < 0 || g.vec > (esize == 2 ? 2 : 1) || g.R % w)
     return (int)cudaErrorInvalidValue;
-  const TileKernel<E> fn = TileKernels<E, kMaxPer>::get(nper, mode);
+  const TileKernel<E> fn = TileKernels<E, kMaxPer>::get(per, mode);
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((g.span + g.P - 1) / g.P, bands);

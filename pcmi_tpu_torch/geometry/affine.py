@@ -32,6 +32,14 @@ class LocalFrame:
         self.lon0 = float(np.float32(self.lon0))
         self.lat0 = float(np.float32(self.lat0))
 
+    def to_local(self, lon: torch.Tensor, lat: torch.Tensor, h):
+        """(lon, lat, h) -> local metres, float32 as in the reference."""
+        lat0 = torch.tensor(self.lat0, dtype=torch.float32, device=lon.device)
+        x = (lon - self.lon0) * M_PER_DEG_LON_EQ * torch.cos(
+            torch.deg2rad(lat0))
+        y = (lat - self.lat0) * M_PER_DEG_LAT
+        return x, y, h
+
     def to_geodetic(self, x: torch.Tensor, y: torch.Tensor, z):
         """Local metres -> (lon, lat, z), float32 as in the reference."""
         lat0 = torch.tensor(self.lat0, dtype=torch.float32, device=x.device)
@@ -54,6 +62,17 @@ class AffineCamera:
 
     A: torch.Tensor
     b: torch.Tensor
+
+    def project(self, xyz: torch.Tensor) -> torch.Tensor:
+        """(..., 3) local points -> (..., 2) pixels, in full float32."""
+        return xyz @ self.A.to(xyz.device).T + self.b.to(xyz.device)
+
+    def view_direction(self) -> torch.Tensor:
+        """The unit null vector of ``A`` (the parallel viewing ray),
+        oriented upward, towards the satellite."""
+        d = torch.linalg.cross(self.A[0], self.A[1])
+        d = d / torch.linalg.norm(d)
+        return torch.where(d[2] < 0, -d, d)
 
 
 def probe_grid(lon_range, lat_range, h_range, shape=(8, 8, 5)) -> np.ndarray:
@@ -80,3 +99,16 @@ def fit_affine_camera(rpc: RPCCamera, frame: LocalFrame,
         A=torch.from_numpy(theta[:3].T.astype(np.float32)),
         b=torch.from_numpy(theta[3].astype(np.float32)),
     )
+
+
+def affine_fit_residual(rpc: RPCCamera, frame: LocalFrame, cam: AffineCamera,
+                        probes_llh: np.ndarray) -> float:
+    """Largest pixel residual of the affine fit over the probe lattice
+    (host float64)."""
+    col, row = rpc.project_np(probes_llh[:, 0], probes_llh[:, 1],
+                              probes_llh[:, 2])
+    x, y, z = frame.to_local_np(probes_llh[:, 0], probes_llh[:, 1],
+                                probes_llh[:, 2])
+    pred = (np.stack([x, y, z], axis=1) @ cam.A.double().cpu().numpy().T
+            + cam.b.double().cpu().numpy())
+    return float(np.hypot(pred[:, 0] - col, pred[:, 1] - row).max())

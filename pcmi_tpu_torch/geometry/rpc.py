@@ -6,8 +6,10 @@
 with P, L, H the normalised latitude, longitude and height and the RPC00B
 monomial order. Fields are float32 tensors; :meth:`RPCCamera.from_dict`
 also keeps the float64 originals for the host geometry fit
-(:meth:`RPCCamera.project_np`). The Newton inverse (``localize``) is not
-ported yet (ROADMAP.md).
+(:meth:`RPCCamera.project_np`). The inverse (:meth:`RPCCamera.localize`)
+is a float32 Newton iteration whose Jacobian comes from forward-mode
+differentiation (``torch.func.jvp``), as the reference's from
+``jax.jvp``.
 """
 
 from __future__ import annotations
@@ -102,6 +104,45 @@ class RPCCamera:
         col = self.samp_off + self.samp_scale * (m @ self.samp_num) / (
             m @ self.samp_den)
         return col, row
+
+    def localize(self, col, row, h, iters: int = 10):
+        """Inverse: (col, row, height) -> (lon, lat), float32 tensors on
+        the device of ``col``: ``iters`` Newton steps in normalised RPC
+        coordinates (L, P ~ O(1), so float32 suffices) from (0, 0), a
+        Jacobian determinant of magnitude <= 1e-12 taken as 1e-12."""
+        col = torch.as_tensor(col, dtype=torch.float32)
+        dev = col.device
+
+        def f(name):
+            return getattr(self, name).to(dev)
+
+        row = torch.as_tensor(row, dtype=torch.float32, device=dev)
+        h = torch.as_tensor(h, dtype=torch.float32, device=dev)
+        H = (h - f("height_off")) / f("height_scale")
+        cn_t = (col - f("samp_off")) / f("samp_scale")
+        rn_t = (row - f("line_off")) / f("line_scale")
+        s_num, s_den = f("samp_num"), f("samp_den")
+        l_num, l_den = f("line_num"), f("line_den")
+
+        def fwd(L, P):
+            m = _monomials(L, P, torch.broadcast_to(H, L.shape), torch.stack)
+            cn = (m @ s_num) / (m @ s_den)
+            rn = (m @ l_num) / (m @ l_den)
+            return cn - cn_t, rn - rn_t
+
+        L = torch.zeros(col.shape, dtype=torch.float32, device=dev)
+        P = torch.zeros_like(L)
+        one, zero = torch.ones_like(L), torch.zeros_like(L)
+        for _ in range(iters):
+            (f0, g0), (fL, gL) = torch.func.jvp(fwd, (L, P), (one, zero))
+            _, (fP, gP) = torch.func.jvp(fwd, (L, P), (zero, one))
+            det = fL * gP - fP * gL
+            det = torch.where(det.abs() > 1e-12, det, 1e-12)
+            dL = (-f0 * gP + g0 * fP) / det
+            dP = (-fL * g0 + gL * f0) / det
+            L, P = L + dL, P + dP
+        return (L * f("long_scale") + f("long_off"),
+                P * f("lat_scale") + f("lat_off"))
 
     def project_np(self, lon, lat, h):
         """Host float64 forward projection (the geometry fit's path)."""

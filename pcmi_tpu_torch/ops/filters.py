@@ -1,9 +1,11 @@
 """Separable and edge-aware filters (port of ``pcmi_tpu/ops/filters.py``).
 
-Images are (H, W) float32. Linear filters are sums of shifted slices of a
-reflect-padded image (OpenCV's BORDER_REFLECT_101), in the reference's tap
-order; the median is the reference's Batcher min/max network over edge-
-padded shifts, so it returns the same element.
+Images are (H, W) float32, or (H, W, C) where the reference takes those
+(filtered over the first two axes). Linear filters are sums of shifted
+slices of a reflect-padded image (OpenCV's BORDER_REFLECT_101), in the
+reference's tap order; the median is the reference's Batcher min/max
+network over edge-padded shifts, so it returns the same element. The
+filter bank is one float32 convolution (TF32 is off in this package).
 """
 
 from __future__ import annotations
@@ -14,9 +16,13 @@ import torch.nn.functional as F
 
 
 def _pad_axis(img: torch.Tensor, pad: int, axis: int, mode: str) -> torch.Tensor:
-    """Pad one axis of a 2-D image (``mode`` "reflect" or "replicate")."""
+    """Pad axis 0 or 1 of an (H, W) or (H, W, C) image (``mode`` "reflect"
+    or "replicate")."""
     widths = (pad, pad, 0, 0) if axis == 1 else (0, 0, pad, pad)
-    return F.pad(img[None, None], widths, mode=mode)[0, 0]
+    if img.dim() == 2:
+        return F.pad(img[None, None], widths, mode=mode)[0, 0]
+    return F.pad(img.permute(2, 0, 1)[None], widths,
+                 mode=mode)[0].permute(1, 2, 0)
 
 
 def _conv1d_along(img: torch.Tensor, kernel, axis: int) -> torch.Tensor:
@@ -131,3 +137,71 @@ def separable_median_filter(img: torch.Tensor, size: int = 9) -> torch.Tensor:
     """Median along rows, then along columns (the separable approximation
     of a 2-D median)."""
     return _median_along(_median_along(img.float(), size, 0), size, 1)
+
+
+def gabor_bank(ksize: int = 31,
+               thetas=(0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4),
+               sigmas=(2.0, 4.0), lambdas=(8.0, 16.0),
+               gamma: float = 0.5) -> torch.Tensor:
+    """The OBIA classifier's Gabor bank (orientations x sigmas x
+    wavelengths, zero-mean kernels of ``ksize``): ``(N, k, k)`` float32,
+    built on the host in float64 as the reference builds it."""
+    half = ksize // 2
+    ys, xs = np.mgrid[-half:half + 1, -half:half + 1]
+    kernels = []
+    for theta in thetas:
+        xr = xs * np.cos(theta) + ys * np.sin(theta)
+        yr = -xs * np.sin(theta) + ys * np.cos(theta)
+        for sigma in sigmas:
+            for lam in lambdas:
+                g = np.exp(-(xr ** 2 + (gamma * yr) ** 2) / (2 * sigma ** 2))
+                g = g * np.cos(2 * np.pi * xr / lam)
+                kernels.append((g - g.mean()).astype(np.float32))
+    return torch.from_numpy(np.stack(kernels))
+
+
+def filter_bank_2d(img: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """Correlate an (H, W) image with (N, k, k) kernels, zero padding of
+    ``k // 2``: ``(N, H, W)``."""
+    k = kernels.shape[-1]
+    w = kernels.to(img.device, torch.float32)[:, None]
+    return F.conv2d(img.float()[None, None], w, padding=k // 2)[0]
+
+
+def masked_jacobi_fill(image: torch.Tensor, mask: torch.Tensor,
+                       iters: int = 128) -> torch.Tensor:
+    """Fill the ``mask`` holes of an (H, W) or (H, W, C) image by Jacobi
+    relaxation from the rim: the holes start at the mean of the known
+    pixels, then take ``iters`` times a radius-2, sigma-1.5 Gaussian blur
+    while the known pixels stay."""
+    img = image.float()
+    m = mask.float()
+    m3 = m[..., None] if img.dim() == 3 and m.dim() == 2 else m
+    w = torch.broadcast_to(1.0 - m3, img.shape)
+    known_mean = (img * w).sum() / torch.clamp(w.sum(), min=1.0)
+    x = img * (1.0 - m3) + known_mean * m3
+    hole = m3 > 0.5
+    for _ in range(iters):
+        x = torch.where(hole, gaussian_filter(x, 1.5, radius=2), img)
+    return x
+
+
+def unsharp_mask(img: torch.Tensor, amount: float = 1.5,
+                 sigma: float = 2.0) -> torch.Tensor:
+    """``(1 + amount) * img - amount * blur``, clipped to [0, 1]."""
+    blur = gaussian_filter(img, sigma)
+    return torch.clamp((1.0 + amount) * img - amount * blur, 0.0, 1.0)
+
+
+def local_entropy(img01: torch.Tensor, radius: int = 5,
+                  n_bins: int = 16) -> torch.Tensor:
+    """Local Shannon entropy (bits) of a [0, 1] image: triangular soft
+    binning into ``n_bins`` bins, a box mean of each bin's weights over a
+    ``2 * radius + 1`` window, then ``-sum p log2 p``."""
+    img01 = img01.float()
+    centers = (torch.arange(n_bins, dtype=torch.float32,
+                            device=img01.device) + 0.5) / n_bins
+    dist = (img01[..., None] - centers).abs() * n_bins
+    probs = box_filter(torch.clamp(1.0 - dist, min=0.0), radius)
+    probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-8)
+    return -(probs * torch.log2(torch.clamp(probs, min=1e-8))).sum(-1)

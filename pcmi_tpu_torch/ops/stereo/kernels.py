@@ -159,7 +159,7 @@ def sgm_dir_plain(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
     return _scan_plain(cost, 2 if horizontal else 1, 0, p1, p2, reverse, out)
 
 
-SGM_DIR_MAX_DISP = 512       # csrc/sgm_dir.cu: 16 disparities per lane
+SGM_DIR_MAX_DISP = 1024      # csrc/sgm_tile.cuh: 32 disparities per lane
 SMEM_BLOCK_MAX = 232_448     # shared memory one block may use on sm_90
 
 
@@ -196,17 +196,21 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
     Horizontal scans take blocks of 4 rows and the longest tile (32, 16,
     ... steps: the run of x each (d, row) moves); vertical ones blocks of
     16 columns where that still gives 64 blocks, else 8, and tiles of 8, 4,
-    2 or 1 rows; each the longest that fits."""
+    2 or 1 rows; each the longest that fits. Past 512 disparities a
+    vertical block of 16 columns may not fit at all (accumulating, from
+    D = 727 in float32): it then takes 8."""
     if not 1 <= D <= SGM_DIR_MAX_DISP:
         raise ValueError(f"sgm_dir: D={D} outside [1, {SGM_DIR_MAX_DISP}]")
     if horizontal:
-        paths, tiles = 4, (32, 16, 8, 4, 2, 1)
+        options = ((4, (32, 16, 8, 4, 2, 1)),)
     else:
-        paths, tiles = (16 if span >= 16 * 64 else 8), (8, 4, 2, 1)
-    for tile in tiles:
-        smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
-        if smem <= SMEM_BLOCK_MAX:
-            return SgmDirPlan(paths, tile, smem)
+        options = tuple((p, (8, 4, 2, 1))
+                        for p in ((16, 8) if span >= 16 * 64 else (8,)))
+    for paths, tiles in options:
+        for tile in tiles:
+            smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
+            if smem <= SMEM_BLOCK_MAX:
+                return SgmDirPlan(paths, tile, smem)
     raise ValueError(f"sgm_dir: no launch plan fits D={D}")
 
 
@@ -388,7 +392,7 @@ def sgm_hwd_plain(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
     return _scan_plain(cost, scan_axis, 1, p1, p2, reverse, out)
 
 
-SGM_HWD_MAX_DISP = 512       # csrc/sgm_hwd.cu: 16 disparities per lane
+SGM_HWD_MAX_DISP = 1024      # csrc/sgm_tile.cuh: 32 disparities per lane
 SGM_HWD_WARPS = 2            # csrc/sgm_hwd.cu: warps (paths) per block
 _HWD_WARP_RING = 10 * 1024   # one warp's ring; longer ones measured slower
 
@@ -413,12 +417,14 @@ def sgm_hwd_plan(D: int, accumulate: bool) -> SgmHwdPlan:
     """K4's launch plan for paths of ``D`` disparities: the longest tile
     (16, 8, ... steps) whose ring stays within 10 KB per warp, the fastest
     on the H100 at the two D measured: 16 steps forward and 8 accumulating
-    at D = 80, 8 and 4 at D = 144."""
+    at D = 80, 8 and 4 at D = 144. Where not even one step fits that
+    (accumulating past 640 disparities), tiles of one step."""
     if not 1 <= D <= SGM_HWD_MAX_DISP:
         raise ValueError(f"sgm_hwd: D={D} outside [1, {SGM_HWD_MAX_DISP}]")
     for tile in (16, 8, 4, 2, 1):
         smem = sgm_hwd_smem(D, tile, accumulate)
-        if smem <= SGM_HWD_WARPS * _HWD_WARP_RING:
+        if smem <= SGM_HWD_WARPS * _HWD_WARP_RING or (
+                tile == 1 and smem <= SMEM_BLOCK_MAX):
             return SgmHwdPlan(tile, smem)
     raise ValueError(f"sgm_hwd: no launch plan fits D={D}")
 

@@ -35,8 +35,11 @@ own, not only a smaller volume. ``"auto"`` is float32 on every device. The
 cost volume is plain PyTorch on every device, as the reference builds it
 outside any Pallas kernel.
 
-Where the reference scans a static disparity range to avoid gathers on its
-chip (L/R check), this port gathers: the result is the same element.
+Where the reference scans a static disparity range or takes contiguous
+row slices to avoid gathers on its chip (the L/R check, :func:`shift_rows`,
+:func:`triangle_sum`), this port gathers: the result is the same element.
+``row_shift`` composes the banded matcher's per-tile offsets into the cost
+volume (:mod:`pcmi_tpu_torch.ops.stereo.banded`).
 """
 
 from __future__ import annotations
@@ -155,6 +158,86 @@ def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
     return out
 
 
+def shift_rows(img: torch.Tensor, shifts: torch.Tensor, pad: int, fill,
+               chunk: int = 1) -> torch.Tensor:
+    """``out(y, x) = img(y, x - shifts[...])``, ``fill`` where that column
+    lies outside the image: the column warp of the banded matcher
+    (:mod:`pcmi_tpu_torch.ops.stereo.banded`). ``shifts`` is an integer
+    tensor, one of:
+
+    * (H,): one shift per row;
+    * (H, W) with ``chunk == 1``: one shift per pixel;
+    * (H, W // chunk) with ``chunk > 1``: one shift per ``chunk``-px span.
+
+    ``pad`` must bound ``max |shifts|``. The reference takes contiguous
+    slices of the ``pad``-padded rows (a slice start is clamped into the
+    padded row, as a dynamic slice's is) to avoid gathers on its chip;
+    here every form is one ``torch.gather`` of the same elements."""
+    h, w = img.shape
+    shifts = shifts.long()
+    padded = img.new_full((h, w + 2 * pad), fill)
+    padded[:, pad:pad + w] = img
+    cols = torch.arange(w, device=img.device)
+    if shifts.dim() == 1:
+        start = torch.clamp(pad - shifts, 0, 2 * pad)
+        idx = start[:, None] + cols
+    elif chunk > 1:
+        nc = w // chunk
+        if nc * chunk != w or tuple(shifts.shape) != (h, nc):
+            raise ValueError(f"chunked shifts must be (H, W/chunk); got "
+                             f"{tuple(shifts.shape)} for W={w}, chunk={chunk}")
+        starts = torch.clamp(
+            pad + torch.arange(nc, device=img.device) * chunk - shifts,
+            0, w + 2 * pad - chunk)
+        idx = (starts[:, :, None] + torch.arange(chunk, device=img.device)
+               ).reshape(h, w)
+    else:
+        idx = cols + pad - shifts
+    return torch.gather(padded, 1, idx)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32, as a fused
+    multiply-add rounds it: the product of two float32 values is exact in
+    float64, so only the sum is rounded before the final rounding (which
+    differs from one fused rounding only where the float64 sum falls on a
+    float32 midpoint, about once in 2**29)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,
+                 n_grid: int, stride: int = 1,
+                 edge: bool = False) -> torch.Tensor:
+    """``sum_k max(1 - |shift - s_k| / stride, 0) * plane(y, x - s_k)`` over
+    the grid shifts ``s_k = d_min + k * stride``, ``k < n_grid``: ``plane``
+    linearly interpolated at ``x - shift`` on that grid, edge-extended past
+    its columns (``edge``) or 0 there.
+
+    The reference scans every grid shift and accumulates
+    ``acc + wgt * shifted``, which its compiler fuses into one multiply-add
+    per shift; a shift contributes only within ``stride`` of ``shift``, so
+    this gathers the (at most three) neighbouring grid shifts and
+    accumulates their terms in the same ascending order with the same
+    rounding (:func:`fma32`): the same float32 sum."""
+    h, w = plane.shape
+    k_lo = torch.floor((shift - d_min) / stride)
+    xs = torch.arange(w, dtype=torch.float32, device=plane.device)
+    acc = torch.zeros_like(plane)
+    for dk in (-1, 0, 1):
+        k = k_lo + dk
+        s = d_min + k * stride
+        wgt = torch.clamp(1.0 - (shift - s).abs() / stride, min=0.0)
+        src = xs - s
+        ok = (k >= 0) & (k < n_grid)
+        if edge:
+            src = torch.clamp(src, 0, w - 1)
+        else:
+            ok = ok & (src >= 0) & (src <= w - 1)
+        val = torch.gather(plane, 1, torch.where(ok, src, 0.0).long())
+        acc = torch.where(ok, fma32(wgt, val, acc), acc)
+    return acc
+
+
 _COST_CHUNK = 16
 
 
@@ -166,17 +249,32 @@ def cost_dtype(cfg: StereoConfig) -> torch.dtype:
 
 def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
                       valid_l: torch.Tensor, valid_r: torch.Tensor,
-                      cfg: StereoConfig) -> torch.Tensor:
+                      cfg: StereoConfig,
+                      row_shift: torch.Tensor | None = None,
+                      row_shift_pad: int = 0,
+                      row_shift_chunk: int = 1) -> torch.Tensor:
     """(D, H, W) box-aggregated census+AD matching cost, computed in
     float32 and stored as :func:`cost_dtype` says (one rounding per chunk);
     slice i holds disparity ``min_disparity + i * disp_stride``.
     Disparities are processed ``_COST_CHUNK`` at a time into a preallocated
-    volume, which bounds the temporaries to a few chunk-sized tensors."""
+    volume, which bounds the temporaries to a few chunk-sized tensors.
+
+    ``row_shift`` (the banded matcher) searches the global disparity
+    ``row_shift[...] + d`` at slice d: the census planes are computed on
+    the UNWARPED right view and shifted afterwards (:func:`shift_rows`, with
+    ``row_shift_pad`` and ``row_shift_chunk``), as is ``valid_r``, so each
+    cost is the full search's cost at the composed disparity."""
     h, w = left.shape
     dev = left.device
     n_census = cfg.census_window ** 2 - 1
     cl0, cl1 = census_transform(left, cfg.census_window)
     cr0, cr1 = census_transform(right, cfg.census_window)
+    if row_shift is not None:
+        sp, ck = row_shift_pad, row_shift_chunk
+        right = shift_rows(right, row_shift, sp, 0.0, chunk=ck)
+        valid_r = shift_rows(valid_r.bool(), row_shift, sp, False, chunk=ck)
+        cr0 = shift_rows(cr0, row_shift, sp, 0, chunk=ck)
+        cr1 = shift_rows(cr1, row_shift, sp, 0, chunk=ck)
     pad = cfg.max_disp // 2 + 1
 
     def windows(plane):
@@ -281,33 +379,28 @@ def diag_right_disparity(s_dhw: torch.Tensor, d_min: int,
     return d_min + stride * shifted.argmin(0).float()
 
 
-def _check_supported(cfg: StereoConfig, aggregation: str) -> None:
-    if aggregation not in ("sgm", "box"):
-        raise ValueError(f"compute_disparity: unknown aggregation "
-                         f"{aggregation!r} (expected sgm/box)")
-    unsupported = {
-        "adapt_band_rows": cfg.adapt_band_rows > 0,
-        "hierarchical": cfg.hierarchical,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"compute_disparity: {bad} select matcher variants that are not "
-            f"ported yet (see ROADMAP.md)")
-
-
 def compute_disparity(left: torch.Tensor, right: torch.Tensor,
                       valid_l: torch.Tensor, valid_r: torch.Tensor,
                       cfg: StereoConfig = StereoConfig(),
                       aggregation: str = "sgm",
-                      noise_ratio: torch.Tensor | None = None
-                      ) -> DisparityResult:
+                      noise_ratio: torch.Tensor | None = None,
+                      row_shift: torch.Tensor | None = None,
+                      row_shift_pad: int = 0,
+                      row_shift_chunk: int = 1) -> DisparityResult:
     """Full two-direction matcher. ``aggregation`` is ``"sgm"`` (4-path
     semi-global smoothing before the WTA) or ``"box"`` (the box-aggregated
     cost alone). ``noise_ratio`` is the scene's SNR proxy
     (:func:`pcmi_tpu_torch.ops.normalize.snr_ratio`), derived from ``left``
-    when not given."""
-    _check_supported(cfg, aggregation)
+    when not given. ``row_shift``, ``row_shift_pad`` and
+    ``row_shift_chunk`` go to every cost volume built here (see
+    :func:`build_cost_volume`). ``cfg.adapt_band_rows`` and
+    ``cfg.hierarchical`` are not read: ``pair_core`` dispatches on them, as
+    the reference's does."""
+    if aggregation not in ("sgm", "box"):
+        raise ValueError(f"compute_disparity: unknown aggregation "
+                         f"{aggregation!r} (expected sgm/box)")
+    shift = dict(row_shift=row_shift, row_shift_pad=row_shift_pad,
+                 row_shift_chunk=row_shift_chunk)
     left = left.float()
     right = right.float()
     stride = cfg.disp_stride
@@ -316,7 +409,7 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
     # the diagonal right view is an integer argmin by construction
     sub_r = cfg.right_subpixel and cfg.right_sgm != "diagonal"
 
-    vol_l = build_cost_volume(left, right, valid_l, valid_r, cfg)
+    vol_l = build_cost_volume(left, right, valid_l, valid_r, cfg, **shift)
     if aggregation == "box" or cfg.right_sgm == "derived":
         # one volume for both views: the left one, shifted into the right
         # frame (an SGM aggregate is filled above any aggregated cost, so
@@ -383,7 +476,8 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
             # directions: ~1 px of horizontal fattening
             cfg_s = dataclasses.replace(cfg, block_size=1,
                                         census_window=cfg.band_check_census)
-            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
+            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
+                                      **shift)
             vol_s = _vertical_box(vol_s, cfg.band_check_vbox)
             vert = K.sgm_pair(vol_s, p1, p2, horizontal=False)
             del vol_s
@@ -393,7 +487,8 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
             # small-window, no-SGM cross-matcher
             cfg_s = dataclasses.replace(cfg, block_size=cfg.band_check_block,
                                         census_window=cfg.band_check_census)
-            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s)
+            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
+                                      **shift)
             check, _ = wta_disparity(vol_s, d_min, stride=stride)
 
     return DisparityResult(disparity=disp_l, valid=ok & valid_l, cost=cost_l,

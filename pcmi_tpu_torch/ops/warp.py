@@ -1,8 +1,8 @@
 """Bilinear image warps (port of ``pcmi_tpu/ops/warp.py``).
 
-One bilinear ``map_coordinates`` gather serves the rectification warps and
-the synthetic renderer. Arithmetic follows the reference step by step in
-float32.
+One bilinear ``map_coordinates`` gather serves the rectification warps,
+the homography warp and the synthetic renderer. Arithmetic follows the
+reference step by step in float32.
 """
 
 from __future__ import annotations
@@ -56,6 +56,28 @@ def affine_warp(img: torch.Tensor, matrix: torch.Tensor, out_shape,
     xi = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
     yi = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
     return map_coordinates(img, yi, xi, fill)
+
+
+def homography_warp(img: torch.Tensor, matrix: torch.Tensor, out_shape,
+                    fill: float = 0.0) -> torch.Tensor:
+    """Warp ``img`` with a 3x3 *output->input* homography (the inverse
+    convention of ``cv2.warpPerspective``); a projective denominator of
+    magnitude <= 1e-8 is taken as 1e-8."""
+    ys, xs = _grid(out_shape, img.device)
+    m = torch.as_tensor(matrix, dtype=torch.float32, device=img.device)
+    xi = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
+    yi = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
+    zi = m[2, 0] * xs + m[2, 1] * ys + m[2, 2]
+    zi = torch.where(zi.abs() > 1e-8, zi, 1e-8)
+    return map_coordinates(img, yi / zi, xi / zi, fill)
+
+
+def warp_points_affine(matrix: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Apply a 2x3 or 3x3 affine to (N, 2) (x, y) points, float32."""
+    xy = torch.as_tensor(xy, dtype=torch.float32)
+    m = torch.as_tensor(matrix, dtype=torch.float32, device=xy.device)
+    homo = torch.cat([xy, torch.ones_like(xy[:, :1])], 1)
+    return homo @ m[:2].T
 
 
 def invert_affine(matrix: torch.Tensor) -> torch.Tensor:

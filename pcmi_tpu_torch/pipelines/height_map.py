@@ -8,9 +8,12 @@
 
 :func:`pair_core` runs eagerly on the device of its inputs;
 :class:`HeightMapPipeline` takes that device as ``device=`` and moves the
-images there. Both gate profiles ("strict" and "lr") are ported, and the
-row-band form the streaming pipeline uses (``row0``, ``pre_normalised``);
-the banded and hierarchical matchers are not (ROADMAP.md).
+images there. Both gate profiles ("strict" and "lr") are ported, the
+row-band form the streaming pipeline uses (``row0``, ``pre_normalised``)
+and the three matchers ``pair_core`` dispatches on: full search, the
+banded tile-adaptive range (``adapt_band_rows > 0``,
+:mod:`pcmi_tpu_torch.ops.stereo.banded`) and coarse-to-fine
+(``hierarchical``, :mod:`pcmi_tpu_torch.ops.stereo.hierarchical`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from pcmi_tpu_torch.ops.normalize import (
     masked_median_grid, masked_quantile_grid, normalise_image, snr_ratio)
 from pcmi_tpu_torch.ops.pointcloud import (
     fit_plane, gumbel_noise, plane_relative_height)
+from pcmi_tpu_torch.ops.stereo.banded import banded_disparity
+from pcmi_tpu_torch.ops.stereo.hierarchical import (
+    compute_disparity_hierarchical)
 from pcmi_tpu_torch.ops.stereo.matching import (
     compute_disparity, refine_disparity)
 
@@ -124,21 +130,30 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
     ``valid``). ``pre_normalised=True`` takes inputs normalised over the
     whole canvas (see :func:`matcher_inputs`); band tiles need it so
     every band shares one radiometry."""
-    if cfg.adapt_band_rows > 0 or cfg.hierarchical:
-        raise NotImplementedError("pair_core: the banded and hierarchical "
-                                  "matchers are not ported yet (ROADMAP.md)")
     n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg,
                                                   pre_normalised)
     noise_ratio = None
     if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
         noise_ratio = snr_ratio(n1, mask1)
 
-    res0 = compute_disparity(n1, n2, v1, v2, cfg, aggregation="sgm",
-                             noise_ratio=noise_ratio)
-    res = refine_disparity(res0, n1, cfg)
-    photo = photoconsistency(n1, n2, res.disparity, d_min=cfg.min_disparity,
-                             d_max=cfg.min_disparity + cfg.max_disp - 1,
-                             stride=cfg.disp_stride)
+    if cfg.adapt_band_rows > 0:
+        # coarse pass -> tile offsets -> narrow search; disparities come
+        # back in global coordinates, photo from the (equivalent) warped
+        # frame
+        res0, res, photo, _ = banded_disparity(n1, n2, v1, v2, cfg,
+                                               noise_ratio=noise_ratio)
+    else:
+        if cfg.hierarchical:
+            res0 = compute_disparity_hierarchical(
+                n1, n2, v1, v2, cfg, local_disp=cfg.hierarchical_local_disp)
+        else:
+            res0 = compute_disparity(n1, n2, v1, v2, cfg, aggregation="sgm",
+                                     noise_ratio=noise_ratio)
+        res = refine_disparity(res0, n1, cfg)
+        photo = photoconsistency(n1, n2, res.disparity,
+                                 d_min=cfg.min_disparity,
+                                 d_max=cfg.min_disparity + cfg.max_disp - 1,
+                                 stride=cfg.disp_stride)
     if cfg.gate_profile == "lr":
         return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
                                  tri_b, row0, with_plane, ground_percentile,

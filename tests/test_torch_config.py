@@ -162,3 +162,19 @@ def test_pipelines_built_without_a_device_hold_cuda():
     pipe = streaming.StreamingAOIPipeline(band_rows=64)
     assert pipe.pipeline.device.type == "cuda"
     assert isinstance(pipe.cfg, tc.PipelineConfig)
+
+
+def test_from_flat_overrides_matches_reference():
+    """The CLI's dotted overrides: nested fields, a plain top-level field,
+    and the checks of the replaced config."""
+    base = _configs()["d288"]
+    overrides = {"stereo.max_disp": 192, "stereo.block_size": 7,
+                 "rectify.height_range": (0.0, 30.0),
+                 "ground_percentile": 5.0, "fusion.knn_k": 12}
+    ref = jc.from_flat_overrides(base, overrides)
+    got = tc.from_flat_overrides(convert.config_from_reference(base),
+                                 overrides)
+    assert got == convert.config_from_reference(ref)
+    assert got.stereo.max_disp == 192 and got.stereo.disp_stride == 2
+    with pytest.raises(ValueError):
+        tc.from_flat_overrides(got, {"stereo.disp_stride": 3})

@@ -160,3 +160,87 @@ def test_aoi_ranges_match_reference(seed):
         (float(scene.frame.lon0), float(scene.frame.lat0)),
         [r._f64 for r in scene.rpcs], scene.h_range)
     assert ts.aoi_lonlat_ranges(port) == js.aoi_lonlat_ranges(scene)
+
+
+def test_rpc_localize_inverts_project():
+    """The Newton inverse (10 float32 steps, Jacobian by forward-mode
+    differentiation in both packages) against the reference's: lon/lat
+    within 2e-6 degrees (~0.2 m; float32 holds these degrees to ~4e-6),
+    and back through the float64 projection within 1 px (the float32
+    degrees alone are ~0.4 px of this camera's 0.5 m pixels)."""
+    jrpc = _cams()[0]
+    trpc = convert.rpc_from_reference(jrpc._f64)
+    rng = np.random.default_rng(4)
+    col = rng.uniform(10, 118, 40).astype(np.float32)
+    row = rng.uniform(10, 118, 40).astype(np.float32)
+    h = rng.uniform(0, 40, 40).astype(np.float32)
+    jlon, jlat = jrpc.localize(jnp.asarray(col), jnp.asarray(row),
+                               jnp.asarray(h))
+    tlon, tlat = trpc.localize(torch.from_numpy(col), torch.from_numpy(row),
+                               torch.from_numpy(h))
+    np.testing.assert_allclose(tlon.numpy(), np.asarray(jlon), atol=2e-6,
+                               rtol=0)
+    np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), atol=2e-6,
+                               rtol=0)
+    c2, r2 = trpc.project_np(tlon.numpy(), tlat.numpy(), h)
+    assert np.abs(c2 - col).max() < 1.0 and np.abs(r2 - row).max() < 1.0
+
+
+def test_affine_camera_frame_and_residual(rng):
+    """to_local (float32), project, view_direction and the fit residual
+    against the reference."""
+    jrpc = _cams()[1]
+    trpc = convert.rpc_from_reference(jrpc._f64)
+    llh = ja.probe_grid(LON, LAT, (0.0, 40.0))
+    jframe = ja.LocalFrame(jnp.float32(np.mean(LON)),
+                           jnp.float32(np.mean(LAT)))
+    tframe = ta.LocalFrame(np.mean(LON), np.mean(LAT))
+    jcam = ja.fit_affine_camera(jrpc, jframe, llh)
+    tcam = ta.fit_affine_camera(trpc, tframe, llh)
+    lon = rng.uniform(*LON, 30).astype(np.float32)
+    lat = rng.uniform(*LAT, 30).astype(np.float32)
+    h = rng.uniform(0, 40, 30).astype(np.float32)
+    jx = jframe.to_local(jnp.asarray(lon), jnp.asarray(lat), jnp.asarray(h))
+    tx = tframe.to_local(torch.from_numpy(lon), torch.from_numpy(lat),
+                         torch.from_numpy(h))
+    for a, b in zip(tx, jx):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    xyz = np.stack([np.asarray(v) for v in jx], -1).astype(np.float32)
+    np.testing.assert_allclose(tcam.project(torch.from_numpy(xyz)).numpy(),
+                               np.asarray(jcam.project(jnp.asarray(xyz))),
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(tcam.view_direction().numpy(),
+                               np.asarray(jcam.view_direction()), atol=1e-6,
+                               rtol=0)
+    assert tcam.view_direction()[2] > 0
+    res = ta.affine_fit_residual(trpc, tframe, tcam, llh)
+    assert res == ja.affine_fit_residual(jrpc, jframe, jcam, llh) and res < 0.5
+
+
+def test_rectify_images_and_triangulate_disparity(rng):
+    jrpcs = _cams()
+    trpcs = [convert.rpc_from_reference(r._f64) for r in jrpcs]
+    jg = jr.build_geometry_from_rpcs(*jrpcs, LON, LAT, (0.0, 40.0),
+                                     (128, 128), (128, 128))
+    tg = tr.build_geometry_from_rpcs(*trpcs, LON, LAT, (0.0, 40.0),
+                                     (128, 128), (128, 128))
+    img1 = rng.uniform(0, 1, (128, 128)).astype(np.float32)
+    img2 = rng.uniform(0, 1, (128, 128)).astype(np.float32)
+    ref = jr.rectify_images(jg, jnp.asarray(img1), jnp.asarray(img2))
+    got = tr.rectify_images(tg, torch.from_numpy(img1),
+                            torch.from_numpy(img2))
+    # sample coordinates of ~600 px carry ~6e-5 px of float32 rounding
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    h, w = tg.out_shape
+    disp = rng.uniform(-10, 10, (h, w)).astype(np.float32)
+    valid = rng.uniform(0, 1, (h, w)) > 0.3
+    jxyz, jh = jr.triangulate_disparity(jg, jnp.asarray(disp),
+                                        jnp.asarray(valid))
+    txyz, th = tr.triangulate_disparity(tg, torch.from_numpy(disp),
+                                        torch.from_numpy(valid))
+    np.testing.assert_allclose(txyz.numpy(), np.asarray(jxyz), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_array_equal(np.isnan(th.numpy()), ~valid)
+    np.testing.assert_allclose(th.numpy()[valid], np.asarray(jh)[valid],
+                               atol=1e-4, rtol=0)

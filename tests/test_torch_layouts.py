@@ -221,8 +221,8 @@ _BAD = {
         prev=torch.zeros(1, 4, 16, 128))),
     "sgm_blocked dtype": (TypeError, lambda: K.sgm_blocked(
         torch.zeros(1, 4, 8, 128, dtype=torch.float16), 0.03, 0.48, False)),
-    "sgm_blocked Dp": (ValueError, lambda: K.sgm_blocked_plan(513, 1, False)),
-    "sgm_hwd D": (ValueError, lambda: K.sgm_hwd_plan(513, True)),
+    "sgm_blocked Dp": (ValueError, lambda: K.sgm_blocked_plan(1025, 1, False)),
+    "sgm_hwd D": (ValueError, lambda: K.sgm_hwd_plan(1025, True)),
     "wta aggregate of one": (ValueError, lambda: K.wta(
         torch.zeros(4, 5, 6), None, 1.0, 0, with_aggregate=True)),
     "wdh d_real": (ValueError, lambda: K.derive_right_wdh(

@@ -226,3 +226,95 @@ def test_warps(rng):
         tw.affine_warp(_t(img), inv, (36, 44), fill=-1.0).numpy(),
         np.asarray(jw.affine_warp(jnp.asarray(img), jnp.asarray(inv_ref),
                                   (36, 44), fill=-1.0)), atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [3, 4, 5])
+def test_morphology_exact(rng, size):
+    """Erosion, closing, the grey filters and a one-step dilation, odd and
+    even windows (the reference's "SAME" placement): bit-exact."""
+    img, mask = _image(rng)
+    jimg, jmask = jnp.asarray(img), jnp.asarray(mask)
+    cases = [
+        (tmo.binary_dilation(_t(mask), size=size),
+         jmo.binary_dilation(jmask, size=size)),
+        (tmo.binary_erosion(_t(mask), iterations=2, size=size),
+         jmo.binary_erosion(jmask, iterations=2, size=size)),
+        (tmo.binary_closing(_t(mask), size=size),
+         jmo.binary_closing(jmask, size=size)),
+        (tmo.grey_erosion(_t(img), size), jmo.grey_erosion(jimg, size)),
+        (tmo.grey_dilation(_t(img), size), jmo.grey_dilation(jimg, size)),
+    ]
+    for got, ref in cases:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("max_dist", [1, 6, 32])
+def test_distance_transform_exact(rng, max_dist):
+    mask = np.ones((40, 56), bool)
+    mask[rng.uniform(0, 1, mask.shape) < 0.01] = False
+    mask[:, :3] = False
+    got = tmo.distance_transform(_t(mask), max_dist)
+    ref = jmo.distance_transform(jnp.asarray(mask), max_dist)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_gabor_bank_and_filter_bank(rng):
+    """The bank bit-exact (both built in float64 numpy); the correlation
+    (a float32 convolution in both, other summation orders) within 1e-5
+    of values up to ~10."""
+    bank = tf.gabor_bank(ksize=9)
+    jbank = jf.gabor_bank(ksize=9)
+    np.testing.assert_array_equal(bank.numpy(), np.asarray(jbank))
+    assert tuple(tf.gabor_bank().shape) == (16, 31, 31)
+    img, _ = _image(rng)
+    got = tf.filter_bank_2d(_t(img), bank)
+    ref = jf.filter_bank_2d(jnp.asarray(img), jbank)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("channels", [0, 3])
+def test_masked_jacobi_fill(rng, channels):
+    """(H, W) and (H, W, C) images: the known pixels exact, the holes
+    within 1e-5 (the seed mean sums in another order)."""
+    shape = (32, 40) + ((channels,) if channels else ())
+    img = rng.uniform(0, 1, shape).astype(np.float32)
+    hole = np.zeros((32, 40), np.float32)
+    hole[10:20, 12:30] = 1.0
+    got = tf.masked_jacobi_fill(_t(img), _t(hole), iters=24)
+    ref = jf.masked_jacobi_fill(jnp.asarray(img), jnp.asarray(hole), iters=24)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    known = (hole == 0) if not channels else (hole == 0)[..., None].repeat(
+        channels, -1)
+    np.testing.assert_array_equal(got.numpy()[known], img[known])
+
+
+def test_unsharp_mask_and_local_entropy(rng):
+    img, _ = _image(rng)
+    np.testing.assert_allclose(
+        tf.unsharp_mask(_t(img)).numpy(),
+        np.asarray(jf.unsharp_mask(jnp.asarray(img))), atol=1e-6, rtol=0)
+    for radius in (5, 2):   # the reference's n_bins is its default only
+        got = tf.local_entropy(_t(img), radius=radius)
+        ref = jf.local_entropy(jnp.asarray(img), radius=radius)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=0)
+
+
+def test_homography_warp_and_points(rng):
+    img, _ = _image(rng)
+    H = np.array([[1.02, 0.03, -2.5], [-0.02, 0.98, 1.5],
+                  [1e-4, -2e-4, 1.0]], np.float32)
+    got = tw.homography_warp(_t(img), _t(H), (36, 60), fill=-1.0)
+    ref = jw.homography_warp(jnp.asarray(img), jnp.asarray(H), (36, 60),
+                             fill=-1.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    pts = rng.uniform(0, 100, (50, 2)).astype(np.float32)
+    for m in (H[:2], H):
+        np.testing.assert_allclose(
+            tw.warp_points_affine(_t(m), _t(pts)).numpy(),
+            np.asarray(jw.warp_points_affine(jnp.asarray(m),
+                                             jnp.asarray(pts))),
+            atol=1e-4, rtol=0)

@@ -26,6 +26,15 @@ MODULES = [
     "pcmi_tpu_torch.parallel.stereo_sharded",
     "pcmi_tpu_torch.pipelines.streaming", "pcmi_tpu_torch.pipelines.multiday",
     "pcmi_tpu_torch.pipelines.evaluation", "pcmi_tpu_torch.pipelines",
+    # the banded and hierarchical matchers, the modules finished beside
+    # them and the packages' exports
+    "pcmi_tpu_torch.ops.stereo.banded", "pcmi_tpu_torch.ops.stereo.hierarchical",
+    "pcmi_tpu_torch.ops.stereo.numpy_ref", "pcmi_tpu_torch.ops.morphology",
+    "pcmi_tpu_torch.ops.filters", "pcmi_tpu_torch.ops.warp",
+    "pcmi_tpu_torch.geometry.rpc", "pcmi_tpu_torch.geometry.affine",
+    "pcmi_tpu_torch.geometry.rectify", "pcmi_tpu_torch.utils.profiling",
+    "pcmi_tpu_torch.utils.visualize", "pcmi_tpu_torch.ops",
+    "pcmi_tpu_torch.ops.stereo", "pcmi_tpu_torch.utils",
 ]
 
 
@@ -54,8 +63,14 @@ def _run_fresh(code: str) -> None:
 
 def test_import_leaves_jax_out():
     """Every port module imports neither JAX nor any module of the
-    reference package, not even its JAX-free ``pcmi_tpu.config``."""
-    _run_fresh("".join(f"import {m}\n" for m in MODULES) + _NO_REFERENCE)
+    reference package, not even its JAX-free ``pcmi_tpu.config``, and
+    importing them (the packages' exports included) neither builds nor
+    loads the kernel library."""
+    _run_fresh("".join(f"import {m}\n" for m in MODULES) + _NO_REFERENCE
+               + "from pcmi_tpu_torch.ops.stereo import _build\n"
+               "assert _build._LIB is None\n"
+               "assert not _build.BUILD_DIR.exists() or not any(\n"
+               "    p.name.endswith('.tmp') for p in _build.BUILD_DIR.iterdir())\n")
 
 
 def _chip_smoke_imports() -> list[str]:
@@ -195,8 +210,8 @@ def test_sgm_blocked_plan_fits_every_disparity_count(nb, with_prev):
 def test_sgm_dir_plan_bf16_fits_every_disparity_count(span, horizontal):
     """K1's launch plan for 2-byte elements fits one block's shared memory
     for every D (planes padded by 16 bytes: 8 elements), passes the checks
-    of ``launch_typed`` (csrc/sgm_tile.cuh), and never takes a shorter
-    tile than the float32 plan."""
+    of ``launch_typed`` (csrc/sgm_tile.cuh), and never takes fewer paths
+    or, with as many, a shorter tile than the float32 plan."""
     src = (PKG / "csrc" / "sgm_tile.cuh").read_text()
     assert "(paths * tile + 16 / esize)" in src
     assert "g.Sp = g.P * g.T + 16 / esize;" in src
@@ -210,7 +225,10 @@ def test_sgm_dir_plan_bf16_fits_every_disparity_count(span, horizontal):
             assert _pow2(p.tile) and p.tile <= 32
             assert p.paths * p.tile <= max(256, 32 * p.paths)
             p4 = K.sgm_dir_plan(D, span, horizontal, acc)
-            assert p.paths == p4.paths and p.tile >= p4.tile
+            # past 726 planes float32 may fall back to blocks of 8
+            # columns where bfloat16 still fits 16
+            assert p.paths == p4.paths or (D > 512 and p.paths > p4.paths)
+            assert p.paths > p4.paths or p.tile >= p4.tile
             assert K.sgm_dir_plan(D, span, horizontal, acc, esize=4) == p4
     # a deep volume takes a longer tile in half the bytes
     assert K.sgm_dir_plan(144, 1152, True, True).tile == 16
@@ -275,3 +293,21 @@ def test_wrappers_refuse_other_devices():
         K.derive_right_wdh(meta, 2, 2, 0)
     with pytest.raises(ValueError):
         K.wta(torch.zeros(4, 3, 5), meta, 1.0, -2)
+
+
+def test_sgm_kernels_take_1024_planes():
+    """The SGM kernels' largest D (``kMaxPer`` disparities per lane in
+    ``csrc/sgm_tile.cuh``) is the wrappers', and past 512 planes the plans
+    still fit: K1's vertical accumulating scan at D = 1024 on a wide
+    volume falls back from blocks of 16 columns to 8 (196,608 bytes), and
+    K4 takes tiles of one step past its ring rule."""
+    src = (PKG / "csrc" / "sgm_tile.cuh").read_text()
+    assert "constexpr int kMaxPer = 32;" in src
+    assert K.SGM_DIR_MAX_DISP == K.SGM_HWD_MAX_DISP == \
+        K.SGM_BLOCKED_MAX_DISP == 1024
+    assert K.sgm_dir_plan(1024, 1152, False, True) == (8, 1, 196_608)
+    assert K.sgm_dir_plan(1024, 1152, False, False) == (16, 1, 163_840)
+    assert K.sgm_dir_plan(512, 1152, False, True).paths == 16
+    assert K.sgm_hwd_plan(1024, True) == (1, 32_768)
+    assert K.sgm_hwd_plan(512, True).tile == 1
+    assert K.sgm_blocked_plan(1024, 8, True) == (8, 1, 196_608)

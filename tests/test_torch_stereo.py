@@ -684,11 +684,14 @@ def _reference_volumes(monkeypatch):
     build_cost_volume (carried over exactly), so that a comparison of
     compute_disparity holds everything after the cost volume to bit
     parity."""
-    def build(left, right, valid_l, valid_r, cfg):
+    def build(left, right, valid_l, valid_r, cfg, row_shift=None, **kw):
         rcfg = StereoConfig(**dataclasses.asdict(cfg))
+        if row_shift is not None:
+            kw["row_shift"] = jnp.asarray(row_shift.numpy())
         return convert.tensor_from_reference(jm.build_cost_volume(
             jnp.asarray(left.numpy()), jnp.asarray(right.numpy()),
-            jnp.asarray(valid_l.numpy()), jnp.asarray(valid_r.numpy()), rcfg))
+            jnp.asarray(valid_l.numpy()), jnp.asarray(valid_r.numpy()), rcfg,
+            **kw))
 
     monkeypatch.setattr(tm, "build_cost_volume", build)
 
@@ -780,10 +783,18 @@ def test_compute_disparity_bf16_variants(rng, monkeypatch, variant):
     _compare_bf16(rng, monkeypatch, kw, aggregation)
 
 
-def test_compute_disparity_rejects_unported_variants():
-    z = torch.zeros(8, 8)
-    v = torch.ones(8, 8, dtype=torch.bool)
-    for kw in (dict(hierarchical=True), dict(adapt_band_rows=64)):
-        with pytest.raises(NotImplementedError):
-            tm.compute_disparity(z, z, v, v,
-                                 _c(StereoConfig(max_disp=96, **kw)))
+def test_compute_disparity_rejects_unported_variants(rng):
+    """The flags that once made compute_disparity refuse a config
+    (hierarchical, adapt_band_rows > 0) select matchers in pair_core only:
+    compute_disparity runs under each and equals the reference's, which
+    ignores them too."""
+    left, right, vl, vr = _small_pair(rng)
+    for kw in (dict(hierarchical=True),
+               dict(adapt_band_rows=32, adapt_local_disp=16)):
+        cfg = StereoConfig(max_disp=16, block_size=5, census_window=5,
+                           cost_dtype="float32", sgm_backend="xla", **kw)
+        ref = jm.compute_disparity(jnp.asarray(left), jnp.asarray(right),
+                                   jnp.asarray(vl), jnp.asarray(vr), cfg)
+        got = tm.compute_disparity(_t(left), _t(right), _t(vl), _t(vr),
+                                   _c(cfg))
+        _assert_results_agree(got, ref)
