@@ -77,7 +77,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through ``pair_core``: banded (``adapt_band_rows=64``,
    ``adapt_band_cols=64``, ``adapt_local_disp=96``; 10 ``sgm_dir``, 5
    ``wta``, 2 ``derive_right`` launches) and hierarchical
-   (``hierarchical_local_disp=16``; 12/6/2), every output finite, banded
+   (``hierarchical_local_disp=16``; 12/6/2), every output finite, each
+   K1, K2 and K3 launch of one more run bit-exact against its plain
+   version on the volumes the matcher handed it, banded
    RMSE <= 1.0 m and valid >= 0.5, hierarchical valid > 0.08; each
    printed beside the full search (RMSE, valid fraction, peak memory, ms
    per pair in turns full, banded, hierarchical, hierarchical, banded,
@@ -116,6 +118,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -181,7 +184,7 @@ RAGGED_WDH = (((48, 16, 21), 13, 37), ((40, 12, 32), 12, 40),
 # 128-wide chunk, odd D, D > 256
 RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
           ((300, 21, 67), 1), ((9, 5, 1028), 2), ((5, 3, 4), 1),
-          # past 512 planes: 600 (20 per lane, 19 used) and the most the
+          # past 512 planes: 600 (32 per lane, 19 used) and the most the
           # SGM kernels take, 1024, on 1030 columns (blocks of 16 columns
           # fall back to 8 where accumulating in float32)
           ((600, 13, 67), 1), ((1024, 3, 1030), 2))
@@ -1189,6 +1192,62 @@ def _finite_product(prod) -> bool:
                          "rect_right"))
 
 
+MAIN_KERNELS = ("sgm_dir", "wta", "derive_right")
+
+
+@contextlib.contextmanager
+def _captured(calls: list):
+    """While open, every call of the main path's kernel wrappers (K1
+    ``sgm_dir``, K2 ``wta``, K3 ``derive_right``) appends ``(name, args,
+    kwargs, result)`` to ``calls``: copies of the tensors it was handed,
+    taken before the call (so an accumulating launch's ``out`` as it was),
+    and of what the kernel returned. ``sgm_pair`` and the matchers reach
+    the wrappers through the module, so every launch passes here."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    def copy(x):
+        if isinstance(x, tuple):
+            return tuple(copy(v) for v in x)
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def hook(name, fn):
+        def call(*args, **kwargs):
+            a, kw = copy(args), {k: copy(v) for k, v in kwargs.items()}
+            res = fn(*args, **kwargs)
+            calls.append((name, a, kw, copy(res)))
+            return res
+        return call
+
+    orig = {n: getattr(K, n) for n in MAIN_KERNELS}
+    try:
+        for n, fn in orig.items():
+            setattr(K, n, hook(n, fn))
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(K, n, fn)
+
+
+def _replay_plain(calls: list) -> tuple[dict, list]:
+    """Each captured launch against its plain version on the same card
+    tensors: the shapes seen per kernel (``"DxHxW": launches``) and the
+    launches whose outputs are not all bit-exact."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    shapes = {n: {} for n in MAIN_KERNELS}
+    bad = []
+    for name, args, kwargs, got in calls:
+        ref = getattr(K, f"{name}_plain")(*args, **kwargs)
+        torch.cuda.synchronize()
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        key = "x".join(map(str, args[0].shape))
+        shapes[name][key] = shapes[name].get(key, 0) + 1
+        if not all((g is None and r is None) or torch.equal(g, r)
+                   for g, r in pairs):
+            bad.append(f"{name} {key}")
+    return {n: v for n, v in shapes.items() if v}, bad
+
+
 def phase_adaptive_pairs(dctx: D288, d288: dict) -> dict:
     """The D = 288 pair of phase 7 (strict gates) through ``pair_core``
     with the two matchers that narrow the search: banded
@@ -1200,7 +1259,10 @@ def phase_adaptive_pairs(dctx: D288, d288: dict) -> dict:
     valid fraction, peak memory, launches and ms per pair, timed in turns
     full, banded, hierarchical, hierarchical, banded, full (min, median,
     max of six runs each). Gates: launches as pinned (10/5/2 and 12/6/2),
-    every output finite, banded RMSE <= 1.0 m and valid >= 0.5
+    every output finite, every launch of K1, K2 and K3 in one more run of
+    each matcher bit-exact against its plain version on the tensors that
+    matcher handed it (the shapes printed under ``kernel_shapes``),
+    banded RMSE <= 1.0 m and valid >= 0.5
     (``tests/test_banded.py``'s), hierarchical valid > 0.08
     (``tests/test_hierarchical.py``'s; its RMSE is printed)."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
@@ -1232,9 +1294,20 @@ def phase_adaptive_pairs(dctx: D288, d288: dict) -> dict:
         peak = torch.cuda.max_memory_allocated()
         finite = _finite_product(prod)
         rmse, vf = _pair_accuracy(dctx.scene, prod, r1, r2)
+        # one more run, its kernels' inputs and outputs kept, each launch
+        # then held against its plain version on the same tensors
+        with _captured([]) as calls:
+            runs[name]()
+        torch.cuda.synchronize()
+        shapes, bad = _replay_plain(calls)
+        del calls
         out[name] = dict(height_rmse_m=rmse, valid_fraction=vf,
                          peak_mem_mb=peak / 2**20, finite=finite,
-                         launches={k: n for k, n in launches.items() if n})
+                         launches={k: n for k, n in launches.items() if n},
+                         plain_exact=not bad, kernel_shapes=shapes)
+        if bad:
+            print(f"adaptive {name}: not bit-exact against the plain "
+                  f"versions: {bad}")
     ts = _turns(runs, ("full", "banded", "hierarchical", "hierarchical",
                        "banded", "full"))
     for name in expected:
@@ -1249,6 +1322,9 @@ def phase_adaptive_pairs(dctx: D288, d288: dict) -> dict:
         _launched(f"adaptive {name}", {**NONE, **out[name]["launches"]}, exp)
         if not out[name]["finite"]:
             raise SystemExit(f"adaptive {name}: non-finite output")
+        if not out[name]["plain_exact"]:
+            raise SystemExit(f"adaptive {name}: a kernel disagrees with its "
+                             f"plain version at the matcher's shapes")
     ban, hier = out["banded"], out["hierarchical"]
     if not ban["height_rmse_m"] <= 1.0:
         raise SystemExit(f"adaptive banded: height RMSE "

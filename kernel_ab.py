@@ -26,6 +26,12 @@ launch must move (each input read once, each output written once, 4 or 2
 bytes a volume element, 4 a plane element) over the H100's 3.35 TB/s. The
 card's name and power limit come first.
 
+    python3 kernel_ab.py --deep ROOT[:DTYPE] [ROOT[:DTYPE] ...]
+
+runs the same turns at the depths past 512 planes (``DEEP_SHAPES``:
+(600, 256, 1024) and (1024, 256, 1024), stride 1), where the SGM kernels
+take their one kernel of 32 disparities per lane.
+
     python3 kernel_ab.py --ablate [--dtype DTYPE]
 
 takes K1, K4, K5 and K2 of this checkout apart through build-time
@@ -62,6 +68,7 @@ from chip_smoke import WORK, WTA_FORMS
 
 HBM_BYTES_PER_S = 3.35e12
 SHAPES = (((80, 896, 896), 1), ((144, 1152, 1152), 2))
+DEEP_SHAPES = (((600, 256, 1024), 1), ((1024, 256, 1024), 1))
 P1, P2 = 0.03, 0.48
 AXES = ((True, "h"), (False, "v"))   # (horizontal, name)
 
@@ -142,7 +149,7 @@ def _pair_row(fwd, acc, fwd_plain, acc_plain, v_bytes: int) -> dict:
                 share=(b_f + b_a) / (ms_f + ms_a))
 
 
-def turn(root: str, dtype: str = "float32") -> dict:
+def turn(root: str, dtype: str = "float32", shapes=SHAPES) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -150,7 +157,7 @@ def turn(root: str, dtype: str = "float32") -> dict:
 
     assert K.__file__.startswith(root), K.__file__
     res = {"root": root, "dtype": dtype}
-    for (D, H, W), stride in SHAPES:
+    for (D, H, W), stride in shapes:
         vol, acc = _volumes((D, H, W), dtype)
         v_bytes = vol.numel() * vol.element_size()
         row = {}
@@ -426,17 +433,21 @@ def main() -> int:
         _study(ablation=sys.argv[1] == "--ablate", dtype=dtype)
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(*_root_dtype(sys.argv[2]))))
+        shapes = DEEP_SHAPES if sys.argv[3:] == ["--deep"] else SHAPES
+        print(json.dumps(turn(*_root_dtype(sys.argv[2]), shapes=shapes)))
         return 0
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) < 2:
+    deep = sys.argv[1:2] == ["--deep"]
+    roots = sys.argv[2:] if deep else sys.argv[1:]
+    if not torch.cuda.is_available() or not roots:
         print("kernel_ab: needs a CUDA card and at least one ROOT",
               file=sys.stderr)
         return 1
     print(_smi())
-    for root in sys.argv[1:]:
-        proc = subprocess.run([sys.executable, __file__, "--turn", root],
+    for root in roots:
+        proc = subprocess.run([sys.executable, __file__, "--turn", root,
+                               *(["--deep"] if deep else [])],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

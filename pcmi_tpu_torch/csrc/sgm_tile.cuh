@@ -15,10 +15,9 @@
 // neighbours are 2 * kPer rotating shuffles per step and the min over D is
 // one redux.sync on the floats' order-preserving integer images
 // (scan_step). A scan step has no block-wide barrier. kPer is
-// ceil(D / 32) up to 16 (D <= 512); above that it is rounded up to a
-// multiple of 4, up to kMaxPer = 32 (D <= 1024): kernels exist for 20, 24,
-// 28 and 32 per lane, so the build grows by four kernels per kind and not
-// sixteen, and a lane's slots past D stay idle (per_lane).
+// ceil(D / 32) up to 16 (D <= 512); above that one kernel of kMaxPer = 32
+// per lane takes every D up to 1024, the lane's slots past D idle
+// (per_lane), so the build grows by one kernel per kind and not sixteen.
 //
 // K1 and K5 share one kernel, sgm_tile_kernel (described here for float32
 // volumes; "Element types" below says what bfloat16 changes). A block holds P
@@ -200,18 +199,17 @@ __device__ __forceinline__ void scan_step(float (&prev)[kPer],
       ordered(__reduce_min_sync(kFull, ordered(__float_as_int(local)))));
 }
 
-// The kernel's disparities per lane for D disparities: ceil(D / 32), above
-// 16 rounded up to the next kernel built (a multiple of 4); 0 past kMaxPer.
+// The kernel's disparities per lane for D disparities: ceil(D / 32) up to
+// 16, kMaxPer above that; 0 past kMaxPer.
 inline int per_lane(int D) {
   const int n = (D + 31) / 32;
-  const int per = n <= 16 ? n : (n + 3) / 4 * 4;
-  return D < 1 || per > kMaxPer ? 0 : per;
+  return D < 1 || n > kMaxPer ? 0 : n <= 16 ? n : kMaxPer;
 }
 
 // Whether kernels are built for kPer disparities per lane (per_lane's
 // values).
 template <int kPer>
-constexpr bool kBuilt = kPer <= 16 || kPer % 4 == 0;
+constexpr bool kBuilt = kPer <= 16 || kPer == kMaxPer;
 
 // Kernels above 48 KB of dynamic shared memory must opt in, once each.
 inline cudaError_t allow_smem(const void* fn) {

@@ -32,7 +32,7 @@ from pcmi_tpu_torch.config import StereoConfig
 from pcmi_tpu_torch.ops.filters import separable_median_filter
 from pcmi_tpu_torch.ops.stereo.banded import cell_sum
 from pcmi_tpu_torch.ops.stereo.matching import (
-    DisparityResult, compute_disparity, fma32, refine_disparity,
+    DisparityResult, compute_disparity, mul_add, refine_disparity,
     triangle_sum)
 
 
@@ -63,15 +63,16 @@ def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
 def _up_last(x: torch.Tensor, n_out: int) -> torch.Tensor:
     """Upsample the last axis to ``n_out``: each output is the product of
     its (at most two) nonzero :func:`_linear_weights` taps with the input,
-    accumulated from the lower tap up with one fused multiply-add each,
-    as the reference's weight-matrix product computes it."""
+    accumulated from the lower tap up, the upper one by one multiply-add
+    (:func:`~pcmi_tpu_torch.ops.stereo.matching.mul_add`), as the
+    reference's weight-matrix product computes it on the CPU."""
     wts = _linear_weights(x.shape[-1], n_out, x.device)
     k0 = (wts > 0).int().argmax(0)
     k1 = torch.clamp(k0 + 1, max=x.shape[-1] - 1)
     cols = torch.arange(n_out, device=x.device)
     w0 = wts[k0, cols]
     w1 = torch.where(k1 > k0, wts[k1, cols], 0.0)
-    return fma32(w1, x[..., k1], w0 * x[..., k0])
+    return mul_add(w1, x[..., k1], w0 * x[..., k0])
 
 
 def _up2(img: torch.Tensor, shape) -> torch.Tensor:

@@ -196,13 +196,24 @@ def shift_rows(img: torch.Tensor, shifts: torch.Tensor, pad: int, fill,
     return torch.gather(padded, 1, idx)
 
 
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of float32 tensors rounded once to float32, as a fused
-    multiply-add rounds it: the product of two float32 values is exact in
-    float64, so only the sum is rounded before the final rounding (which
-    differs from one fused rounding only where the float64 sum falls on a
-    float32 midpoint, about once in 2**29)."""
-    return (a.double() * b.double() + c.double()).float()
+def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors, one term of a triangle-weighted
+    scan's ``acc + w * v``.
+
+    The reference's compiler fuses that term into one multiply-add on the
+    CPU, rounded once. On CPU tensors the port rounds it the same way: the
+    product of two float32 values is exact in float64, so only the sum is
+    rounded before the final rounding (which differs from one fused
+    rounding only where the float64 sum falls on a float32 midpoint, about
+    once in 2**29), and the tests hold the port bit for bit against the
+    reference. On the card it is a multiply and an add, each rounded
+    (within an ulp of the fused term), with no float64 temporaries: nothing
+    there is compared bit for bit with the reference, and it is the form
+    the main path's photoconsistency has had on the card since the port's
+    first slice."""
+    if a.device.type == "cpu":
+        return (a.double() * b.double() + c.double()).float()
+    return a * b + c
 
 
 def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,
@@ -217,8 +228,8 @@ def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,
     ``acc + wgt * shifted``, which its compiler fuses into one multiply-add
     per shift; a shift contributes only within ``stride`` of ``shift``, so
     this gathers the (at most three) neighbouring grid shifts and
-    accumulates their terms in the same ascending order with the same
-    rounding (:func:`fma32`): the same float32 sum."""
+    accumulates their terms in the same ascending order, each rounded as
+    :func:`mul_add` says: on the CPU the same float32 sum."""
     h, w = plane.shape
     k_lo = torch.floor((shift - d_min) / stride)
     xs = torch.arange(w, dtype=torch.float32, device=plane.device)
@@ -234,7 +245,7 @@ def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,
         else:
             ok = ok & (src >= 0) & (src <= w - 1)
         val = torch.gather(plane, 1, torch.where(ok, src, 0.0).long())
-        acc = torch.where(ok, fma32(wgt, val, acc), acc)
+        acc = torch.where(ok, mul_add(wgt, val, acc), acc)
     return acc
 
 

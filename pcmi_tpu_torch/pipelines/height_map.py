@@ -39,7 +39,7 @@ from pcmi_tpu_torch.ops.stereo.banded import banded_disparity
 from pcmi_tpu_torch.ops.stereo.hierarchical import (
     compute_disparity_hierarchical)
 from pcmi_tpu_torch.ops.stereo.matching import (
-    compute_disparity, refine_disparity)
+    compute_disparity, refine_disparity, triangle_sum)
 
 
 class PairProduct(NamedTuple):
@@ -69,26 +69,14 @@ def photoconsistency(left: torch.Tensor, right: torch.Tensor,
                      disparity: torch.Tensor, d_min: int = -160,
                      d_max: int = 160, stride: int = 1) -> torch.Tensor:
     """``|right(y, x - d) - left(y, x)|`` with the right view linearly
-    interpolated on the ``stride``-px grid of shifts.
-
-    The reference sums triangle-weighted shifted copies of the right image
-    over every grid shift; a shift contributes only within ``stride`` of
-    ``d``, so this gathers the (at most three) neighbouring grid shifts and
-    adds their terms in the same ascending order: the same sum."""
-    h, w = left.shape
+    interpolated on the ``stride``-px grid of shifts (:func:`triangle_sum`:
+    the reference's scan of triangle-weighted shifted copies of the right
+    image, as a gather of the neighbouring grid shifts), 1 where ``x - d``
+    leaves the image or ``d`` the range."""
+    w = left.shape[1]
     n_grid = len(range(d_min, d_max + stride, stride))
-    k_lo = torch.floor((disparity - d_min) / stride)
-    xs = torch.arange(w, dtype=torch.float32, device=left.device)
-    r = torch.zeros_like(left)
-    for dk in (-1, 0, 1):
-        k = k_lo + dk
-        s = d_min + k * stride
-        wgt = torch.clamp(1.0 - (disparity - s).abs() / stride, min=0.0)
-        src = xs - s
-        ok = (k >= 0) & (k < n_grid) & (src >= 0) & (src <= w - 1)
-        val = torch.gather(right, 1, torch.where(ok, src, 0.0).long())
-        r = r + torch.where(ok, wgt * val, torch.zeros_like(val))
-    x2 = xs - disparity
+    r = triangle_sum(right, disparity, d_min, n_grid, stride)
+    x2 = torch.arange(w, dtype=torch.float32, device=left.device) - disparity
     inb = (x2 >= 0) & (x2 <= w - 1) & (disparity >= d_min) & (disparity <= d_max)
     return torch.where(inb, (r - left).abs(), torch.ones_like(left))
 
