@@ -208,9 +208,7 @@ def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     once in 2**29), and the tests hold the port bit for bit against the
     reference. On the card it is a multiply and an add, each rounded
     (within an ulp of the fused term), with no float64 temporaries: nothing
-    there is compared bit for bit with the reference, and it is the form
-    the main path's photoconsistency has had on the card since the port's
-    first slice."""
+    there is compared bit for bit with the reference."""
     if a.device.type == "cpu":
         return (a.double() * b.double() + c.double()).float()
     return a * b + c

@@ -20,6 +20,7 @@ from pcmi_tpu.geometry.synthetic import aoi_lonlat_ranges, make_stereo_scene
 from pcmi_tpu.pipelines import height_map as jh
 from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.geometry.synthetic import aoi_lonlat_ranges as port_aoi
+from pcmi_tpu_torch.ops.stereo.matching import mul_add
 from pcmi_tpu_torch.pipelines import height_map as th
 
 torch.set_num_threads(1)
@@ -140,6 +141,16 @@ def test_photoconsistency(rng, stride):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
                                rtol=0)
 
+
+
+def test_mul_add_rounds_once_on_the_cpu():
+    """On CPU tensors ``mul_add`` (the terms of ``triangle_sum``, so of
+    ``photoconsistency``) rounds ``a * b + c`` once, as the reference's
+    scans are fused on the CPU: (1 + 2**-12)**2 - 1 keeps the 2**-24 that
+    a rounded product loses."""
+    a = torch.tensor([1 + 2.0**-12])
+    assert mul_add(a, a, torch.tensor([-1.0])).item() == 2.0**-11 + 2.0**-24
+    assert (a * a - 1).item() == 2.0**-11
 
 def test_pair_core_lr_profile(products):
     """The multi-date "lr" gate profile on the same rectified pair."""

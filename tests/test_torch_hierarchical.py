@@ -5,9 +5,10 @@ with ``hierarchical=True``.
 Inputs are made with numpy from a seed and fed to both packages. The
 reference's ``jax.image.resize`` and its shift scans run as fused
 multiply-adds on the CPU and its 2x2 mean as a row-major sum; the port
-computes them the same way (``fma32``, ``cell_sum``), so the primitives
-agree bit for bit here (measured); the tests hold the multiply-add forms
-to 1e-6, in case another CPU's compiler fuses otherwise.
+computes them the same way on the CPU (``mul_add``, ``cell_sum``), so the
+primitives agree bit for bit here (measured); the tests hold the
+multiply-add forms to 1e-6, in case another CPU's compiler fuses
+otherwise.
 """
 
 import numpy as np
