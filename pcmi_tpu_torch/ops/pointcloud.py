@@ -107,9 +107,15 @@ def _pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def gumbel_noise(n: int, generator: Optional[torch.Generator],
-            device) -> torch.Tensor:
+                 device) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform in
-    [tiny, 1) (``jax.random.gumbel``'s form)."""
+    [tiny, 1) (``jax.random.gumbel``'s form). Without a ``generator`` the
+    draw comes from a fresh one seeded with 0 on ``device``, the
+    counterpart of the reference's default ``jax.random.PRNGKey(0)``:
+    repeated calls draw the same noise, and torch's global generator is
+    never touched."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
     u = torch.rand(n, generator=generator, device=device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
@@ -121,10 +127,10 @@ def kmeans(points: torch.Tensor, weights: torch.Tensor, k: int,
     """Weighted Lloyd's K-means with a fixed iteration count.
 
     Init is farthest-point sampling: after a weighted-random first pick
-    (Gumbel arg-max of ``log w`` drawn from ``generator``; the reference
-    draws from ``jax.random.PRNGKey(0)`` by default), each next centroid
-    is the valid point farthest from the current set. ``weights``
-    zero-masks invalid points."""
+    (Gumbel arg-max of ``log w`` drawn from ``generator``, by default one
+    seeded with 0, as the reference's ``jax.random.PRNGKey(0)``), each
+    next centroid is the valid point farthest from the current set.
+    ``weights`` zero-masks invalid points."""
     pts = points.float()
     w = weights.float()
     logw = torch.where(w > 0, torch.log(torch.clamp(w, min=1e-12)),

@@ -316,7 +316,8 @@ def product_point_cloud(product: PairProduct, max_points: int = 1 << 18,
     weights. Invalid pixels stay with weight 0; when the canvas has more
     pixels than ``max_points``, a weighted Gumbel top-k keeps a uniform
     random subset of the valid ones, drawn from ``generator`` (on the
-    product's device)."""
+    product's device; by default a fresh one seeded with 0, as the
+    reference draws from ``jax.random.PRNGKey(0)``)."""
     n = product.valid.numel()
     if n <= max_points:
         return product.xyz.reshape(-1, 3), product.valid.reshape(-1).float()
