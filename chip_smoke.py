@@ -104,9 +104,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     8 views of 448x448, 16 "lr"-profile pairs, ``min_pairs=7``,
     ``mad_max=0.7``, 2 m cells, seeds 11-13: RMSE <= 1.0 m and
     completeness >= 0.4 on every seed (the reference's >= 0.5 is
-    printed).
+    printed);
+11. from disk: phase 7's scene anchored at (-58.58, -34.49), which
+    RPC00B's fixed decimals hold exactly (its images and terrain
+    compared with phase 7's), written as five NITF files (RPC00B, USE00A
+    and CSEXRA TREs, five dates) with a KML of its extent; the native
+    I/O library must load. Then, on the default device, the port's own
+    entry points: ``cli.main(["height-map", ...])`` with phase 7's strict
+    config as ``--set`` overrides (exit 0, 6/3/1 launches, height,
+    disparity, cloud and DSM written and finite where valid, the
+    north-up DSM against the terrain at median |error| < 1.0 m and RMSE
+    < 2.5 m as ``tests/test_ingest.py`` computes them, the pair's valid
+    fraction beside an in-memory run of the same pair),
+    ``cli.main(["fuse", ...])`` (6/3/1 per processed pair, the same DSM
+    gates, ``MultiDayFusion.stage_ms``), ``MultiAOISweep`` twice over the
+    ingested stack with a stage cache (the second run all cache hits, no
+    launch, the DSM identical) and ``HeightMapExtractor`` through
+    ``PluginRunner`` on the CLI's pair (no error, its disparity and point
+    cloud layers, 6/3/1); host ms of discovery, cropping and each
+    command, the crop windows, peak memory.
 
-The last lines are a summary of phases 7b-10 (under 1500 characters;
+The last lines are a summary of phases 7b-11 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
@@ -123,6 +141,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1589,6 +1608,279 @@ def phase_lowtex(seeds=(11, 12, 13)) -> dict:
     return out
 
 
+# Phase 11: the D = 288 scene anchored where RPC00B's four decimals of
+# LAT_OFF and LONG_OFF hold it exactly, as NITF files on disk
+FROM_DISK_ORIGIN = (-58.58, -34.49)
+FROM_DISK_SET = ("stereo.block_size=9", "stereo.census_window=5",
+                 "stereo.margin_undefined=8", "stereo.disp_stride=2",
+                 "rectify.height_range=[0.0,48.0]")
+
+
+def _write_kml(path: str, lon_r, lat_r) -> None:
+    ring = " ".join(f"{lon},{lat},0" for lon, lat in (
+        (lon_r[0], lat_r[0]), (lon_r[1], lat_r[0]), (lon_r[1], lat_r[1]),
+        (lon_r[0], lat_r[1]), (lon_r[0], lat_r[0])))
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write('<?xml version="1.0"?><kml xmlns="http://www.opengis.net/'
+                 'kml/2.2"><Placemark><Polygon><outerBoundaryIs><LinearRing>'
+                 f"<coordinates>{ring}</coordinates></LinearRing>"
+                 "</outerBoundaryIs></Polygon></Placemark></kml>")
+
+
+def _dsm_gates(name: str, dsm, x0: float, ytop: float, cell: float,
+               scene) -> dict:
+    """A north-up DSM (row 0 northernmost) against the scene's terrain,
+    cell centres sampled as ``tests/test_ingest.py`` does: median |error|
+    < 1.0 m and RMSE < 2.5 m, over more than 200 cells."""
+    ny, nx = dsm.shape
+    cx, cy = np.meshgrid(x0 + (np.arange(nx) + 0.5) * cell,
+                         ytop - (np.arange(ny) + 0.5) * cell)
+    ox, oy = scene.ground_origin
+    terr = scene.terrain.cpu().numpy()
+    gx = (cx - ox) / scene.ground_gsd
+    gy = (cy - oy) / scene.ground_gsd
+    inb = ((gx >= 0) & (gx < terr.shape[1] - 1) & (gy >= 0)
+           & (gy < terr.shape[0] - 1))
+    tt = terr[np.clip(gy.astype(int), 0, terr.shape[0] - 1),
+              np.clip(gx.astype(int), 0, terr.shape[1] - 1)]
+    m = np.isfinite(dsm) & inb
+    err = dsm[m] - tt[m]
+    out = dict(cells=int(m.sum()),
+               median_abs_m=float(np.median(np.abs(err))) if m.any()
+               else math.nan,
+               rmse_m=float(np.sqrt(np.mean(err ** 2))) if m.any()
+               else math.nan)
+    if not (out["cells"] > 200 and out["median_abs_m"] < 1.0
+            and out["rmse_m"] < 2.5):
+        raise SystemExit(f"{name}: DSM against the terrain {out}")
+    return out
+
+
+def _cli(argv: list) -> tuple[int, dict, float]:
+    """``pcmi_tpu_torch.cli.main(argv)``: its exit code, its JSON summary
+    line and its host ms up to ``torch.cuda.synchronize()``."""
+    import io
+    from contextlib import redirect_stdout
+
+    from pcmi_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if rc == 0 and lines else {}), ms
+
+
+@contextlib.contextmanager
+def _fusions():
+    """Every ``MultiDayFusion`` made inside the block (the CLI's ``fuse``
+    makes its own), for its ``stage_ms``."""
+    from pcmi_tpu_torch.pipelines import multiday
+
+    made, cls = [], multiday.MultiDayFusion
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    multiday.MultiDayFusion = Recorded
+    try:
+        yield made
+    finally:
+        multiday.MultiDayFusion = cls
+
+
+def phase_from_disk(dctx: D288) -> dict:
+    """Phase 11: phase 7's scene as NITF files on disk (RPC00B, USE00A,
+    CSEXRA, five dates) with a KML of its extent, through the port's own
+    entry points on the card: ``cli.main(["height-map", ...])`` and
+    ``["fuse", ...]``, ``MultiAOISweep`` twice over the ingested stack
+    with a stage cache, and ``HeightMapExtractor`` through
+    ``PluginRunner``."""
+    import tempfile
+
+    from pcmi_tpu_torch.geometry.synthetic import (
+        aoi_lonlat_ranges, make_stereo_scene)
+    from pcmi_tpu_torch.io import native
+    from pcmi_tpu_torch.io.crop import crop_window_from_extent
+    from pcmi_tpu_torch.io.nitf import (
+        csexra_tre, rpc00b_tre, use00a_tre, write_nitf)
+    from pcmi_tpu_torch.io.raster import read_geo, read_ply, read_tiff
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.pipelines.height_map import (
+        HeightMapExtractor, HeightMapPipeline)
+    from pcmi_tpu_torch.pipelines.ingest import (
+        discover_acquisitions, prepare_aoi_stack)
+    from pcmi_tpu_torch.pipelines.sweep import AOISpec, MultiAOISweep
+    from pcmi_tpu_torch.viewer import PluginRunner
+
+    if native.get_library() is None:
+        raise SystemExit(f"from_disk: the native I/O library did not load: "
+                         f"{native.native_error()}")
+    scene = make_stereo_scene(
+        seed=3, out_shape=(896, 896), ground_shape=(768, 768), gsd=0.2,
+        h_range=D288_H_RANGE, views=D288_VIEWS,
+        origin_lonlat=FROM_DISK_ORIGIN,
+        terrain_kwargs=dict(terrain_fraction=0.6, building_size_px=(50, 125),
+                            building_h_m=(8.0, 18.0)))
+    same = all(torch.equal(a, b)
+               for a, b in zip(scene.images, dctx.scene.images)) and \
+        torch.equal(scene.terrain, dctx.scene.terrain)
+    print(f"from_disk: images and terrain at {FROM_DISK_ORIGIN} equal to "
+          f"phase 7's: {same}")
+    out = dict(images_equal_phase7=same)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        d = os.path.join(tmp, "acq")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        for i, (inc, az) in enumerate(D288_VIEWS):
+            write_nitf(os.path.join(d, f"view_{i}.ntf"),
+                       scene.images[i].numpy(),
+                       tres=(rpc00b_tre(scene.rpcs[i]) + use00a_tre(inc)
+                             + csexra_tre(inc, az)),
+                       idatim=f"2019{3 + 2 * i:02d}1{i}103000")
+        kml = os.path.join(d, "aoi.kml")
+        _write_kml(kml, *aoi_lonlat_ranges(scene))
+        out["write_ms"] = (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        acqs = discover_acquisitions(d)
+        out["discover_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        images, rpcs, metas, lon_r, lat_r = prepare_aoi_stack(
+            acqs, kml_path=kml)
+        out["prepare_ms"] = (time.perf_counter() - t0) * 1e3
+        out["windows"] = [crop_window_from_extent(
+            a.meta.rpc, lon_r, lat_r, a.shape, pad=64, align=64).as_list()[:4]
+            for a in acqs]
+        if len(acqs) != 5 or len(images) != 5 or \
+                len({m.date for m in metas}) != 5:
+            raise SystemExit(f"from_disk: {len(acqs)} acquisitions, "
+                             f"{len(images)} cropped, dates "
+                             f"{[m.date for m in metas]}")
+        torch.cuda.reset_peak_memory_stats()
+
+        # height-map on the default device
+        hm_dir = os.path.join(tmp, "hm")
+        K.reset_launches()
+        rc, hm, out["height_map_ms"] = _cli(
+            ["height-map", "--images", d, "--kml", kml, "--output", hm_dir]
+            + [a for kv in FROM_DISK_SET for a in ("--set", kv)])
+        launches = dict(K.LAUNCHES)
+        print("from_disk height-map:", rc, json.dumps(hm))
+        if rc != 0:
+            raise SystemExit(f"from_disk: height-map exit code {rc}")
+        _launched("from_disk height-map", launches, PER_PAIR)
+        height = read_tiff(os.path.join(hm_dir, "height.tif"))
+        disp = read_tiff(os.path.join(hm_dir, "disparity.tif"))
+        pts, _ = read_ply(os.path.join(hm_dir, "cloud.ply"))
+        valid = np.isfinite(height)
+        if not (list(height.shape) == hm["canvas"] == list(disp.shape)
+                and np.isfinite(disp[valid]).all()
+                and valid.mean() == hm["valid_fraction"]
+                and len(pts) == hm["points"] and np.isfinite(pts).all()):
+            raise SystemExit("from_disk: height-map rasters or cloud")
+        dsm_path = os.path.join(hm_dir, "dsm.tif")
+        geo = read_geo(dsm_path)
+        i, j = (metas[[m.name for m in metas].index(n)].index
+                for n in hm["pair"])
+        out["height_map"] = dict(
+            pair=[i, j], canvas=hm["canvas"],
+            valid_fraction=hm["valid_fraction"], points=hm["points"],
+            dsm=_dsm_gates("from_disk height-map", read_tiff(dsm_path),
+                           *geo["origin"], geo["scale"][0], scene))
+        # the same pair in memory: the scene's own views and exact RPCs
+        pipe = HeightMapPipeline(dctx.cfg, device="cuda")
+        geom = pipe.build_geometry(scene.rpcs[i], scene.rpcs[j],
+                                   *aoi_lonlat_ranges(scene),
+                                   tuple(scene.images[i].shape),
+                                   tuple(scene.images[j].shape))
+        prod = pipe.process_pair(scene.images[i], scene.images[j], geom)
+        out["height_map"]["in_memory"] = dict(
+            canvas=list(geom.out_shape),
+            valid_fraction=float(prod.valid.cpu().numpy().mean()))
+
+        # fuse on the default device
+        fuse_dir = os.path.join(tmp, "fuse")
+        K.reset_launches()
+        with _fusions() as made:
+            rc, fu, out["fuse_ms"] = _cli(
+                ["fuse", "--images", d, "--kml", kml, "--output", fuse_dir]
+                + [a for kv in FROM_DISK_SET for a in ("--set", kv)])
+        launches = dict(K.LAUNCHES)
+        print("from_disk fuse:", rc, json.dumps(fu))
+        if rc != 0:
+            raise SystemExit(f"from_disk: fuse exit code {rc}")
+        n = len(fu["icp_rmse"])
+        _launched("from_disk fuse", launches,
+                  {k: n * c for k, c in PER_PAIR.items()})
+        dsm_path = os.path.join(fuse_dir, "dsm.tif")
+        geo = read_geo(dsm_path)
+        out["fuse"] = dict(
+            pairs=n, points=fu["points"], stage_ms=made[0].stage_ms,
+            icp_rmse_max_m=max(fu["icp_rmse"]),
+            dsm=_dsm_gates("from_disk fuse", read_tiff(dsm_path),
+                           *geo["origin"], geo["scale"][0], scene))
+
+        # the sweep twice with a stage cache: the second run all hits
+        sweep = MultiAOISweep(dctx.cfg, cache_dir=os.path.join(tmp, "cache"),
+                              device="cuda")
+        aoi = [AOISpec("disk", images, rpcs, metas, lon_r, lat_r)]
+        runs = []
+        for _ in range(2):
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sweep.run(aoi, grid_cell=2.0)
+            torch.cuda.synchronize()
+            runs.append(dict(dsm=res.fused["disk"].dsm.numpy(),
+                             launches=dict(K.LAUNCHES),
+                             ms=(time.perf_counter() - t0) * 1e3,
+                             hits=sweep.cache.hits,
+                             misses=sweep.cache.misses))
+        pairs = runs[0]["misses"]
+        _launched("from_disk sweep, first run", runs[0]["launches"],
+                  {k: pairs * c for k, c in PER_PAIR.items()})
+        _launched("from_disk sweep, second run", runs[1]["launches"], NONE)
+        same = np.array_equal(runs[0]["dsm"], runs[1]["dsm"], equal_nan=True)
+        if not (runs[0]["hits"] == 0 and runs[1]["hits"] == pairs
+                and runs[1]["misses"] == pairs and same):
+            raise SystemExit(f"from_disk sweep: {runs}, DSMs equal {same}")
+        out["sweep"] = dict(pairs=pairs, ms=[r["ms"] for r in runs],
+                            second_run_hits=runs[1]["hits"],
+                            dsm_identical=same)
+
+        # the plugin through the host's runner, on one pair
+        plugin = HeightMapExtractor(HeightMapPipeline(dctx.cfg,
+                                                      device="cuda"))
+        plugin.set_sources(images, rpcs, lon_r, lat_r)
+        runner = PluginRunner(plugin)
+        layers: list = []
+        K.reset_launches()
+        runner.run(pair=(i, j), on_done=layers.extend)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        names = [p["name"] for _, p, _ in layers]
+        print("from_disk plugin:", runner.last_error, names)
+        _launched("from_disk plugin", launches, PER_PAIR)
+        if runner.last_error is not None or not (
+                f"disparity [{i}-{j}]" in names
+                and f"point cloud [{i}-{j}]" in names):
+            raise SystemExit(f"from_disk plugin: {runner.last_error} "
+                             f"{names}")
+        out["plugin_layers"] = names
+    out["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    print("from_disk:", json.dumps(out))
+    return out
+
+
 def _sig(x, digits: int):
     """``x`` with every float rounded to ``digits`` significant digits (and
     written as an integer where that is exact)."""
@@ -1625,6 +1917,7 @@ def main() -> int:
     fused = phase_fused_d288(dctx, d288)
     md, stream = phase_multiday(dctx)
     lowtex = phase_lowtex()
+    disk = phase_from_disk(dctx)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = par[0][name]
@@ -1673,7 +1966,13 @@ def main() -> int:
         "adaptive": {
             k: {"rmse_m": v["height_rmse_m"], "valid": v["valid_fraction"],
                 "ms": v["ms_per_pair"][1], "peak_mb": v["peak_mem_mb"]}
-            for k, v in adaptive.items()}}
+            for k, v in adaptive.items()},
+        "from_disk": {
+            "pair": disk["height_map"]["pair"],
+            "valid": disk["height_map"]["valid_fraction"],
+            "dsm_rmse_m": [disk["height_map"]["dsm"]["rmse_m"],
+                           disk["fuse"]["dsm"]["rmse_m"]],
+            "ms": [disk["height_map_ms"], disk["fuse_ms"]]}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:

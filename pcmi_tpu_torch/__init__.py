@@ -16,9 +16,27 @@ Float32 products on the card run in full float32: TF32 is switched off for
 matrix products and for cuDNN convolutions, because triangulation and the
 plane fit lose metres of height in TF32 (the reference runs them at
 ``precision=HIGHEST``).
+
+The plugin contract (:mod:`pcmi_tpu_torch.interface`) is exported here,
+as ``pcmi_tpu`` exports its own; the host side (``io``, ``registry``,
+``cli``, ``viewer``) mirrors the reference's modules, and
+``python -m pcmi_tpu_torch`` is the command line.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+from pcmi_tpu_torch.interface import (  # noqa: E402
+    Layer, LayerParams, LayerType, SatellitePlugin)
+
+__all__ = [
+    "Layer",
+    "LayerParams",
+    "LayerType",
+    "SatellitePlugin",
+    "__version__",
+]

@@ -1,6 +1,7 @@
 """User-facing pipelines of the port."""
 
 from pcmi_tpu_torch.pipelines.height_map import (
+    HeightMapExtractor,
     HeightMapPipeline,
     PairProduct,
     pair_core,
@@ -13,8 +14,10 @@ from pcmi_tpu_torch.pipelines.multiday import (
     fused_consistency_dsm,
 )
 from pcmi_tpu_torch.pipelines.streaming import StreamingAOIPipeline
+from pcmi_tpu_torch.pipelines.sweep import AOISpec, MultiAOISweep
 
 __all__ = [
+    "HeightMapExtractor",
     "HeightMapPipeline",
     "PairProduct",
     "pair_core",
@@ -24,4 +27,6 @@ __all__ = [
     "MultiDayFusion",
     "fused_consistency_dsm",
     "StreamingAOIPipeline",
+    "AOISpec",
+    "MultiAOISweep",
 ]

@@ -14,21 +14,25 @@ and the three matchers ``pair_core`` dispatches on: full search, the
 banded tile-adaptive range (``adapt_band_rows > 0``,
 :mod:`pcmi_tpu_torch.ops.stereo.banded`) and coarse-to-fine
 (``hierarchical``, :mod:`pcmi_tpu_torch.ops.stereo.hierarchical`).
+:class:`HeightMapExtractor` is the plugin over the pipeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+import random
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pcmi_tpu_torch.config import PipelineConfig, StereoConfig
+from pcmi_tpu_torch.geometry.pairs import select_pairs, take_pairs
 from pcmi_tpu_torch.geometry.rectify import (
     RectifiedGeometry, build_geometry_from_rpcs, rectify_arrays,
     triangulate_from_operator, triangulation_operator)
+from pcmi_tpu_torch.interface import Layer, SatellitePlugin
 from pcmi_tpu_torch.ops.filters import gaussian_filter, separable_median_filter
 from pcmi_tpu_torch.ops.morphology import binary_dilation
 from pcmi_tpu_torch.ops.normalize import (
@@ -323,3 +327,99 @@ def product_point_cloud(product: PairProduct, max_points: int = 1 << 18,
         return product.xyz.reshape(-1, 3), product.valid.reshape(-1).float()
     noise = gumbel_noise(n, generator, product.xyz.device)
     return _gumbel_top_k(product, max_points, noise)
+
+
+class HeightMapExtractor(SatellitePlugin):
+    """Plugin adapter: emits the reference's layer set — disparity
+    (turbo), photoconsistency, invalid-mask overlay, and a [z, y, x]
+    points layer coloured by height. It runs on the device of the
+    :class:`HeightMapPipeline` it is given (by default one on
+    ``"cuda"``)."""
+
+    def __init__(self, pipeline: HeightMapPipeline | None = None):
+        self.pipeline = pipeline or HeightMapPipeline()
+        self._sources = None
+
+    @property
+    def name(self) -> str:
+        return "Multi-day 3D Point Cloud"
+
+    def set_sources(self, images, rpcs, lon_range, lat_range):
+        """Attach the acquisition stack (images as arrays or tensors)."""
+        self._sources = (list(images), list(rpcs), lon_range, lat_range)
+
+    def run(self, image=None, viewer=None, pair=None, metas=None,
+            mode: str = "first", n: int = 1, seed: int = 0) -> List[Layer]:
+        """Run one or more pairs and emit their layers.
+
+        ``mode="first"`` takes the best ``n`` selected pairs, ``"random"``
+        one random valid pair (``random.Random(seed)``), ``pair=(i, j)``
+        an explicit pair. Pairs come from the convergence-angle selector
+        when ``metas`` (a list of :class:`ImageMeta`) is given, otherwise
+        consecutive indices are used. One stereo config covers all the
+        chosen pairs.
+        """
+        if self._sources is None:
+            raise RuntimeError("call set_sources(...) before run()")
+        images, rpcs, lon_range, lat_range = self._sources
+
+        if pair is not None:
+            chosen = [tuple(pair)]
+        elif metas is not None:
+            ranked = select_pairs(metas, self.pipeline.cfg.pairs)
+            if mode == "random":
+                # sample from all valid pairs, not the best-n slice
+                valid = [p for p in ranked if p.valid]
+                cands = [random.Random(seed).choice(valid)] if valid else []
+            else:
+                cands = take_pairs(ranked, max(n, 1))
+            chosen = [(p.i, p.j) for p in cands]
+        else:
+            chosen = [(k, k + 1) for k in range(min(n, len(images) - 1))]
+        if not chosen:
+            raise ValueError("no stereo pairs to process")
+
+        geoms = [
+            self.pipeline.build_geometry(
+                rpcs[i], rpcs[j], lon_range, lat_range,
+                tuple(images[i].shape), tuple(images[j].shape))
+            for i, j in chosen
+        ]
+        stereo_cfg = self.pipeline.stereo_cfg_for(geoms)
+        layers: List[Layer] = []
+        for (i, j), geom in zip(chosen, geoms):
+            product = self.pipeline.process_pair(images[i], images[j], geom,
+                                                 stereo_cfg)
+            layers.extend(self._product_layers(product, tag=f"{i}-{j}"))
+        return layers
+
+    def _product_layers(self, product: PairProduct,
+                        tag: str = "") -> List[Layer]:
+        suffix = f" [{tag}]" if tag else ""
+
+        disparity = product.disparity.cpu().numpy()
+        valid = product.valid.cpu().numpy()
+        photo = product.photo.cpu().numpy()
+        rel = product.rel_height.cpu().numpy()
+
+        layers: List[Layer] = [
+            (np.where(valid, disparity, np.nan),
+             {"name": f"disparity{suffix}", "colormap": "turbo"}, "image"),
+            (photo, {"name": f"photoconsistency{suffix}", "colormap": "gray"},
+             "image"),
+            ((~valid).astype(np.uint8),
+             {"name": f"invalid mask{suffix}", "opacity": 0.4}, "image"),
+        ]
+        ys, xs = np.nonzero(valid)
+        if len(ys):
+            step = max(1, len(ys) // 200_000)
+            ys, xs = ys[::step], xs[::step]
+            pts = np.stack([rel[ys, xs], ys, xs], axis=1)
+            layers.append(
+                (pts, {
+                    "name": f"point cloud{suffix}",
+                    "features": {"height": rel[ys, xs]},
+                    "size": 1,
+                }, "points")
+            )
+        return layers

@@ -35,6 +35,15 @@ MODULES = [
     "pcmi_tpu_torch.geometry.rectify", "pcmi_tpu_torch.utils.profiling",
     "pcmi_tpu_torch.utils.visualize", "pcmi_tpu_torch.ops",
     "pcmi_tpu_torch.ops.stereo", "pcmi_tpu_torch.utils",
+    # the host side: plugin contract, registry, command line, viewer host,
+    # I/O, ingest and sweep
+    "pcmi_tpu_torch.interface", "pcmi_tpu_torch.registry",
+    "pcmi_tpu_torch.cli", "pcmi_tpu_torch.viewer", "pcmi_tpu_torch.io",
+    "pcmi_tpu_torch.io.kml", "pcmi_tpu_torch.io.raster",
+    "pcmi_tpu_torch.io.native", "pcmi_tpu_torch.io.jp2k",
+    "pcmi_tpu_torch.io.nitf", "pcmi_tpu_torch.io.crop",
+    "pcmi_tpu_torch.io.sentinel", "pcmi_tpu_torch.pipelines.ingest",
+    "pcmi_tpu_torch.pipelines.sweep",
 ]
 
 
@@ -43,8 +52,24 @@ def test_pipelines_exports():
     import pcmi_tpu_torch.pipelines as port
 
     for name in ("HeightMapPipeline", "MultiDayFusion",
-                 "StreamingAOIPipeline"):
+                 "StreamingAOIPipeline", "HeightMapExtractor", "AOISpec",
+                 "MultiAOISweep"):
         assert hasattr(ref, name) and hasattr(port, name), name
+
+
+def test_package_and_io_exports():
+    """The plugin contract from the package and the I/O names from
+    ``io``, as the reference exports them."""
+    import pcmi_tpu
+    import pcmi_tpu.io
+    import pcmi_tpu_torch
+    import pcmi_tpu_torch.io
+
+    assert pcmi_tpu_torch.__all__ == pcmi_tpu.__all__
+    assert pcmi_tpu_torch.io.__all__ == pcmi_tpu.io.__all__
+    for name in pcmi_tpu_torch.io.__all__:
+        assert getattr(pcmi_tpu_torch.io, name).__module__.startswith(
+            "pcmi_tpu_torch.io."), name
 
 
 _NO_REFERENCE = (
@@ -70,7 +95,25 @@ def test_import_leaves_jax_out():
                + "from pcmi_tpu_torch.ops.stereo import _build\n"
                "assert _build._LIB is None\n"
                "assert not _build.BUILD_DIR.exists() or not any(\n"
-               "    p.name.endswith('.tmp') for p in _build.BUILD_DIR.iterdir())\n")
+               "    p.name.endswith('.tmp') for p in _build.BUILD_DIR.iterdir())\n"
+               "from pcmi_tpu_torch.io import native\n"
+               "assert native._lib is None and native._lib_error is None\n")
+
+
+def test_python_m_leaves_jax_out():
+    """``python -m pcmi_tpu_torch --help`` and ``list`` run without JAX,
+    the reference package or either library."""
+    _run_fresh("import runpy, sys\n"
+               "for argv in (['--help'], ['list']):\n"
+               "    sys.argv = ['pcmi_tpu_torch', *argv]\n"
+               "    try:\n"
+               "        runpy.run_module('pcmi_tpu_torch', run_name='__main__')\n"
+               "    except SystemExit as exc:\n"
+               "        assert exc.code == 0, exc.code\n"
+               + _NO_REFERENCE
+               + "from pcmi_tpu_torch.ops.stereo import _build\n"
+               "from pcmi_tpu_torch.io import native\n"
+               "assert _build._LIB is None and native._lib is None\n")
 
 
 def _chip_smoke_imports() -> list[str]:
