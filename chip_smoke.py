@@ -1719,6 +1719,7 @@ def phase_from_disk(dctx: D288) -> dict:
     from pcmi_tpu_torch.pipelines.sweep import AOISpec, MultiAOISweep
     from pcmi_tpu_torch.viewer import PluginRunner
 
+    t_phase = time.perf_counter()
     if native.get_library() is None:
         raise SystemExit(f"from_disk: the native I/O library did not load: "
                          f"{native.native_error()}")
@@ -1877,6 +1878,7 @@ def phase_from_disk(dctx: D288) -> dict:
                              f"{names}")
         out["plugin_layers"] = names
     out["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    out["phase_s"] = time.perf_counter() - t_phase
     print("from_disk:", json.dumps(out))
     return out
 

@@ -1,9 +1,11 @@
-"""A directory of NITF acquisitions for the port's host-side tests: the
-reference's 256x256 seed-3 scene (``tests/test_ingest.py``'s), written by
-the reference's NITF writer, so both packages read the same files."""
+"""Shared inputs of the port's host-side tests: a directory of NITF
+acquisitions (the reference's 256x256 seed-3 scene of
+``tests/test_ingest.py``, written by the reference's NITF writer, so both
+packages read the same files), its config, and the RPC comparison."""
 
 import numpy as np
 
+from pcmi_tpu.config import PipelineConfig, RectifyConfig, StereoConfig
 from pcmi_tpu.geometry.synthetic import aoi_lonlat_ranges, make_stereo_scene
 from pcmi_tpu.io.nitf import csexra_tre, rpc00b_tre, use00a_tre, write_nitf
 from pcmi_tpu_torch import convert
@@ -12,10 +14,30 @@ VIEWS = ((10.0, 80.0), (20.0, 250.0))
 # RPC00B carries offsets at fixed ASCII precision: a representable anchor
 ORIGIN = (-58.58, -34.49)
 H_RANGE = (0.0, 30.0)
-# the reference CLI test's overrides (tests/test_ingest.py)
+# the reference CLI test's overrides (tests/test_ingest.py), and the
+# reference config they give
 OVERRIDES = ["stereo.block_size=7", "stereo.census_window=5",
              "stereo.margin_undefined=6", "stereo.edge_dilation=4",
              "rectify.height_range=[0.0,30.0]"]
+CFG = PipelineConfig(
+    stereo=StereoConfig(block_size=7, census_window=5, margin_undefined=6,
+                        edge_dilation=4),
+    rectify=RectifyConfig(height_range=H_RANGE))
+
+RPC_FIELDS = ("line_off", "samp_off", "lat_off", "long_off", "height_off",
+              "line_scale", "samp_scale", "lat_scale", "long_scale",
+              "height_scale", "line_num", "line_den", "samp_num", "samp_den")
+
+
+def assert_same_rpc(jcam, tcam):
+    """The port's float32 RPC fields bit-equal to the reference's, and the
+    float64 originals equal."""
+    for f in RPC_FIELDS:
+        np.testing.assert_array_equal(getattr(tcam, f).numpy(),
+                                      np.asarray(getattr(jcam, f)), err_msg=f)
+    assert set(tcam.f64) == set(jcam._f64)
+    for k, v in jcam._f64.items():
+        np.testing.assert_array_equal(tcam.f64[k], v, err_msg=k)
 
 
 def write_ntf_dir(d):

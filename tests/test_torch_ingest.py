@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ntf import H_RANGE, dsm_errors, write_ntf_dir
+from _torch_ntf import CFG as REF_CFG
+from _torch_ntf import assert_same_rpc, dsm_errors, write_ntf_dir
 from pcmi_tpu.io import crop as jcrop
 from pcmi_tpu.io import raster as jraster
 from pcmi_tpu.pipelines import ingest as jing
-from pcmi_tpu_torch.config import PipelineConfig, RectifyConfig, StereoConfig
+from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.io import crop as tcrop
 from pcmi_tpu_torch.io.nitf import _parse_rpc00b, rpc00b_tre
 from pcmi_tpu_torch.ops import pointcloud as tpc
@@ -29,13 +30,7 @@ from pcmi_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-RPC_FIELDS = ("line_off", "samp_off", "lat_off", "long_off", "height_off",
-              "line_scale", "samp_scale", "lat_scale", "long_scale",
-              "height_scale", "line_num", "line_den", "samp_num", "samp_den")
-CFG = PipelineConfig(
-    stereo=StereoConfig(block_size=7, census_window=5, margin_undefined=6,
-                        edge_dilation=4),
-    rectify=RectifyConfig(height_range=H_RANGE))
+CFG = convert.config_from_reference(REF_CFG)
 
 
 @pytest.fixture(scope="module")
@@ -45,15 +40,6 @@ def ntf_dir(tmp_path_factory):
     return d, scene, port_scene
 
 
-def _assert_same_rpc(jcam, tcam):
-    for f in RPC_FIELDS:
-        np.testing.assert_array_equal(getattr(tcam, f).numpy(),
-                                      np.asarray(getattr(jcam, f)), err_msg=f)
-    assert set(tcam.f64) == set(jcam._f64)
-    for k, v in jcam._f64.items():
-        np.testing.assert_array_equal(tcam.f64[k], v, err_msg=k)
-
-
 def _assert_same_acquisitions(jacqs, tacqs):
     assert [a.path for a in tacqs] == [a.path for a in jacqs]
     for j, t in zip(jacqs, tacqs):
@@ -61,7 +47,7 @@ def _assert_same_acquisitions(jacqs, tacqs):
         for f in ("incidence_deg", "azimuth_deg", "datetime_str", "path"):
             assert getattr(t.meta, f) == getattr(j.meta, f), f
         assert t.meta.date_days == j.meta.date_days
-        _assert_same_rpc(j.meta.rpc, t.meta.rpc)
+        assert_same_rpc(j.meta.rpc, t.meta.rpc)
 
 
 def test_discovery_matches_reference(ntf_dir):
@@ -106,7 +92,7 @@ def test_prepare_aoi_stack_matches_reference(ntf_dir, source, pad, align):
         assert isinstance(t, np.ndarray) and t.dtype == np.float32
         np.testing.assert_array_equal(t, np.asarray(j))
     for j, t in zip(jrpcs, trpcs):
-        _assert_same_rpc(j, t)
+        assert_same_rpc(j, t)
     assert [dataclasses.astuple(m) for m in tmetas] == \
         [dataclasses.astuple(m) for m in jmetas]
     for ja, ta in zip(jacqs, tacqs):
@@ -179,7 +165,7 @@ def test_tiff_acquisitions_with_sidecars(tmp_path, ntf_dir, sidecar):
     for j, t in zip(jimgs, timgs):
         np.testing.assert_array_equal(t, np.asarray(j))
     for j, t in zip(jrpcs, trpcs):
-        _assert_same_rpc(j, t)
+        assert_same_rpc(j, t)
 
 
 def test_sweep_resumes_from_the_stage_cache(ntf_dir, tmp_path):

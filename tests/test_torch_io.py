@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ntf import assert_same_rpc
 from pcmi_tpu.geometry.rpc import RPCCamera as JRPCCamera
 from pcmi_tpu.io import crop as jcrop
 from pcmi_tpu.io import jp2k as jjp2k
@@ -58,22 +59,6 @@ def _rpc_dict(seed: int) -> dict:
 def _cams(seed: int):
     d = _rpc_dict(seed)
     return JRPCCamera.from_dict(d), convert.rpc_from_reference(d)
-
-
-RPC_FIELDS = ("line_off", "samp_off", "lat_off", "long_off", "height_off",
-              "line_scale", "samp_scale", "lat_scale", "long_scale",
-              "height_scale", "line_num", "line_den", "samp_num", "samp_den")
-
-
-def _assert_same_rpc(jcam, tcam):
-    """The port's float32 fields bit-equal to the reference's, and the
-    float64 originals equal."""
-    for f in RPC_FIELDS:
-        np.testing.assert_array_equal(getattr(tcam, f).numpy(),
-                                      np.asarray(getattr(jcam, f)), err_msg=f)
-    assert set(tcam.f64) == set(jcam._f64)
-    for k, v in jcam._f64.items():
-        np.testing.assert_array_equal(tcam.f64[k], v, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -216,14 +201,14 @@ def test_rpc_sidecar_agrees(form):
     assert set(jt) == set(tt) and len(tt) == 14
     for k in jt:
         np.testing.assert_array_equal(np.asarray(tt[k]), np.asarray(jt[k]))
-    _assert_same_rpc(JRPCCamera.from_dict(jt),
+    assert_same_rpc(JRPCCamera.from_dict(jt),
                      tnitf.RPCCamera.from_dict(tt))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_tre_bytes_identical(seed):
     jcam, tcam = _cams(seed)
-    _assert_same_rpc(jcam, tcam)
+    assert_same_rpc(jcam, tcam)
     assert tnitf.rpc00b_tre(tcam) == jnitf.rpc00b_tre(jcam)
     assert tnitf.rpc00b_tre(tcam, err_bias=1.25) == \
         jnitf.rpc00b_tre(jcam, err_bias=1.25)
@@ -289,7 +274,7 @@ def test_nitf_cross_read(tmp_path, rng, writer, reader):
     np.testing.assert_array_equal(meta.get_view_vector(),
                                   other.get_view_vector())
     jm, tm = (meta, other) if reader == "ref" else (other, meta)
-    _assert_same_rpc(jm.rpc, tm.rpc)
+    assert_same_rpc(jm.rpc, tm.rpc)
 
 
 def test_nitf_header_scan_and_errors(tmp_path):
@@ -355,7 +340,7 @@ def test_crop_window_and_shift_rpc(extent, pad, align, height):
     assert (twin.x_off, twin.y_off, twin.width, twin.height) == \
         (jwin.x_off, jwin.y_off, jwin.width, jwin.height)
     assert twin.slices == jwin.slices and twin.as_list() == jwin.as_list()
-    _assert_same_rpc(jcrop.shift_rpc(jcam, jwin), tcrop.shift_rpc(tcam, twin))
+    assert_same_rpc(jcrop.shift_rpc(jcam, jwin), tcrop.shift_rpc(tcam, twin))
     # the shift moves projections by the window origin
     col, row = tcam.project_np([-58.58], [-34.49], [0.0])
     col2, row2 = tcrop.shift_rpc(tcam, twin).project_np([-58.58], [-34.49],
@@ -373,7 +358,7 @@ def test_shift_rpc_offsets_subtract_in_float32():
     win = jcrop.CropWindow(x_off=3, y_off=1, width=5, height=5)
     j2 = jcrop.shift_rpc(jcam, win)
     t2 = tcrop.shift_rpc(tcam, tcrop.CropWindow(3, 1, 5, 5))
-    _assert_same_rpc(j2, t2)
+    assert_same_rpc(j2, t2)
     assert t2.samp_off.dtype == torch.float32
     assert float(t2.samp_off) == float(np.float32(0.1) - np.float32(3))
 

@@ -15,9 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ntf import H_RANGE, write_ntf_dir
+from _torch_ntf import CFG, write_ntf_dir
 from pcmi_tpu import viewer as jviewer
-from pcmi_tpu.config import PipelineConfig, RectifyConfig, StereoConfig
 from pcmi_tpu.pipelines import height_map as jh
 from pcmi_tpu.pipelines import ingest as jing
 from pcmi_tpu_torch import convert, registry
@@ -32,11 +31,6 @@ from pcmi_tpu_torch.viewer import (
     load_image, widget_spec)
 
 torch.set_num_threads(1)
-
-CFG = PipelineConfig(
-    stereo=StereoConfig(block_size=7, census_window=5, margin_undefined=6,
-                        edge_dilation=4),
-    rectify=RectifyConfig(height_range=H_RANGE))
 
 
 class MockViewer:
@@ -187,7 +181,8 @@ def test_busy_guard_blocks_reentry():
     assert runner.busy
     with pytest.raises(RuntimeError):
         runner.run(image=np.zeros((4, 4), np.float32))
-    worker.join()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
     assert not runner.busy and len(done) == 1
     assert isinstance(done[0][0][0], np.ndarray)  # tensors leave as numpy
     runner.run(image=np.zeros((4, 4), np.float32), on_done=done.append)
