@@ -17,10 +17,12 @@ import torch
 from _torch_ntf import CFG as REF_CFG
 from _torch_ntf import assert_same_rpc, dsm_errors, write_ntf_dir
 from pcmi_tpu.io import crop as jcrop
+from pcmi_tpu.io import nitf as jnitf
 from pcmi_tpu.io import raster as jraster
 from pcmi_tpu.pipelines import ingest as jing
 from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.io import crop as tcrop
+from pcmi_tpu_torch.io import jp2k
 from pcmi_tpu_torch.io.nitf import _parse_rpc00b, rpc00b_tre
 from pcmi_tpu_torch.ops import pointcloud as tpc
 from pcmi_tpu_torch.pipelines import ingest as ting
@@ -164,6 +166,40 @@ def test_tiff_acquisitions_with_sidecars(tmp_path, ntf_dir, sidecar):
     timgs, trpcs, *_ = ting.prepare_aoi_stack(tacqs, kml_path=kml)
     for j, t in zip(jimgs, timgs):
         np.testing.assert_array_equal(t, np.asarray(j))
+    for j, t in zip(jrpcs, trpcs):
+        assert_same_rpc(j, t)
+
+
+@pytest.mark.skipif(not jp2k.available(),
+                    reason="no JPEG2000 codec in environment")
+def test_c8_acquisitions_through_ingest(tmp_path, ntf_dir):
+    """JPEG2000 (IC=C8) NITFs with TREs, as real deliveries arrive, through
+    both packages' discovery and cropping (``tests/test_jp2k.py``'s
+    case): the same quantised pixels, cameras and metadata."""
+    _, scene, _ = ntf_dir
+    for i, (inc, az) in enumerate(((10.0, 80.0), (20.0, 250.0))):
+        q = np.clip(np.asarray(scene.images[i], np.float32) * 2047.0, 0,
+                    2047).astype(np.uint16)
+        jnitf.write_nitf(str(tmp_path / f"c8_{i}.ntf"), q,
+                         tres=(jnitf.rpc00b_tre(scene.rpcs[i])
+                               + jnitf.use00a_tre(inc)
+                               + jnitf.csexra_tre(inc, az)),
+                         idatim=f"2019{4 + i:02d}02110000", compress="C8")
+    jacqs = jing.discover_acquisitions(str(tmp_path))
+    tacqs = ting.discover_acquisitions(str(tmp_path))
+    assert len(tacqs) == 2
+    _assert_same_acquisitions(jacqs, tacqs)
+    kw = dict(pad=4, align=16)
+    jimgs, jrpcs, *_ = jing.prepare_aoi_stack(
+        jacqs, lon_range=(-58.5803, -58.5797), lat_range=(-34.4903, -34.4897),
+        **kw)
+    timgs, trpcs, *_ = ting.prepare_aoi_stack(
+        tacqs, lon_range=(-58.5803, -58.5797), lat_range=(-34.4903, -34.4897),
+        **kw)
+    assert len(timgs) == 2 and timgs[0].shape[0] < 256
+    for j, t in zip(jimgs, timgs):
+        np.testing.assert_array_equal(t, np.asarray(j))
+        assert t.max() <= 2047 and t.max() > 100
     for j, t in zip(jrpcs, trpcs):
         assert_same_rpc(j, t)
 
