@@ -90,12 +90,16 @@ def test_import_leaves_jax_out():
     """Every port module imports neither JAX nor any module of the
     reference package, not even its JAX-free ``pcmi_tpu.config``, and
     importing them (the packages' exports included) neither builds nor
-    loads the kernel library."""
+    loads the kernel library, nor the native I/O library. The build
+    directory also holds the I/O library, which other test processes may
+    be building meanwhile: the temporary files looked for are the kernel
+    library's."""
     _run_fresh("".join(f"import {m}\n" for m in MODULES) + _NO_REFERENCE
                + "from pcmi_tpu_torch.ops.stereo import _build\n"
                "assert _build._LIB is None\n"
                "assert not _build.BUILD_DIR.exists() or not any(\n"
-               "    p.name.endswith('.tmp') for p in _build.BUILD_DIR.iterdir())\n"
+               "    p.name.startswith('libpcmi_kernels_')\n"
+               "    and p.name.endswith('.tmp') for p in _build.BUILD_DIR.iterdir())\n"
                "from pcmi_tpu_torch.io import native\n"
                "assert native._lib is None and native._lib_error is None\n")
 
