@@ -122,9 +122,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     launch, the DSM identical) and ``HeightMapExtractor`` through
     ``PluginRunner`` on the CLI's pair (no error, its disparity and point
     cloud layers, 6/3/1); host ms of discovery, cropping and each
-    command, the crop windows, peak memory.
+    command, the crop windows, peak memory;
+12. the component plugins through ``registry.create(name,
+    device="cuda")`` at the sizes users run them: saliency on a 2048x2048
+    pan (tile 512, pad 64: 16 tiles), detection on a 2048x2048 pan with
+    16 planted blobs (tile 640, overlap 0.2: 16 slices), restoration of a
+    1024x1024 RGB image hazed by the port's ``add_degradation`` (NLM
+    search 21, template 7), stitching of two 1024x1024 crops of one
+    1031x1536 texture offset by (7, 512), land-use on a 1024x1024 RGB
+    scene of two textures (1500 segments, k = 5), super-resolution of a
+    512x512 RGB image to 2048x2048 and inpainting of a 1024x1024 RGB
+    image with a 96x96 hole: median ms of 3 runs after a warm-up, peak
+    MB and the reference's own gates scaled to these sizes (the planted
+    objects boxed, the saliency inside them > 3x its mean, the dehazed
+    contrast > 1.2x the hazy one, the stitch's shift within 1 px with
+    >= 8 inliers and its mosaic the texture, the superpixels covering
+    the image and the smooth and noisy halves of the reference's scene in
+    two classes (> 0.8 and > 0.65 of each half), the bicubic layer
+    > 25 dB, the hole mask exact and the image kept outside it); then
+    each plugin on a small crop (192x192; a 64x64 input for
+    super-resolution) on the card and on the CPU with the same weights
+    and draws: continuous outputs within 1e-3, discrete ones (labels,
+    boxes as covered pixels, masks, seams) equal on >= 99 % of their
+    elements. No stereo kernel launches in this phase.
 
-The last lines are a summary of phases 7b-11 (under 1500 characters;
+The last lines are a summary of phases 7b-12 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
@@ -1883,6 +1905,329 @@ def phase_from_disk(dctx: D288) -> dict:
     return out
 
 
+# Phase 12: the component plugins at the sizes users run them, and each on
+# a small crop on the card and on the CPU with the same weights and draws
+COMPONENT_SEED = 12
+
+
+def _smooth_texture(rng, h: int, w: int, c: int | None = None,
+                    passes: int = 2) -> np.ndarray:
+    """Seeded uniform noise smoothed by ``passes`` of a 3-tap blur along
+    both axes (the reference tests' ``_texture``), float32 in [0, 1]."""
+    t = rng.uniform(0, 1, (h, w) if c is None else (h, w, c))
+    for _ in range(passes):
+        t = 0.5 * t + 0.25 * np.roll(t, 1, 0) + 0.25 * np.roll(t, 1, 1)
+    return t.astype(np.float32)
+
+
+def _blob_scene(rng, size: int, blobs, bright: float = 1.0) -> np.ndarray:
+    """Faint uniform noise with bright square blobs ``(y, x, side)``."""
+    img = rng.uniform(0, 0.05, (size, size)).astype(np.float32)
+    for y, x, s in blobs:
+        img[y:y + s, x:x + s] = bright
+    return img
+
+
+def _two_texture_rgb(rng, size: int) -> np.ndarray:
+    """The reference's land-use scene (``tests/test_components2.py``): a
+    smooth left half and a noisy right half, as RGB."""
+    img = np.zeros((size, size), np.float32)
+    img[:, :size // 2] = 0.3
+    img[:, size // 2:] = rng.uniform(0, 1, (size, size - size // 2))
+    return np.repeat(img[..., None], 3, -1)
+
+
+def _box_raster(shape, rects) -> np.ndarray:
+    """The pixels covered by shapes-layer rectangles (corners (y, x))."""
+    out = np.zeros(shape, bool)
+    for r in np.asarray(rects).reshape(-1, 4, 2):
+        y0, x0 = np.floor(r.min(0)).astype(int)
+        y1, x1 = np.ceil(r.max(0)).astype(int)
+        out[max(y0, 0):y1, max(x0, 0):x1] = True
+    return out
+
+
+def _shapes_of(layers):
+    return [d for d, _, k in layers if k == "shapes"]
+
+
+def _components_cases(rng, small: bool) -> dict:
+    """Per plugin: (create kwargs, run args, run kwargs, context)."""
+    cases = {}
+    # saliency: 2048x2048 pan, tile 512, pad 64: 16 tiles
+    size = 192 if small else 2048
+    side = 12 if small else 24
+    blobs = [(int(fy * size), int(fx * size), side) for fy, fx in (
+        (0.15, 0.13), (0.34, 0.73), (0.59, 0.29), (0.88, 0.88))]
+    pan = 0.2 + 0.03 * _smooth_texture(rng, size, size, passes=3)
+    for y, x, s in blobs:
+        pan[y:y + s, x:x + s] += 0.8
+    cases["saliency"] = (dict(tile=128 if small else 512,
+                              pad=32 if small else 64), (pan,), {},
+                         dict(blobs=blobs))
+    # detection: 2048x2048 pan with planted blobs, tile 640, overlap 0.2
+    cells = 2 if small else 4
+    blobs = [(int((i + 0.3 + 0.4 * fy) * size / cells),
+              int((j + 0.3 + 0.4 * fx) * size / cells),
+              (14 if small else 16) + 2 * ((i + j) % 3))
+             for i in range(cells) for j in range(cells)
+             for fy, fx in [rng.uniform(0, 1, 2)]]
+    cases["detection"] = (dict(), (_blob_scene(rng, size, blobs),), {},
+                          dict(blobs=blobs))
+    # restoration: 1024x1024 RGB hazed by the port's add_degradation
+    size = 192 if small else 1024
+    clean = 0.15 + 0.7 * _smooth_texture(rng, size, size, 3, passes=3)
+    cases["restoration"] = (dict(), (clean,), {}, dict(clean=clean))
+    # stitching: two 1024x1024 crops of one 1031x1536 texture at (7, 512)
+    h, w, off = (192, 192, (7, 96)) if small else (1024, 1024, (7, 512))
+    tex = _smooth_texture(rng, h + off[0], w + off[1])
+    cases["stitching"] = (dict(), (tex[:h, :w],),
+                          dict(image2=tex[off[0]:, off[1]:]),
+                          dict(texture=tex, offset=off))
+    # land-use: 1024x1024 RGB, the default 1500 segments, k = 5
+    cases["land-use"] = (dict(), (_two_texture_rgb(rng, size),), {}, {})
+    # super-resolution: 512x512 RGB -> 2048x2048
+    lr_size = 64 if small else 512
+    hr = _smooth_texture(rng, 4 * lr_size, 4 * lr_size, 3, passes=8)
+    lr = hr.reshape(lr_size, 4, lr_size, 4, 3).mean(axis=(1, 3))
+    cases["super-resolution"] = (dict(), (lr,), {}, dict(hr=hr))
+    # inpainting: 1024x1024 RGB with a 96x96 hole
+    hole = (24, 24) if small else (96, 96)
+    img = 0.2 + 0.7 * _smooth_texture(rng, size, size, 3, passes=3)
+    y0, x0 = size // 3, size // 2
+    img[y0:y0 + hole[0], x0:x0 + hole[1]] = 0.0
+    cases["inpainting"] = (dict(), (img,), {},
+                           dict(hole=(y0, x0) + hole))
+    return cases
+
+
+def _component_gates(name: str, layers, ctx: dict, args) -> dict:
+    """The reference's own assertions for each plugin (tests/
+    test_components.py, test_components2.py, test_models.py), scaled to
+    phase 12's sizes; raises on a failed gate."""
+    out: dict = {}
+    data = {p["name"]: d for d, p, _ in layers}
+    image = args[0]
+    if name == "saliency":
+        sal = data["saliency"]
+        rects = _shapes_of(layers)
+        centres = (np.asarray(rects[0]).mean(axis=1) if rects
+                   else np.zeros((0, 2)))
+        ratios, found = [], []
+        for y, x, s in ctx["blobs"]:
+            inside = sal[y:y + s, x:x + s].mean()
+            ratios.append(float(inside / sal.mean()))
+            cy, cx = y + s / 2, x + s / 2
+            found.append(bool(len(centres)) and bool(
+                (np.abs(centres - [cy, cx]).max(1) < 32).any()))
+        out.update(boxes=len(centres), inside_over_mean=min(ratios),
+                   blobs_boxed=f"{sum(found)}/{len(found)}")
+        ok = min(ratios) > 3.0 and all(found)
+    elif name == "detection":
+        rects = _shapes_of(layers)
+        boxes = np.asarray(rects[0]) if rects else np.zeros((0, 4, 2))
+        centres = boxes.mean(axis=1) if len(boxes) else np.zeros((0, 2))
+        dists = [float(np.abs(centres - [y + s / 2, x + s / 2]).sum(1).min())
+                 if len(centres) else math.inf for y, x, s in ctx["blobs"]]
+        out.update(boxes=len(boxes), worst_l1_px=max(dists))
+        ok = len(boxes) >= len(ctx["blobs"]) and max(dists) < 30
+    elif name == "restoration":
+        hazy = image
+        c_hazy = float(hazy.std())
+        c_out = float(data["dehazed"].std())
+        t = data["transmission"]
+        err_in = float(np.abs(hazy - ctx["clean"]).mean())
+        err_out = float(np.abs(data["restored"] - ctx["clean"]).mean())
+        out.update(contrast_gain=c_out / c_hazy, t_min=float(t.min()),
+                   t_max=float(t.max()), mae_hazy=err_in, mae_restored=err_out)
+        ok = (c_out > 1.2 * c_hazy and t.min() >= 0.1 and t.max() <= 1.0
+              and all(np.isfinite(d).all() for d in data.values()))
+    elif name == "stitching":
+        res = ctx["result"]
+        Hn = res.homography.cpu().numpy().astype(np.float64)
+        Hn = Hn / Hn[2, 2]
+        dy, dx = ctx["offset"]
+        tex = ctx["texture"]
+        mosaic = data["mosaic"]
+        y0, x0 = res.canvas_offset
+        # the canvas is the texture's, give or take the one pixel that a
+        # shift a hair under the true one rounds up to
+        ok_shape = ((y0, x0) == (0, 0) and all(
+            0 <= m - t <= 1 for m, t in zip(mosaic.shape, tex.shape)))
+        region = mosaic[:tex.shape[0], :tex.shape[1]]
+        err = (np.abs(region - tex)[np.isfinite(region)] if ok_shape
+               else np.array([np.inf]))
+        out.update(n_inliers=int(res.n_inliers), shift_xy=[Hn[0, 2], Hn[1, 2]],
+                   canvas=list(mosaic.shape), mosaic_median_err=float(
+                       np.median(err)))
+        ok = (int(res.n_inliers) >= 8 and abs(Hn[0, 2] + dx) <= 1.0
+              and abs(Hn[1, 2] + dy) <= 1.0 and ok_shape
+              and float(np.median(err)) < 0.05)
+    elif name == "land-use":
+        cls = data["classification"]
+        w = cls.shape[1]
+        left = cls[:, : int(w * 0.42)]
+        right = cls[:, int(w * 0.58):]
+        lm = int(np.bincount(left.reshape(-1)).argmax())
+        rm = int(np.bincount(right.reshape(-1)).argmax())
+        sp = ctx["result"].superpixels.cpu().numpy()
+        n_sp = len(np.unique(sp))
+        mean_size = sp.size / n_sp
+        out.update(superpixels=n_sp, mean_px=mean_size, modes=[lm, rm],
+                   dominance=[float((left == lm).mean()),
+                              float((right == rm).mean())])
+        ok = (sp.min() >= 0 and sp.max() < 1500 and n_sp > 750
+              and mean_size > 0.28 * sp.size / 1500 and cls.min() >= 0
+              and cls.max() < 5 and lm != rm
+              and out["dominance"][0] > 0.8 and out["dominance"][1] > 0.65
+              and np.isfinite(data["pca"]).all())
+    elif name == "super-resolution":
+        up, sr = data["bicubic 4x"], data["super-res 4x"]
+        mse = float(np.mean((up - ctx["hr"]) ** 2))
+        psnr = 10 * math.log10(1.0 / max(mse, 1e-12))
+        out.update(shape=list(sr.shape), bicubic_psnr_db=psnr)
+        ok = (up.shape == sr.shape == ctx["hr"].shape
+              and np.isfinite(sr).all() and 0 <= sr.min() and sr.max() <= 1
+              and psnr > 25.0)
+    else:  # inpainting
+        y0, x0, hh, ww = ctx["hole"]
+        mask = data["hole mask"].astype(bool)
+        want = np.zeros_like(mask)
+        want[max(y0 - 2, 0):y0 + hh + 2, max(x0 - 2, 0):x0 + ww + 2] = True
+        outside = float(np.abs(data["inpainted"][~mask] - image[~mask]).max())
+        inside = data["inpainted"][mask]
+        out.update(mask_px=int(mask.sum()), outside_max_err=outside,
+                   hole_mean=float(inside.mean()))
+        ok = (np.array_equal(mask, want) and outside <= 1e-6
+              and np.isfinite(inside).all())
+    if not ok:
+        raise SystemExit(f"components {name}: gates failed {out}")
+    return out
+
+
+def _run_component(name: str, device: str, case, ctx: dict):
+    """One run of a plugin made by ``registry.create`` on ``device``; the
+    inputs the plugin needs are made on the way (the restoration's haze,
+    the stitch result for its gates)."""
+    from pcmi_tpu_torch import registry
+    from pcmi_tpu_torch.interface import as_numpy_layers
+
+    kw, args, run_kw, _ = case
+    plugin = registry.create(name, device=device, **kw)
+    # keep what the plugin computes beneath its layers, for the gates
+    inner = {"stitching": (getattr(plugin, "stitcher", None), "stitch"),
+             "land-use": (getattr(plugin, "classifier", None),
+                          "run_obia_pipeline")}.get(name)
+    if inner is not None:
+        obj, meth = inner
+        call = getattr(obj, meth)
+
+        def recorded(*a, **k):
+            ctx["result"] = call(*a, **k)
+            return ctx["result"]
+
+        setattr(obj, meth, recorded)
+    return as_numpy_layers(plugin.run(*args, **run_kw))
+
+
+def _hazed(clean: np.ndarray, device: str) -> np.ndarray:
+    from pcmi_tpu_torch.pipelines.restoration import add_degradation
+
+    hazy, _ = add_degradation(torch.from_numpy(clean).to(device),
+                              torch.Generator().manual_seed(COMPONENT_SEED),
+                              haze_strength=0.6, noise_sigma=0.02)
+    return hazy.cpu().numpy()
+
+
+def _card_vs_cpu(name: str, case) -> dict:
+    """The plugin on the card and on the CPU with the same weights and
+    draws: continuous outputs within 1e-3, discrete ones (labels, boxes
+    as covered pixels, hole masks) equal on >= 99 % of their elements."""
+    ctx_g, ctx_c = {}, {}
+    g = _run_component(name, "cuda", case, ctx_g)
+    c = _run_component(name, "cpu", case, ctx_c)
+    cont, disc = [], []
+    if [(p["name"], k) for _, p, k in g] != [(p["name"], k) for _, p, k in c]:
+        raise SystemExit(f"components {name}: card and CPU layers differ")
+    shape = case[1][0].shape[:2]
+    same_sp = True
+    if name == "land-use":
+        sp_g = ctx_g["result"].superpixels.cpu().numpy()
+        sp_c = ctx_c["result"].superpixels.cpu().numpy()
+        disc.append(float((sp_g == sp_c).mean()))
+        same_sp = sp_g == sp_c
+    for (a, p, k), (b, _, _) in zip(g, c):
+        if k == "shapes":
+            disc.append(float((_box_raster(shape, a)
+                               == _box_raster(shape, b)).mean()))
+        elif k == "labels" or p["name"] in ("hole mask", "superpixels"):
+            disc.append(float((a == b).mean()))
+        elif a.shape != b.shape:
+            raise SystemExit(f"components {name}: {p['name']} shapes "
+                             f"{a.shape} / {b.shape}")
+        elif p["name"] == "pca":
+            # eigh fixes no eigenvector's sign: a channel may be 1 - x
+            for ch in range(3):
+                x, y = a[..., ch][same_sp], b[..., ch][same_sp]
+                cont.append(float(min(np.abs(x - y).max(),
+                                      np.abs(x - (1 - y)).max())))
+        else:
+            both = np.isfinite(a) & np.isfinite(b)
+            disc.append(float((np.isfinite(a) == np.isfinite(b)).mean()))
+            scale = max(float(np.abs(b[both]).max()), 1.0) if both.any() \
+                else 1.0
+            cont.append(float(np.abs(a[both] - b[both]).max()) / scale
+                        if both.any() else 0.0)
+    if name == "stitching":
+        disc.append(float((ctx_g["result"].seam.cpu().numpy()
+                           == ctx_c["result"].seam.cpu().numpy()).mean()))
+    out = dict(max_rel_err=max(cont) if cont else 0.0,
+               min_agree=min(disc) if disc else 1.0)
+    if not (out["max_rel_err"] <= 1e-3 and out["min_agree"] >= 0.99):
+        raise SystemExit(f"components {name}: card against CPU {out}")
+    return out
+
+
+def phase_components(smi: str) -> dict:
+    """Phase 12: the seven component plugins through
+    ``registry.create(name, device="cuda")`` at the sizes users run them
+    (median ms of 3 runs after a warm-up, peak MB, the reference's gates),
+    then each on a small crop on the card and on the CPU."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    t_phase = time.perf_counter()
+    full = _components_cases(np.random.default_rng(COMPONENT_SEED), False)
+    small = _components_cases(np.random.default_rng(COMPONENT_SEED + 1),
+                              True)
+    for cases, dev in ((full, "cuda"), (small, "cpu")):
+        kw, args, run_kw, ctx = cases["restoration"]
+        cases["restoration"] = (kw, (_hazed(args[0], dev),), run_kw, ctx)
+    out: dict = {"card": smi}
+    K.reset_launches()
+    for name, case in full.items():
+        ctx = dict(case[3])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layers = _run_component(name, "cuda", case, ctx)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        row = dict(ms=statistics.median(ts[1:]), warmup_ms=ts[0],
+                   peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+        row["gates"] = _component_gates(name, layers, ctx, case[1])
+        row["card_vs_cpu"] = _card_vs_cpu(name, small[name])
+        out[name] = row
+        print(f"components {name}: {json.dumps(_sig(row, 6))} ({smi})")
+    # no stereo kernel lies on these paths
+    _launched("components", dict(K.LAUNCHES), NONE)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"components: phase {out['phase_s']:.1f} s")
+    return out
+
+
 def _sig(x, digits: int):
     """``x`` with every float rounded to ``digits`` significant digits (and
     written as an integer where that is exact)."""
@@ -1920,6 +2265,7 @@ def main() -> int:
     md, stream = phase_multiday(dctx)
     lowtex = phase_lowtex()
     disk = phase_from_disk(dctx)
+    comp = phase_components(smi)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = par[0][name]
@@ -1974,7 +2320,9 @@ def main() -> int:
             "valid": disk["height_map"]["valid_fraction"],
             "dsm_rmse_m": [disk["height_map"]["dsm"]["rmse_m"],
                            disk["fuse"]["dsm"]["rmse_m"]],
-            "ms": [disk["height_map_ms"], disk["fuse_ms"]]}}
+            "ms": [disk["height_map_ms"], disk["fuse_ms"]]},
+        "components_ms": {k: v["ms"] for k, v in comp.items()
+                          if isinstance(v, dict)}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:

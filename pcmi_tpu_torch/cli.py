@@ -7,9 +7,11 @@
     python -m pcmi_tpu_torch fuse --demo --output out/
     python -m pcmi_tpu_torch stream --images DIR --kml AOI.kml
 
-``height-map``, ``fuse`` and ``stream`` run on ``--device`` (default
-``cuda``: the hand-written CUDA kernels; ``--device cpu`` runs their
-plain PyTorch versions). Config overrides use dotted keys:
+``run``, ``height-map``, ``fuse`` and ``stream`` run on ``--device``
+(default ``cuda``: the hand-written CUDA kernels; ``--device cpu`` runs
+their plain PyTorch versions), e.g.
+``python -m pcmi_tpu_torch run stitching --input a.tif --input2 b.tif
+--device cpu``. Config overrides use dotted keys:
 ``--set stereo.max_disp=128``; a value is read as JSON where it parses.
 The reference's ``bench`` command is not part of the port yet.
 """
@@ -132,7 +134,7 @@ def cmd_run(args) -> int:
     from pcmi_tpu_torch import registry
 
     try:
-        plugin = registry.create(args.plugin)
+        plugin = registry.create(args.plugin, device=args.device)
     except KeyError as exc:
         print(exc.args[0], file=sys.stderr)
         return 2
@@ -319,6 +321,8 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--input", required=True)
     rp.add_argument("--input2")
     rp.add_argument("--output", default="out")
+    rp.add_argument("--device", default="cuda",
+                    help="torch device the plugin runs on (default: cuda)")
 
     for name in ("height-map", "fuse", "stream"):
         p = sub.add_parser(name)

@@ -15,8 +15,9 @@ def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """Bilinear sample of ``img`` (H, W) at float coords ``(ys, xs)``.
 
     Out-of-bounds samples return ``fill``; the output has the coords'
-    shape."""
-    h, w = img.shape
+    shape. A stack of images (..., H, W) is sampled at the same coords,
+    image by image."""
+    h, w = img.shape[-2:]
     img = img.float()
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
@@ -27,7 +28,7 @@ def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
         # NaN coords sample index 0; `inside` masks them to `fill` below
         yc = yi.clamp(0, h - 1).nan_to_num(0.0).long()
         xc = xi.clamp(0, w - 1).nan_to_num(0.0).long()
-        return img[yc, xc]
+        return img[..., yc, xc]
 
     v00 = gather(y0, x0)
     v01 = gather(y0, x0 + 1)

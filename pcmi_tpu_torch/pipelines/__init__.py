@@ -15,6 +15,17 @@ from pcmi_tpu_torch.pipelines.multiday import (
 )
 from pcmi_tpu_torch.pipelines.streaming import StreamingAOIPipeline
 from pcmi_tpu_torch.pipelines.sweep import AOISpec, MultiAOISweep
+from pcmi_tpu_torch.pipelines.saliency import SaliencyDetector
+from pcmi_tpu_torch.pipelines.restoration import (
+    RestorationEngine, RestorationPlugin)
+from pcmi_tpu_torch.pipelines.stitching import (
+    ImageStitcher, ImageStitchingPlugin)
+from pcmi_tpu_torch.pipelines.landuse import (
+    OBIAClassifier, LandUseClassificationPlugin)
+from pcmi_tpu_torch.pipelines.detection import (
+    ObjectDetector, ObjectAnnotationPlugin)
+from pcmi_tpu_torch.pipelines.superres import (
+    InpaintingPlugin, SuperResolutionPlugin)
 
 __all__ = [
     "HeightMapExtractor",
@@ -29,4 +40,15 @@ __all__ = [
     "StreamingAOIPipeline",
     "AOISpec",
     "MultiAOISweep",
+    "SaliencyDetector",
+    "RestorationEngine",
+    "RestorationPlugin",
+    "ImageStitcher",
+    "ImageStitchingPlugin",
+    "OBIAClassifier",
+    "LandUseClassificationPlugin",
+    "ObjectDetector",
+    "ObjectAnnotationPlugin",
+    "InpaintingPlugin",
+    "SuperResolutionPlugin",
 ]

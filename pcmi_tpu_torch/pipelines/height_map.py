@@ -333,11 +333,12 @@ class HeightMapExtractor(SatellitePlugin):
     """Plugin adapter: emits the reference's layer set — disparity
     (turbo), photoconsistency, invalid-mask overlay, and a [z, y, x]
     points layer coloured by height. It runs on the device of the
-    :class:`HeightMapPipeline` it is given (by default one on
-    ``"cuda"``)."""
+    :class:`HeightMapPipeline` it is given, by default one on ``device``
+    (``"cuda"``)."""
 
-    def __init__(self, pipeline: HeightMapPipeline | None = None):
-        self.pipeline = pipeline or HeightMapPipeline()
+    def __init__(self, pipeline: HeightMapPipeline | None = None,
+                 device="cuda"):
+        self.pipeline = pipeline or HeightMapPipeline(device=device)
         self._sources = None
 
     @property

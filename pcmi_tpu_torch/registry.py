@@ -4,9 +4,11 @@
 Every built-in plugin is imported by name; one whose module or class is
 missing degrades to an entry of :func:`failures` (the import's last
 traceback line) instead of killing the host. The port keeps the
-reference's nine built-in names and groups. Only ``height-map`` has a
-module in the port so far; the other eight are listed by
-:func:`failures` until their modules are ported.
+reference's nine built-in names and groups. Eight have their modules in
+the port; ``generative-restoration`` is listed by :func:`failures` until
+``pipelines/generative.py`` is ported. :func:`create` passes keyword
+arguments to the plugin's class: every built-in plugin takes
+``device="cuda"`` by default.
 """
 
 from __future__ import annotations
@@ -35,13 +37,15 @@ def failures() -> Dict[str, str]:
     return dict(_FAILURES)
 
 
-def create(name: str) -> SatellitePlugin:
+def create(name: str, **kwargs) -> SatellitePlugin:
+    """A new plugin ``name``, its factory called with ``kwargs`` (for the
+    built-in plugins, e.g. ``device="cpu"``)."""
     _ensure_builtin()
     if name not in _FACTORIES:
         raise KeyError(
             f"unknown plugin {name!r}; available: {', '.join(sorted(_FACTORIES))}"
         )
-    return _FACTORIES[name]()
+    return _FACTORIES[name](**kwargs)
 
 
 def groups() -> Dict[str, List[str]]:

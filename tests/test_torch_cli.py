@@ -20,8 +20,9 @@ from pcmi_tpu_torch.io.raster import read_geo, read_ply, read_tiff, write_tiff
 
 torch.set_num_threads(1)
 
-UNPORTED = {"saliency", "restoration", "stitching", "land-use", "detection",
-            "super-resolution", "inpainting", "generative-restoration"}
+UNPORTED = {"generative-restoration"}
+PORTED = ["detection", "height-map", "inpainting", "land-use", "restoration",
+          "saliency", "stitching", "super-resolution"]
 
 
 @pytest.fixture(scope="module")
@@ -185,19 +186,22 @@ def test_source_errors_exit_2(tmp_path, capsys, argv, message):
 
 
 def test_list_and_registry(capsys):
-    """``height-map`` is the one plugin the port has; the reference's other
-    eight are listed as unavailable, each by its missing module (not by a
-    broken import of the port's own height map)."""
-    assert registry.available() == ["height-map"]
+    """Eight of the reference's nine plugins are available in the port;
+    ``generative-restoration`` is listed as unavailable by its missing
+    module (not by a broken import of a ported one)."""
+    assert registry.available() == PORTED
     fails = registry.failures()
     assert set(fails) == UNPORTED
     for name, err in fails.items():
         assert "ModuleNotFoundError" in err.splitlines()[-1], (name, err)
-        assert "pcmi_tpu_torch.pipelines." in err
-    assert registry.groups() == {"rafael": ["height-map"]}
+        assert "pcmi_tpu_torch.pipelines.generative" in err
+    assert registry.groups() == {
+        "jasraj": ["detection", "land-use", "restoration", "stitching"],
+        "rafael": ["height-map", "saliency"],
+        "stan": ["inpainting", "super-resolution"]}
     assert cli.main(["list"]) == 0
     out = capsys.readouterr()
-    assert out.out.split() == ["height-map"]
+    assert out.out.split() == PORTED
     assert "unavailable:" in out.err
     assert all(f"  {n}: " in out.err for n in UNPORTED)
 
@@ -209,8 +213,17 @@ def test_registry_create():
     assert isinstance(plugin, HeightMapExtractor)
     assert plugin.pipeline.device == torch.device("cuda")
     assert plugin.name == "Multi-day 3D Point Cloud"
+    from pcmi_tpu_torch.pipelines.saliency import SaliencyDetector
+
+    sal = registry.create("saliency")
+    assert isinstance(sal, SaliencyDetector)
+    assert sal.device == torch.device("cuda")
+    assert registry.create("saliency", device="cpu").device == \
+        torch.device("cpu")
+    assert registry.create("height-map", device="cpu").pipeline.device == \
+        torch.device("cpu")
     with pytest.raises(KeyError):
-        registry.create("saliency")
+        registry.create("nope")
 
 
 def test_run_unknown_plugin_exits_2(tmp_path, capsys):

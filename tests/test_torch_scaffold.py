@@ -44,6 +44,12 @@ MODULES = [
     "pcmi_tpu_torch.io.nitf", "pcmi_tpu_torch.io.crop",
     "pcmi_tpu_torch.io.sentinel", "pcmi_tpu_torch.pipelines.ingest",
     "pcmi_tpu_torch.pipelines.sweep",
+    # the component pipelines and the U-Net serving path
+    "pcmi_tpu_torch.pipelines.saliency", "pcmi_tpu_torch.pipelines.detection",
+    "pcmi_tpu_torch.pipelines.restoration",
+    "pcmi_tpu_torch.pipelines.stitching", "pcmi_tpu_torch.pipelines.landuse",
+    "pcmi_tpu_torch.models", "pcmi_tpu_torch.models.unet",
+    "pcmi_tpu_torch.models.metrics", "pcmi_tpu_torch.pipelines.superres",
 ]
 
 
@@ -53,8 +59,27 @@ def test_pipelines_exports():
 
     for name in ("HeightMapPipeline", "MultiDayFusion",
                  "StreamingAOIPipeline", "HeightMapExtractor", "AOISpec",
-                 "MultiAOISweep"):
+                 "MultiAOISweep", "SaliencyDetector", "RestorationEngine",
+                 "RestorationPlugin", "ImageStitcher", "ImageStitchingPlugin",
+                 "OBIAClassifier", "LandUseClassificationPlugin",
+                 "ObjectDetector", "ObjectAnnotationPlugin",
+                 "InpaintingPlugin", "SuperResolutionPlugin"):
         assert hasattr(ref, name) and hasattr(port, name), name
+    # every name the port exports is one the reference exports
+    assert set(port.__all__) <= set(ref.__all__) | {"fused_consistency_dsm"}
+
+
+def test_models_exports():
+    """The port's ``models`` exports the reference's names whose modules
+    are ported, and no other."""
+    import pcmi_tpu.models as ref
+    import pcmi_tpu_torch.models as port
+
+    assert port.__all__ == ["DIPUNet", "InpaintUNet", "PatchDiscriminator",
+                            "SRUNet", "bicubic_upsample"]
+    assert set(port.__all__) <= set(ref.__all__)
+    for name in port.__all__:
+        assert getattr(port, name).__module__ == "pcmi_tpu_torch.models.unet"
 
 
 def test_package_and_io_exports():

@@ -340,9 +340,14 @@ def test_main_builds_the_host(stub_host):
     assert tviewer.main() == 0
     (v,) = stub_host
     assert v.title == "pcmi_tpu_torch"
-    assert set(v.window.docks) == {"dataset",
-                                   "rafael: Multi-day 3D Point Cloud"}
-    assert v.window._qt_window.tabified == []  # one plugin per member
+    assert set(v.window.docks) == {
+        "dataset", "rafael: Multi-day 3D Point Cloud",
+        "rafael: Saliency Detection", "jasraj: Image Restoration",
+        "jasraj: Image Stitching", "jasraj: Land Use Classification",
+        "jasraj: Object Detection", "stan: Super Resolution",
+        "stan: Inpainting"}
+    # each member's plugins tab together: 3 + 1 + 1 tabify calls
+    assert len(v.window._qt_window.tabified) == 5
     widget = v.window.docks["rafael: Multi-day 3D Point Cloud"].widget
     assert widget._magicgui["call_button"] == "Run Multi-day 3D Point Cloud"
     assert list(inspect.signature(widget).parameters) == [
@@ -379,4 +384,6 @@ def test_main_degrades_headless(monkeypatch, capsys):
     monkeypatch.setitem(sys.modules, "napari", None)
     assert tviewer.main() == 1
     assert "python -m pcmi_tpu_torch --help" in capsys.readouterr().out
-    assert registry.available() == ["height-map"]
+    assert registry.available() == [
+        "detection", "height-map", "inpainting", "land-use", "restoration",
+        "saliency", "stitching", "super-resolution"]
