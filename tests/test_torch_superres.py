@@ -103,12 +103,12 @@ def test_inpainting_plugin(rng):
 
 
 def test_inpainting_plugin_given_mask(rng):
-    img = (rng.uniform(0, 1, (16, 16)) * 255).astype(np.float32)
-    mask = np.zeros((16, 16), bool)
+    img = (rng.uniform(0, 1, (26, 21)) * 255).astype(np.float32)
+    mask = np.zeros((26, 21), bool)
     mask[4:9, 3:7] = True
     ref_p = jsr.InpaintingPlugin()
     got_p = tsr.InpaintingPlugin(device="cpu")
-    _same_weights(ref_p, got_p, np.zeros((1, 16, 16, 4), np.float32))
+    _same_weights(ref_p, got_p, np.zeros((1, 32, 24, 4), np.float32))
     ref = ref_p.run(img, mask=mask)
     got = got_p.run(img, mask=mask)
     np.testing.assert_allclose(got[2][0], np.asarray(ref[2][0]),

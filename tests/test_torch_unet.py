@@ -127,7 +127,7 @@ def test_inpaint_unet_forward(rng):
 
 
 def test_inpaint_unet_default_widths(rng):
-    inp = rng.uniform(0, 1, (1, 16, 24, 4)).astype(np.float32)
+    inp = rng.uniform(0, 1, (1, 32, 24, 4)).astype(np.float32)
     inp[..., 3] = inp[..., 3] > 0.5
     got, ref = _forward(ju.InpaintUNet(), tu.InpaintUNet(), inp)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
@@ -234,7 +234,7 @@ def test_port_weights_are_seeded():
         assert torch.equal(va, vb), k
     w = a.enc[0].conv0.weight
     sigma = np.sqrt(1.0 / w[0].numel()) / .87962566103423978
-    assert float(w.abs().max()) <= 2 * sigma + 1e-6
+    assert float(w.detach().abs().max()) <= 2 * sigma + 1e-6
     assert float(a.enc[0].conv0.bias.abs().max()) == 0.0
     c = tu.SRUNet(**SMALL, generator=torch.Generator().manual_seed(1))
     assert not torch.equal(c.head.weight, a.head.weight)
