@@ -55,7 +55,7 @@ def plane_relative_height(xyz: torch.Tensor, plane: Plane) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# medians and quantiles as jax.numpy computes them
+# medians, quantiles and top-k as jax computes them
 # ---------------------------------------------------------------------------
 
 
@@ -84,6 +84,14 @@ def quantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     lo = torch.clamp(low, 0, n - 1).long()
     hi = torch.clamp(torch.ceil(pos), 0, n - 1).long()
     return s[lo] * (1.0 - high_w) + s[hi] * high_w
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: the ``k`` largest values and their
+    indices, the lower index first among equal values (a stable descending
+    sort; ``torch.topk`` promises no order on ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from pcmi_tpu_torch.interface import Layer, SatellitePlugin
+from pcmi_tpu_torch.ops.pointcloud import top_k
 
 
 class SliceGrid(NamedTuple):
@@ -58,13 +59,6 @@ def extract_slices(img: torch.Tensor, offsets, tile: int) -> torch.Tensor:
                       min(max(int(x), 0), w - tile)) for y, x in offs)])
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` along the last axis: the ``k`` largest, ties in index
-    order."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float = 0.5,
         max_out: int = 256, classes: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy NMS over an O(K²) IoU matrix: indices of kept boxes, highest
@@ -98,7 +92,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float = 0.5,
         higher = keep & (scores > scores[idx])
         keep[idx] = keep[idx] & ~(higher & over[idx]).any()
     kept_scores = torch.where(keep, scores, float("-inf"))
-    _, top = _top_k(kept_scores, min(max_out, k))
+    _, top = top_k(kept_scores, min(max_out, k))
     return torch.where(keep[top], top, -1)
 
 
@@ -148,7 +142,7 @@ def default_blob_detector(max_boxes: int = 16, thresh_scale: float = 3.0):
         x1 = reduce(xs, "amax", -1) + 1
         counts = cnt.float()
         counts[:, table] = 0.0
-        _, top = _top_k(counts, max_boxes)                      # (N, K)
+        _, top = top_k(counts, max_boxes)                      # (N, K)
 
         def at(t):
             return torch.gather(t, 1, top)

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from pcmi_tpu_torch.interface import Layer, SatellitePlugin
 from pcmi_tpu_torch.ops.filters import gaussian_filter
-from pcmi_tpu_torch.ops.pointcloud import gumbel_noise
+from pcmi_tpu_torch.ops.pointcloud import gumbel_noise, top_k
 from pcmi_tpu_torch.ops.warp import homography_warp
 
 
@@ -70,11 +70,6 @@ def phase_correlation(a: torch.Tensor, b: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _stable_top_k(x: torch.Tensor, k: int):
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
-
-
 def harris_corners(img: torch.Tensor, n_corners: int = 256, k: float = 0.04,
                    border: int = 16):
     """Top-K Harris corner (y, x) positions (int64) + responses."""
@@ -94,7 +89,7 @@ def harris_corners(img: torch.Tensor, n_corners: int = 256, k: float = 0.04,
     ok = (resp == nms) & (ys >= border) & (ys < h - border) \
         & (xs >= border) & (xs < w - border)
     flat = torch.where(ok, resp, float("-inf")).reshape(-1)
-    vals, idx = _stable_top_k(flat, n_corners)
+    vals, idx = top_k(flat, n_corners)
     return torch.stack([idx // w, idx % w], dim=1), vals
 
 
@@ -300,7 +295,7 @@ def _draw_subsets(weights: torch.Tensor, n_hyp: int,
     p = wp / wp.sum()
     g = gumbel_noise(n_hyp * n, generator, generator.device)
     g = g.to(weights.device).reshape(n_hyp, n) + torch.log(p)
-    return torch.sort(g, dim=1, descending=True, stable=True).indices[:, :4]
+    return top_k(g, 4)[1]
 
 
 def _ransac_from(pts1: torch.Tensor, pts2: torch.Tensor,
