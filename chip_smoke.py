@@ -133,7 +133,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     a 1024x1024 RGB scene of two textures (1500 segments, k = 5),
     super-resolution of a 512x512 RGB image to 2048x2048 and inpainting of a
     1024x1024 RGB image with a 96x96 hole: median ms of 3 runs after a
-    warm-up, peak MB and the reference's own gates scaled to these sizes
+    warm-up, peak MB above what earlier phases hold, and the reference's
+    own gates scaled to these sizes
     (saliency: a box on every object and the map's mean inside each > 3x its
     mean; detection: every object's centre inside a box whose centre is
     within 30 px of it, the reference's 12 px scaled by the slices' 640 /
@@ -2270,6 +2271,7 @@ def phase_components(smi: str) -> dict:
         ctx = dict(case[3])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors
         ts = []
         for _ in range(4):
             torch.cuda.synchronize()
@@ -2278,7 +2280,7 @@ def phase_components(smi: str) -> dict:
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
         row = dict(ms=statistics.median(ts[1:]), warmup_ms=ts[0],
-                   peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+                   peak_mb=(torch.cuda.max_memory_allocated() - held) / 2**20)
         row["gates"] = _component_gates(name, layers, ctx, case[1])
         row["profile"] = _profiled(
             lambda: _run_component(name, "cuda", case, dict(case[3])))
