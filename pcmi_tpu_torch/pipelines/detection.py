@@ -169,7 +169,7 @@ def _host(a) -> np.ndarray:
 
 
 class ObjectDetector:
-    """Sliced inference driver on ``device`` (default ``"cuda"``)."""
+    """Sliced inference on ``device`` (default ``"cuda"``)."""
 
     def __init__(
         self,
