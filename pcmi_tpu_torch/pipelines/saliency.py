@@ -123,8 +123,11 @@ def _max3x3(lab: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def label_components(mask: torch.Tensor, max_iters: int = 128,
-                     check_every: int = 8) -> torch.Tensor:
+# Steps between the reads of whether a propagation step changed anything.
+_CHECK_EVERY = 8
+
+
+def label_components(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
     """Connected-component labels by iterated 3x3 max propagation, of an
     (H, W) mask or of an (N, H, W) stack (each plane on its own).
 
@@ -132,7 +135,7 @@ def label_components(mask: torch.Tensor, max_iters: int = 128,
     the neighbourhood max (over int32 labels, background -1) is propagated
     until a fixpoint, or for ``max_iters`` steps. A fixpoint does not
     change under further steps, so whether a step changed anything is read
-    back only every ``check_every`` steps (and never past ``max_iters``
+    back only every ``_CHECK_EVERY`` steps (and never past ``max_iters``
     steps in all): the labels are those of testing after every step.
     """
     h, w = mask.shape[-2:]
@@ -143,7 +146,7 @@ def label_components(mask: torch.Tensor, max_iters: int = 128,
     lab = torch.where(mask, idx, neg)
     for i in range(max_iters):
         new = torch.where(mask, _max3x3(lab), neg)
-        if (i + 1) % check_every == 0 or i + 1 == max_iters:
+        if (i + 1) % _CHECK_EVERY == 0 or i + 1 == max_iters:
             if torch.equal(new, lab):
                 return new
         lab = new
