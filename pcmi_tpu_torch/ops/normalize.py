@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from pcmi_tpu_torch.ops.fused import mul_add
+
 
 def _counts(xf: torch.Tensor, mf: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     """``counts[j] = #{i : mf[i] and xf[i] <= ts[j]}`` as float32 (masked
@@ -37,6 +39,12 @@ def _masked_quantile(x: torch.Tensor, mask: torch.Tensor, q) -> torch.Tensor:
     return order[idx.long()]
 
 
+def _recip(n: int) -> torch.Tensor:
+    """``1 / n`` rounded to float32: the reference's compiler turns a
+    division by a constant into a product with its reciprocal."""
+    return torch.tensor(1.0, dtype=torch.float32) / n
+
+
 def _first_true(b: torch.Tensor) -> torch.Tensor:
     return torch.argmax(b.to(torch.uint8))
 
@@ -54,11 +62,15 @@ def masked_quantile_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,
     hi = torch.as_tensor(hi, dtype=torch.float32, device=dev)
     n = torch.clamp(mf.sum().float(), min=1.0)
     target = torch.tensor(q, dtype=torch.float32, device=dev) * n
-    j = torch.arange(bins, dtype=torch.float32, device=dev) / (bins - 1)
+    k = torch.arange(bins, dtype=torch.float32, device=dev)
+    step = _recip(bins - 1).to(dev)
     c_lo = torch.zeros((), dtype=torch.float32, device=dev)
     c_hi = n
     for _ in range(stages):
-        ts = lo + (hi - lo) * j
+        # lo + (hi - lo) * k / (bins - 1), in the reference's rounding on
+        # the CPU: a product with the constant's reciprocal, reassociated,
+        # and one multiply-add
+        ts = mul_add(k, step * (hi - lo), lo)
         counts = _counts(xf, mf, ts)
         reach = counts >= target
         idx = _first_true(reach)
@@ -72,7 +84,7 @@ def masked_quantile_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,
     frac = torch.where(c_hi > c_lo,
                        (target - c_lo) / torch.clamp(c_hi - c_lo, min=1e-6),
                        torch.zeros_like(target))
-    return lo + frac.clamp(0.0, 1.0) * (hi - lo)
+    return mul_add(frac.clamp(0.0, 1.0), hi - lo, lo)
 
 
 def masked_median_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,

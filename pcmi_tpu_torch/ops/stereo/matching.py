@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from pcmi_tpu_torch.config import StereoConfig
+from pcmi_tpu_torch.ops.fused import mul_add
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
 
@@ -194,24 +195,6 @@ def shift_rows(img: torch.Tensor, shifts: torch.Tensor, pad: int, fill,
     else:
         idx = cols + pad - shifts
     return torch.gather(padded, 1, idx)
-
-
-def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of float32 tensors, one term of a triangle-weighted
-    scan's ``acc + w * v``.
-
-    The reference's compiler fuses that term into one multiply-add on the
-    CPU, rounded once. On CPU tensors the port rounds it the same way: the
-    product of two float32 values is exact in float64, so only the sum is
-    rounded before the final rounding (which differs from one fused
-    rounding only where the float64 sum falls on a float32 midpoint, about
-    once in 2**29), and the tests hold the port bit for bit against the
-    reference. On the card it is a multiply and an add, each rounded
-    (within an ulp of the fused term), with no float64 temporaries: nothing
-    there is compared bit for bit with the reference."""
-    if a.device.type == "cpu":
-        return (a.double() * b.double() + c.double()).float()
-    return a * b + c
 
 
 def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,

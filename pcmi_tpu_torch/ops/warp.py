@@ -2,12 +2,18 @@
 
 One bilinear ``map_coordinates`` gather serves the rectification warps,
 the homography warp and the synthetic renderer. Arithmetic follows the
-reference step by step in float32.
+reference step by step in float32, with its compiler's multiply-adds on
+the CPU (:func:`~pcmi_tpu_torch.ops.fused.mul_add`): an affine map's
+``m0 * x + m1 * y`` and each bilinear blend ``p * (1 - t) + q * t`` round
+their first product into the sum once.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from pcmi_tpu_torch.ops.fused import mul_add
 
 
 def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -34,11 +40,16 @@ def map_coordinates(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     v01 = gather(y0, x0 + 1)
     v10 = gather(y0 + 1, x0)
     v11 = gather(y0 + 1, x0 + 1)
-    top = v00 * (1 - tx) + v01 * tx
-    bot = v10 * (1 - tx) + v11 * tx
-    out = top * (1 - ty) + bot * ty
+    top = mul_add(v00, 1 - tx, v01 * tx)
+    bot = mul_add(v10, 1 - tx, v11 * tx)
+    out = mul_add(top, 1 - ty, bot * ty)
     inside = (ys >= 0) & (ys <= h - 1) & (xs >= 0) & (xs <= w - 1)
     return torch.where(inside, out, torch.full_like(out, fill))
+
+
+def _affine(m: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor):
+    """``m[0] * xs + m[1] * ys + m[2]`` for a matrix row ``m``."""
+    return mul_add(m[0], xs, m[1] * ys) + m[2]
 
 
 def _grid(out_shape, device):
@@ -54,9 +65,8 @@ def affine_warp(img: torch.Tensor, matrix: torch.Tensor, out_shape,
     ``out[y, x] = img[M @ (x, y, 1)]`` (OpenCV ``WARP_INVERSE_MAP``)."""
     ys, xs = _grid(out_shape, img.device)
     m = matrix.float()
-    xi = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
-    yi = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
-    return map_coordinates(img, yi, xi, fill)
+    return map_coordinates(img, _affine(m[1], xs, ys), _affine(m[0], xs, ys),
+                           fill)
 
 
 def homography_warp(img: torch.Tensor, matrix: torch.Tensor, out_shape,
@@ -66,9 +76,7 @@ def homography_warp(img: torch.Tensor, matrix: torch.Tensor, out_shape,
     magnitude <= 1e-8 is taken as 1e-8."""
     ys, xs = _grid(out_shape, img.device)
     m = torch.as_tensor(matrix, dtype=torch.float32, device=img.device)
-    xi = m[0, 0] * xs + m[0, 1] * ys + m[0, 2]
-    yi = m[1, 0] * xs + m[1, 1] * ys + m[1, 2]
-    zi = m[2, 0] * xs + m[2, 1] * ys + m[2, 2]
+    xi, yi, zi = (_affine(m[i], xs, ys) for i in range(3))
     zi = torch.where(zi.abs() > 1e-8, zi, 1e-8)
     return map_coordinates(img, yi / zi, xi / zi, fill)
 
@@ -82,8 +90,23 @@ def warp_points_affine(matrix: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
 
 def invert_affine(matrix: torch.Tensor) -> torch.Tensor:
-    """Invert a 2x3 (promoted to 3x3) or 3x3 affine matrix, float32."""
-    m = torch.as_tensor(matrix, dtype=torch.float32)
+    """Invert a 2x3 (promoted to 3x3) or 3x3 affine matrix, float32, on
+    the host, as the reference's ``jnp.linalg.inv`` does on the CPU: LAPACK's
+    ``sgetrf`` (partial pivoting), then ``strsm`` on the permuted identity,
+    unit lower and upper triangles in turn. ``torch.linalg.inv`` rounds
+    differently (an ulp in a coordinate offset moves whole rows of a
+    rectified image). Returned on the matrix's device."""
+    from scipy.linalg import blas, lapack
+
+    t = torch.as_tensor(matrix, dtype=torch.float32)
+    m = t.detach().cpu().numpy()
     if m.shape == (2, 3):
-        m = torch.cat([m, m.new_tensor([[0.0, 0.0, 1.0]])], 0)
-    return torch.linalg.inv(m)
+        m = np.concatenate([m, np.array([[0.0, 0.0, 1.0]], np.float32)], 0)
+    lu, piv, _ = lapack.sgetrf(m)  # singular: inf / nan, as the reference
+    perm = np.arange(len(m))
+    for i, p in enumerate(piv):
+        perm[i], perm[p] = perm[p], perm[i]
+    x = np.eye(len(m), dtype=np.float32)[perm]
+    x = blas.strsm(1.0, lu, x, side=0, lower=1, diag=1)
+    x = blas.strsm(1.0, lu, x, side=0, lower=0, diag=0)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(t.device)

@@ -10,8 +10,11 @@ visualisations.
 SLIC is K-means over (colour, compact·y, compact·x) features: each Lloyd
 step's distances are chunked ``|q|² - 2 q·c + |c|²`` products (the
 reference's form, whose rounding decides the argmin). Per-superpixel sums
-are one ``index_add_`` each, accumulated in float64 and cast back, so the
-card's sums do not depend on the order of its atomic adds.
+are one ``index_add_`` each: in float32 in index order on the CPU, as the
+reference's scatter adds, and in float64 cast back on the card, so that
+its sums do not depend on the order of its atomic adds. The PCA's
+eigenvectors come from LAPACK's ``ssyevd`` on the CPU, as the reference's
+do, signs included.
 """
 
 from __future__ import annotations
@@ -62,9 +65,29 @@ class SlicResult(NamedTuple):
 
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """``segment_sum`` of the rows of ``x`` by ``ids`` into ``n`` segments,
-    accumulated in float64 and returned in float32."""
+    float32. On the CPU the rows add in float32 in index order, as the
+    reference's scatter does there (bit for bit); on the card the atomic
+    adds come in any order, so they accumulate in float64 and round once.
+    """
+    if x.device.type == "cpu":
+        out = torch.zeros((n,) + x.shape[1:], dtype=torch.float32)
+        return out.index_add_(0, ids.long(), x.float())
     out = torch.zeros((n,) + x.shape[1:], dtype=torch.float64, device=x.device)
     return out.index_add_(0, ids.long(), x.double()).float()
+
+
+def _eigh_vectors(cov: torch.Tensor) -> torch.Tensor:
+    """Eigenvectors (ascending eigenvalues) of the symmetrised ``cov``, as
+    ``jnp.linalg.eigh`` gives them. On the CPU that is LAPACK's ``ssyevd``
+    on the lower triangle, the routine the reference calls there: the same
+    vectors, signs included (``torch.linalg.eigh`` fixes no sign)."""
+    sym = (cov + cov.T) / 2.0
+    if sym.device.type != "cpu":
+        return torch.linalg.eigh(sym)[1]
+    from scipy.linalg import lapack
+
+    _, vecs, _ = lapack.ssyevd(sym.numpy(), compute_v=1, lower=1)
+    return torch.from_numpy(np.ascontiguousarray(vecs, np.float32))
 
 
 def slic(
@@ -196,7 +219,7 @@ def _obia_core(image: torch.Tensor, n_segments: int, k: int,
     # 3-component PCA visualisation of the z features
     zp = z * present[:, None]
     cov = (zp.T @ zp) / npres
-    _, vecs = torch.linalg.eigh(cov)
+    vecs = _eigh_vectors(cov)
     proj = z @ vecs[:, -3:]
     lo = proj.amin(0)
     pca_seg = (proj - lo) / torch.clamp(proj.amax(0) - lo, min=1e-6)

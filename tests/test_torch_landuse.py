@@ -4,13 +4,14 @@ landuse``) against ``pcmi_tpu.pipelines.landuse`` on the CPU.
 Inputs are numpy draws from a seed fed to both packages; K-means is fed
 the reference's first centre (its Gumbel draw from ``PRNGKey(seed)``)
 through ``_obia_core(..., first=...)``. Tolerances: LAB within 1e-4,
-features within 1e-4 (relative 1e-5), SLIC labels identical on >= 99.9 %
-of pixels (the distance products sum in another order, so a pixel nearly
-equidistant from two centres may go either way; the measured fraction is
-in each message), PCA colours within 1e-4 up to the sign of each
-eigenvector (``eigh`` fixes none: a flipped vector gives ``1 - x`` in its
-channel). The reference's cases (``tests/test_components2.py``) are
-mirrored at the port's surface.
+features within 1e-4 (relative 1e-5); SLIC labels, superpixels, classes
+and boundaries identical (the port's per-segment sums add in float32 in
+index order, as the reference's scatter does on the CPU); SLIC centres
+bit-equal on a grey image and within relative 1e-6 on an RGB one (the
+two packages' ``pow`` and ``cbrt`` differ in the last bit on 3 % of the
+LAB values); PCA colours within 1e-5, with the reference's eigenvector
+signs (LAPACK's ``ssyevd`` on both sides). The reference's cases
+(``tests/test_components2.py``) are mirrored at the port's surface.
 """
 
 import numpy as np
@@ -45,9 +46,9 @@ def _rgb(rng, h=64, w=72):
     return np.clip(img, 0, 1).astype(np.float32)
 
 
-def _agree(a, b, at_least=0.999):
+def _agree(a, b):
     frac = float((np.asarray(a) == np.asarray(b)).mean())
-    assert frac >= at_least, f"labels agree on {frac:.6f} of the pixels"
+    assert frac == 1.0, f"labels agree on {frac:.6f} of the pixels"
     return frac
 
 
@@ -74,8 +75,12 @@ def test_slic(rng, rgb):
     got = tl.slic(_t(img), **kw)
     assert got.n_segments == ref.n_segments
     _agree(got.labels.numpy(), np.asarray(ref.labels))
-    np.testing.assert_allclose(got.centers.numpy(), np.asarray(ref.centers),
-                               atol=1e-3, rtol=1e-4)
+    if rgb:
+        np.testing.assert_allclose(got.centers.numpy(),
+                                   np.asarray(ref.centers), atol=0, rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.centers.numpy(),
+                                      np.asarray(ref.centers))
     # the chunk size changes nothing
     np.testing.assert_array_equal(
         tl.slic(_t(img), n_segments=48, iters=6).labels.numpy(),
@@ -108,13 +113,8 @@ def _reference_first(n_segments, present, seed=0):
 
 
 def _pca_close(got, ref):
-    """Per channel: equal, or equal to ``1 - ref`` (a flipped
-    eigenvector), within 1e-4."""
-    for c in range(3):
-        g, r = got[..., c], ref[..., c]
-        err = min(np.abs(g - r).max(), np.abs(g - (1.0 - r)).max())
-        assert err <= 1e-4, (c, np.abs(g - r).max(),
-                             np.abs(g - (1.0 - r)).max())
+    """Every channel within 1e-5, no eigenvector flipped."""
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("rgb", [False, True])
@@ -129,8 +129,7 @@ def test_obia_core_with_reference_first(rng, rgb):
     _agree(got.superpixels.numpy(), sp)
     _agree(got.classes.numpy(), np.asarray(ref.classes))
     _agree(got.boundaries.numpy(), np.asarray(ref.boundaries))
-    same = got.superpixels.numpy() == sp
-    _pca_close(got.pca_rgb.numpy()[same], np.asarray(ref.pca_rgb)[same])
+    _pca_close(got.pca_rgb.numpy(), np.asarray(ref.pca_rgb))
 
 
 def test_obia_classes_separate_regions(rng):

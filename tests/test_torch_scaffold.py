@@ -50,6 +50,8 @@ MODULES = [
     "pcmi_tpu_torch.pipelines.stitching", "pcmi_tpu_torch.pipelines.landuse",
     "pcmi_tpu_torch.models", "pcmi_tpu_torch.models.unet",
     "pcmi_tpu_torch.models.metrics", "pcmi_tpu_torch.pipelines.superres",
+    # the reference's CPU multiply-adds
+    "pcmi_tpu_torch.ops.fused",
 ]
 
 
