@@ -5,13 +5,17 @@ Nothing here imports JAX or ``pcmi_tpu``: arrays are read through
 attributes, an RPC camera through its float64 tag dict. So a scene, a pair
 selection or a running DSM that the reference started can be carried
 over and finished by the port. A reference config becomes the port's own
-through :func:`config_from_reference`, and a reference U-Net's Flax
-parameters the port network's ``state_dict`` through
-:func:`unet_state_dict`.
+through :func:`config_from_reference`, a reference U-Net's or detector
+head's Flax parameters the port network's ``state_dict`` through
+:func:`unet_state_dict` and :func:`centernet_state_dict`, and a training
+run of the reference (networks, optax Adam moments, step) a port
+trainer's state through :func:`gan_state_from_reference` and
+:func:`detector_state_from_reference`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -23,6 +27,7 @@ from pcmi_tpu_torch.geometry.affine import LocalFrame
 from pcmi_tpu_torch.geometry.pairs import ImageMeta
 from pcmi_tpu_torch.geometry.rpc import RPCCamera
 from pcmi_tpu_torch.geometry.synthetic import SyntheticScene
+from pcmi_tpu_torch.models.detector import CenterNetHead
 from pcmi_tpu_torch.models.unet import PatchDiscriminator
 from pcmi_tpu_torch.pipelines.streaming import StreamingDSM
 
@@ -97,6 +102,50 @@ def config_from_reference(cfg):
         for f in dataclasses.fields(cfg)})
 
 
+def _flax_state_dict(params, model: torch.nn.Module, layout) -> dict:
+    """A ``state_dict`` of ``model`` from a Flax parameter tree (with or
+    without its ``"params"`` level; numpy leaves): ``layout`` lists
+    ``(port prefix, Flax name, kind)``, kind "conv" (a kernel and a bias,
+    HWIO to OIHW) or "block" (a ``ConvBlock``: ``Conv_0``, ``Conv_1``).
+    Raises ``KeyError`` on a parameter left over or missing on either
+    side, ``ValueError`` on a shape that differs from the network's."""
+    tree = dict(params.get("params", params))
+    out = {}
+
+    def conv(prefix, leaf):
+        if set(leaf) != {"kernel", "bias"}:
+            raise KeyError(f"{prefix}: Flax conv keys {sorted(leaf)}")
+        k = np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1)
+        out[prefix + ".weight"] = torch.from_numpy(k.copy())
+        out[prefix + ".bias"] = torch.from_numpy(
+            np.array(leaf["bias"], np.float32))
+
+    for prefix, name, kind in layout:
+        if name not in tree:
+            raise KeyError(f"no Flax parameters {name!r}")
+        leaf = tree[name]
+        if kind == "conv":
+            conv(prefix, leaf)
+        elif set(leaf) != {"Conv_0", "Conv_1"}:
+            raise KeyError(f"{prefix}: Flax ConvBlock keys {sorted(leaf)}")
+        else:
+            conv(prefix + ".conv0", leaf["Conv_0"])
+            conv(prefix + ".conv1", leaf["Conv_1"])
+    left = set(tree) - {name for _, name, _ in layout}
+    if left:
+        raise KeyError(f"Flax parameters left over: {sorted(left)}")
+    want = model.state_dict()
+    if set(want) != set(out):
+        raise KeyError(f"state_dict keys differ: missing "
+                       f"{sorted(set(want) - set(out))}, unexpected "
+                       f"{sorted(set(out) - set(want))}")
+    for k, v in out.items():
+        if v.shape != want[k].shape:
+            raise ValueError(f"{k}: shape {tuple(v.shape)} from Flax, "
+                             f"{tuple(want[k].shape)} in the network")
+    return out
+
+
 def unet_state_dict(params, model: torch.nn.Module) -> dict:
     """The ``state_dict`` of a port network (:class:`InpaintUNet`,
     :class:`SRUNet`, :class:`DIPUNet` or :class:`PatchDiscriminator`) from
@@ -110,54 +159,91 @@ def unet_state_dict(params, model: torch.nn.Module) -> dict:
     ``ConvBlock_{L+j}``, and the 1x1 head last, ``Conv_{L-1}``; the
     PatchGAN has ``Conv_0 ..`` with its head last. Raises ``KeyError`` on
     a parameter left over or missing on either side, ``ValueError`` on a
-    shape that differs from the network's."""
-    tree = dict(params.get("params", params))
-    used = set()
-    out = {}
-
-    def take(name):
-        if name not in tree:
-            raise KeyError(f"no Flax parameters {name!r}")
-        used.add(name)
-        return tree[name]
-
-    def conv(prefix, leaf):
-        if set(leaf) != {"kernel", "bias"}:
-            raise KeyError(f"{prefix}: Flax conv keys {sorted(leaf)}")
-        k = np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1)
-        out[prefix + ".weight"] = torch.from_numpy(k.copy())
-        out[prefix + ".bias"] = torch.from_numpy(
-            np.array(leaf["bias"], np.float32))
-
-    def block(prefix, leaf):
-        if set(leaf) != {"Conv_0", "Conv_1"}:
-            raise KeyError(f"{prefix}: Flax ConvBlock keys {sorted(leaf)}")
-        conv(prefix + ".conv0", leaf["Conv_0"])
-        conv(prefix + ".conv1", leaf["Conv_1"])
-
+    shape that differs from the network's. A tree of Adam moments of the
+    same network (``mu``, ``nu``) maps the same way."""
     if isinstance(model, PatchDiscriminator):
         n = len(model.convs)
-        for i in range(n):
-            conv(f"convs.{i}", take(f"Conv_{i}"))
-        conv("head", take(f"Conv_{n}"))
+        layout = [(f"convs.{i}", f"Conv_{i}", "conv") for i in range(n)]
+        layout.append(("head", f"Conv_{n}", "conv"))
     else:
         L = len(model.widths)
-        for i in range(L - 1):
-            block(f"enc.{i}", take(f"ConvBlock_{i}"))
-        block("mid", take(f"ConvBlock_{L - 1}"))
+        layout = [(f"enc.{i}", f"ConvBlock_{i}", "block")
+                  for i in range(L - 1)]
+        layout.append(("mid", f"ConvBlock_{L - 1}", "block"))
         for j in range(L - 1):
-            conv(f"ups.{j}", take(f"Conv_{j}"))
-            block(f"dec.{j}", take(f"ConvBlock_{L + j}"))
-        conv("head", take(f"Conv_{L - 1}"))
-    if set(tree) - used:
-        raise KeyError(f"Flax parameters left over: {sorted(set(tree) - used)}")
-    want = model.state_dict()
-    if set(want) != set(out):
-        raise KeyError(f"state_dict keys differ: missing "
-                       f"{sorted(set(want) - set(out))}, unexpected "
-                       f"{sorted(set(out) - set(want))}")
-    for k, v in out.items():
-        if v.shape != want[k].shape:
-            raise ValueError(f"{k}: shape {tuple(v.shape)} from Flax, "
-                             f"{tuple(want[k].shape)} in the network")
+            layout += [(f"ups.{j}", f"Conv_{j}", "conv"),
+                       (f"dec.{j}", f"ConvBlock_{L + j}", "block")]
+        layout.append(("head", f"Conv_{L - 1}", "conv"))
+    return _flax_state_dict(params, model, layout)
+
+
+def centernet_state_dict(params, model: CenterNetHead) -> dict:
+    """The ``state_dict`` of the port's :class:`CenterNetHead` from the
+    reference's Flax parameters (or Adam moments) of the same head:
+    ``ConvBlock_0 .. ConvBlock_3`` (the trunk), then the 1x1 heads
+    ``Conv_0`` heat, ``Conv_1`` size, ``Conv_2`` offset and, with an
+    angle head, ``Conv_3`` angle. Raises as :func:`unet_state_dict`."""
+    layout = [(f"blocks.{i}", f"ConvBlock_{i}", "block") for i in range(4)]
+    heads = ["heat", "size", "offset"] + (["angle"] if model.with_angle
+                                          else [])
+    layout += [(h, f"Conv_{i}", "conv") for i, h in enumerate(heads)]
+    return _flax_state_dict(params, model, layout)
+
+
+def _adam_state(opt_state):
+    """``(count, mu, nu)`` of an optax Adam state: the element of the
+    chain's state that holds the moments."""
+    todo = [opt_state]
+    while todo:
+        s = todo.pop(0)
+        if all(hasattr(s, f) for f in ("count", "mu", "nu")):
+            return int(np.asarray(s.count)), s.mu, s.nu
+        if isinstance(s, (tuple, list)):
+            todo.extend(s)
+    raise TypeError("no Adam moments (count, mu, nu) in the optimiser state")
+
+
+def _load_adam(opt: torch.optim.Optimizer, model: torch.nn.Module,
+               to_state_dict, opt_state) -> None:
+    """Set ``opt`` (a ``torch.optim.Adam`` over ``model.parameters()``)
+    to the reference's optax Adam state: the moments ``mu`` and ``nu`` as
+    ``exp_avg`` and ``exp_avg_sq``, its count as every parameter's
+    ``step``."""
+    count, mu, nu = _adam_state(opt_state)
+    m, v = to_state_dict(mu, model), to_state_dict(nu, model)
+    sd = opt.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": m[name], "exp_avg_sq": v[name]}
+                   for i, (name, _) in enumerate(model.named_parameters())}
+    opt.load_state_dict(sd)
+
+
+def gan_state_from_reference(state, trainer):
+    """The port's :class:`~pcmi_tpu_torch.models.training.GANState` on
+    ``trainer.device`` from a reference ``GANState`` of the same networks
+    (its Flax parameters, its two optax Adam states and its step), so that
+    a run the reference trained resumes in the port's ``trainer`` (an
+    ``InpaintGANTrainer`` or ``SRGANTrainer``)."""
+    nets = []
+    for net, params in ((trainer.gen, state.g_params),
+                        (trainer.disc, state.d_params)):
+        net = copy.deepcopy(net)
+        net.load_state_dict(unet_state_dict(params, net))
+        nets.append(net.to(trainer.device))
+    out = trainer.optimizers(*nets, step=int(np.asarray(state.step)))
+    _load_adam(out.g_opt, out.g, unet_state_dict, state.g_opt)
+    _load_adam(out.d_opt, out.d, unet_state_dict, state.d_opt)
     return out
+
+
+def detector_state_from_reference(params, opt_state, trainer):
+    """``(net, opt)`` for the port's detector ``trainer``
+    (``DetectorTrainer`` or ``OBBDetectorTrainer``) from the reference's
+    ``(params, opt)`` of the same head: the network on ``trainer.device``
+    and its ``torch.optim.Adam`` holding the reference's moments."""
+    net = copy.deepcopy(trainer.model)
+    net.load_state_dict(centernet_state_dict(params, net))
+    net = net.to(trainer.device)
+    opt = trainer.optimizer(net)
+    _load_adam(opt, net, centernet_state_dict, opt_state)
+    return net, opt

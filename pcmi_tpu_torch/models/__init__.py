@@ -1,6 +1,5 @@
-"""The port's model zoo: the reference's exported names whose modules
-are ported (the U-Nets' forward passes). The trainers, DIP and diffusion
-are not ported yet."""
+"""The port's model zoo and training loops: the reference's exported
+names but ``data_parallel_step``, which waits for the parallel slice."""
 
 from pcmi_tpu_torch.models.unet import (
     DIPUNet,
@@ -9,6 +8,15 @@ from pcmi_tpu_torch.models.unet import (
     SRUNet,
     bicubic_upsample,
 )
+from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
+from pcmi_tpu_torch.models.training import (
+    InpaintGANTrainer,
+    InpaintTrainConfig,
+    SRGANTrainer,
+    SRTrainConfig,
+    restore_checkpoint,
+    save_checkpoint,
+)
 
 __all__ = [
     "DIPUNet",
@@ -16,4 +24,12 @@ __all__ = [
     "PatchDiscriminator",
     "SRUNet",
     "bicubic_upsample",
+    "DIPConfig",
+    "DIPEngine",
+    "InpaintGANTrainer",
+    "InpaintTrainConfig",
+    "SRGANTrainer",
+    "SRTrainConfig",
+    "restore_checkpoint",
+    "save_checkpoint",
 ]

@@ -200,17 +200,24 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, 0.0, out)
 
 
-def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_in, n_out) weights of ``jax.image.resize(method="cubic")`` along
-    one axis: half-pixel centres, Keys' kernel, weights outside the input
-    dropped and the rest renormalised."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear-interpolation kernel, ``max(0, 1 - |x|)``."""
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, device,
+                    kernel=_keys_cubic) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize`` along one axis:
+    half-pixel centres, ``kernel`` widened by the scale when downsampling
+    (antialiasing), weights outside the input dropped and the rest
+    renormalised."""
     inv = np.float32(1.0 / (n_out / n_in))
     kscale = max(float(inv), 1.0)  # antialiasing widens only a downsample
     sample = (torch.arange(n_out, dtype=torch.float32, device=device)
               + 0.5) * inv - 0.5
     x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32,
                                         device=device)[:, None]).abs() / kscale
-    wts = _keys_cubic(x)
+    wts = kernel(x)
     total = wts.sum(dim=0, keepdim=True)
     wts = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                       wts / torch.where(total != 0, total, 1.0), 0.0)
@@ -218,12 +225,26 @@ def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], wts, 0.0)
 
 
+def image_resize(x: torch.Tensor, shape, method: str = "linear") -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)`` with its default antialiasing,
+    for ``method`` "linear" or "cubic": every axis whose size changes is
+    contracted with its weight matrix, in axis order, in float32."""
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    out = x.float()
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            w = _resize_weights(n_in, n_out, x.device, kernel)
+            out = torch.movedim(torch.tensordot(out, w, dims=([d], [0])),
+                                -1, d)
+    return out
+
+
 def bicubic_upsample(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
     """NHWC bicubic resize by ``factor`` (``jax.image.resize``'s "cubic":
     one separable weight matrix per axis)."""
     b, h, w, c = x.shape
-    wy = _cubic_weights(h, h * factor, x.device)
-    wx = _cubic_weights(w, w * factor, x.device)
+    wy = _resize_weights(h, h * factor, x.device)
+    wx = _resize_weights(w, w * factor, x.device)
     out = torch.einsum("bhwc,hH->bHwc", x.float(), wy)
     return torch.einsum("bHwc,wW->bHWc", out, wx)
 

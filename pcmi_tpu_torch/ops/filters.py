@@ -186,6 +186,31 @@ def masked_jacobi_fill(image: torch.Tensor, mask: torch.Tensor,
     return x
 
 
+def masked_jacobi_fill_batch(images: torch.Tensor, masks: torch.Tensor,
+                             iters: int = 128) -> torch.Tensor:
+    """:func:`masked_jacobi_fill` of each (H, W, C) image of a (B, H, W, C)
+    batch with its (B, H, W) mask, as the reference's ``vmap`` of it: each
+    image's holes start at the mean of its own known pixels, and one blur
+    a step filters the whole batch at once."""
+    img = images.float()
+    b, h, w, c = img.shape
+    m3 = masks.float()[..., None]
+    wk = torch.broadcast_to(1.0 - m3, img.shape)
+    known_mean = ((img * wk).sum(dim=(1, 2, 3))
+                  / torch.clamp(wk.sum(dim=(1, 2, 3)), min=1.0))
+    x = img * (1.0 - m3) + known_mean[:, None, None, None] * m3
+    hole = m3 > 0.5
+
+    def stacked(t):  # (B, H, W, C) -> (H, W, B * C)
+        return t.permute(1, 2, 0, 3).reshape(h, w, b * c)
+
+    xs, img_s = stacked(x), stacked(img)
+    hole_s = stacked(hole.expand(-1, -1, -1, c))
+    for _ in range(iters):
+        xs = torch.where(hole_s, gaussian_filter(xs, 1.5, radius=2), img_s)
+    return xs.reshape(h, w, b, c).permute(2, 0, 1, 3)
+
+
 def unsharp_mask(img: torch.Tensor, amount: float = 1.5,
                  sigma: float = 2.0) -> torch.Tensor:
     """``(1 + amount) * img - amount * blur``, clipped to [0, 1]."""

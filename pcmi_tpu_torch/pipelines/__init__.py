@@ -26,6 +26,13 @@ from pcmi_tpu_torch.pipelines.detection import (
     ObjectDetector, ObjectAnnotationPlugin)
 from pcmi_tpu_torch.pipelines.superres import (
     InpaintingPlugin, SuperResolutionPlugin)
+from pcmi_tpu_torch.pipelines.generative import (
+    EnhancementProcessor,
+    ImageRestorationProcessor,
+    RestorationGenerativePlugin,
+    StitchingProcessor,
+    available_engines,
+)
 
 __all__ = [
     "HeightMapExtractor",
@@ -51,4 +58,9 @@ __all__ = [
     "ObjectAnnotationPlugin",
     "InpaintingPlugin",
     "SuperResolutionPlugin",
+    "EnhancementProcessor",
+    "ImageRestorationProcessor",
+    "RestorationGenerativePlugin",
+    "StitchingProcessor",
+    "available_engines",
 ]

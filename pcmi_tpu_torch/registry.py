@@ -4,11 +4,9 @@
 Every built-in plugin is imported by name; one whose module or class is
 missing degrades to an entry of :func:`failures` (the import's last
 traceback line) instead of killing the host. The port keeps the
-reference's nine built-in names and groups. Eight have their modules in
-the port; ``generative-restoration`` is listed by :func:`failures` until
-``pipelines/generative.py`` is ported. :func:`create` passes keyword
-arguments to the plugin's class: every built-in plugin takes
-``device="cuda"`` by default.
+reference's nine built-in names and groups, and has all nine modules.
+:func:`create` passes keyword arguments to the plugin's class: every
+built-in plugin takes ``device="cuda"`` by default.
 """
 
 from __future__ import annotations
