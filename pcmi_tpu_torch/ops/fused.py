@@ -1,8 +1,9 @@
 """The reference's fused multiply-add, on the port's tensors.
 
 XLA's CPU backend contracts ``a * b + c`` of float32 arrays into one
-multiply-add, rounded once. Where the port is held bit for bit against
-the reference on the CPU, it rounds those terms the same way.
+multiply-add, rounded once, and turns a division by a constant into a
+product with the constant's reciprocal. Where the port is held bit for
+bit against the reference on the CPU, it rounds those terms the same way.
 """
 
 from __future__ import annotations
@@ -27,3 +28,9 @@ def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return (a.double() * b.double() + c.double()).float()
     return a * b + c
+
+
+def recip(n) -> torch.Tensor:
+    """``1 / n`` rounded to float32 (a 0-d CPU tensor): ``x * recip(n)``
+    is the reference compiler's ``x / n`` for a constant ``n``."""
+    return torch.tensor(1.0, dtype=torch.float32) / n

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pcmi_tpu_torch.ops.fused import mul_add
+from pcmi_tpu_torch.ops.fused import mul_add, recip
 
 
 def _counts(xf: torch.Tensor, mf: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
@@ -39,12 +39,6 @@ def _masked_quantile(x: torch.Tensor, mask: torch.Tensor, q) -> torch.Tensor:
     return order[idx.long()]
 
 
-def _recip(n: int) -> torch.Tensor:
-    """``1 / n`` rounded to float32: the reference's compiler turns a
-    division by a constant into a product with its reciprocal."""
-    return torch.tensor(1.0, dtype=torch.float32) / n
-
-
 def _first_true(b: torch.Tensor) -> torch.Tensor:
     return torch.argmax(b.to(torch.uint8))
 
@@ -63,7 +57,7 @@ def masked_quantile_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,
     n = torch.clamp(mf.sum().float(), min=1.0)
     target = torch.tensor(q, dtype=torch.float32, device=dev) * n
     k = torch.arange(bins, dtype=torch.float32, device=dev)
-    step = _recip(bins - 1).to(dev)
+    step = recip(bins - 1).to(dev)
     c_lo = torch.zeros((), dtype=torch.float32, device=dev)
     c_hi = n
     for _ in range(stages):

@@ -27,6 +27,7 @@ import torch
 from pcmi_tpu_torch.interface import Layer, SatellitePlugin
 from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
 from pcmi_tpu_torch.ops.filters import gaussian_filter, masked_jacobi_fill
+from pcmi_tpu_torch.ops.fused import mul_add, recip
 from pcmi_tpu_torch.ops.morphology import binary_dilation, distance_transform
 
 # one implementation, shared with the inpainting trainer's conditioning
@@ -43,12 +44,16 @@ def feather_blend(original: torch.Tensor, generated: torch.Tensor,
                   mask: torch.Tensor, blend_width: int = 8) -> torch.Tensor:
     """Distance-feathered composite of ``generated`` into ``original``
     inside ``mask``: weight ``clip(d / blend_width, 0, 1)`` with ``d`` the
-    chamfer distance to the nearest pixel outside the mask."""
+    chamfer distance to the nearest pixel outside the mask (rounded as
+    the reference's compiler rounds it on the CPU)."""
     d = distance_transform(mask > 0.5, max_dist=blend_width)
-    alpha = torch.clamp(d / blend_width, 0.0, 1.0)
+    alpha = torch.clamp(d * recip(blend_width).to(d.device), 0.0, 1.0)
+    # the reference's compiler fuses the first product of an (H, W, C)
+    # blend into its multiply-add on the CPU, the second of an (H, W) one
     if original.dim() == 3:
         alpha = alpha[..., None]
-    return original * (1.0 - alpha) + generated * alpha
+        return mul_add(original, 1.0 - alpha, generated * alpha)
+    return mul_add(generated, alpha, original * (1.0 - alpha))
 
 
 def nan_mask(image, margin: int = 10, device="cuda") -> np.ndarray:

@@ -52,6 +52,11 @@ MODULES = [
     "pcmi_tpu_torch.models.metrics", "pcmi_tpu_torch.pipelines.superres",
     # the reference's CPU multiply-adds
     "pcmi_tpu_torch.ops.fused",
+    # generative restoration, the GAN and DIP trainers, the detector
+    "pcmi_tpu_torch.models.losses", "pcmi_tpu_torch.models.dip",
+    "pcmi_tpu_torch.models.training", "pcmi_tpu_torch.models.detector",
+    "pcmi_tpu_torch.models.detector_eval", "pcmi_tpu_torch.models.scenes",
+    "pcmi_tpu_torch.pipelines.generative",
 ]
 
 
@@ -65,23 +70,28 @@ def test_pipelines_exports():
                  "RestorationPlugin", "ImageStitcher", "ImageStitchingPlugin",
                  "OBIAClassifier", "LandUseClassificationPlugin",
                  "ObjectDetector", "ObjectAnnotationPlugin",
-                 "InpaintingPlugin", "SuperResolutionPlugin"):
+                 "InpaintingPlugin", "SuperResolutionPlugin",
+                 "RestorationGenerativePlugin", "ImageRestorationProcessor",
+                 "StitchingProcessor", "EnhancementProcessor",
+                 "available_engines"):
         assert hasattr(ref, name) and hasattr(port, name), name
     # every name the port exports is one the reference exports
     assert set(port.__all__) <= set(ref.__all__) | {"fused_consistency_dsm"}
 
 
 def test_models_exports():
-    """The port's ``models`` exports the reference's names whose modules
-    are ported, and no other."""
+    """The port's ``models`` exports the reference's names but
+    ``data_parallel_step`` (the parallel slice), each from its own
+    module."""
     import pcmi_tpu.models as ref
     import pcmi_tpu_torch.models as port
 
-    assert port.__all__ == ["DIPUNet", "InpaintUNet", "PatchDiscriminator",
-                            "SRUNet", "bicubic_upsample"]
-    assert set(port.__all__) <= set(ref.__all__)
+    assert port.__all__ == [n for n in ref.__all__
+                            if n != "data_parallel_step"]
     for name in port.__all__:
-        assert getattr(port, name).__module__ == "pcmi_tpu_torch.models.unet"
+        mod = getattr(ref, name).__module__.replace("pcmi_tpu.",
+                                                    "pcmi_tpu_torch.")
+        assert getattr(port, name).__module__ == mod, name
 
 
 def test_package_and_io_exports():

@@ -345,8 +345,9 @@ def test_main_builds_the_host(stub_host):
         "rafael: Saliency Detection", "jasraj: Image Restoration",
         "jasraj: Image Stitching", "jasraj: Land Use Classification",
         "jasraj: Object Detection", "stan: Super Resolution",
-        "stan: Inpainting"}
-    # each member's plugins tab together: 3 + 1 + 1 tabify calls
+        "stan: Inpainting", "marcin: Generative Restoration"}
+    # each member's plugins tab together: 3 + 1 + 1 tabify calls (the
+    # one plugin of marcin's tab needs none)
     assert len(v.window._qt_window.tabified) == 5
     widget = v.window.docks["rafael: Multi-day 3D Point Cloud"].widget
     assert widget._magicgui["call_button"] == "Run Multi-day 3D Point Cloud"
@@ -385,5 +386,6 @@ def test_main_degrades_headless(monkeypatch, capsys):
     assert tviewer.main() == 1
     assert "python -m pcmi_tpu_torch --help" in capsys.readouterr().out
     assert registry.available() == [
-        "detection", "height-map", "inpainting", "land-use", "restoration",
-        "saliency", "stitching", "super-resolution"]
+        "detection", "generative-restoration", "height-map", "inpainting",
+        "land-use", "restoration", "saliency", "stitching",
+        "super-resolution"]
