@@ -150,9 +150,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     as covered pixels, masks, seams) equal on >= 99 % of their elements; one
     more run of each under ``torch.profiler`` gives the device's busy share
     and its three costliest operations. No stereo kernel launches in this
+    phase;
+13. training, on the port's numpy scenes (``models.scenes``, the
+    reference's recipe) at the reference benches' widths (``TRAIN``):
+    the default ``SRGANTrainer`` for 2,500 steps at 96², batch 8 (SR
+    beats bicubic on a held-out batch); ``InpaintGANTrainer`` with widths
+    (48, 96, 192, 384) and cosine decay for 3,000 steps (cut from the
+    reference bench's 30,000), 3 held-out seeds with the flip ensemble
+    (every seed beats the Jacobi prefill in-hole; the mean, minimum and
+    the reference's +1.5 dB bar, which belongs to 30,000 steps, are
+    reported); ``DIPConfig(iters=300).enhance`` of a noisy 96² scene (the
+    output beats the noisy input); the ``generative-restoration`` plugin
+    from the registry on a 192² scene with a NaN hole (finite, known
+    pixels kept); ``OBBDetectorTrainer(lr=1e-3)`` for 1,500 steps, batch
+    16, 128² hard scenes, mAP50 over 64 held-out scenes (>= 0.9);
+    ``make_tile_detector`` of a briefly trained ``DetectorTrainer``
+    through ``ObjectDetector`` (runs end to end); each with its training
+    seconds, ms per step and peak MB (SR, inpainting and OBB: five more
+    steps under ``torch.profiler`` for the device's busy share and its
+    costliest operations); then one step of each trainer and
+    of DIP on the card and on the CPU from one state (losses within 1e-4,
+    >= 99.9 % of the parameters within 1e-4 and all within 2 lr + 1e-4),
+    a checkpoint round trip on the card (bit-equal), and
+    ``registry.failures()`` empty. No stereo kernel launches in this
     phase.
 
-The last lines are a summary of phases 7b-12 (under 1500 characters;
+The last lines are a summary of phases 7b-13 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
@@ -2369,6 +2392,482 @@ def phase_components(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the trainers and generative restoration
+# ---------------------------------------------------------------------------
+
+# the reference benches' sizes (bench_generative.py:104-195, :372-390;
+# bench_detector.py): only the inpainting budget is cut, from 30,000 steps
+TRAIN = dict(
+    sr_steps=2500, sr_size=96, sr_batch=8,
+    inpaint_steps=3000, inpaint_widths=(48, 96, 192, 384), inpaint_size=96,
+    inpaint_batch=8, eval_seeds=3,
+    dip_iters=300, dip_size=96, plugin_size=192, pool=48,
+    obb_steps=1500, obb_batch=16, obb_size=128, obb_eval=64,
+    tile_steps=300, tile_scene=512,
+    # card against CPU: one step of each trainer at these batches
+    cmp_batch=2, cmp_size=64)
+
+
+def _gen(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def _peak_start() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_mb(held: int) -> float:
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def _steps(step, n: int):
+    """``step(i)`` for i < n: (seconds, ms per step) up to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        step(i)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return s, s * 1e3 / max(n, 1)
+
+
+def _held_out(seed: int, n: int, size: int, dev: str) -> torch.Tensor:
+    from pcmi_tpu_torch.models.scenes import scene_batch
+
+    return scene_batch(np.random.default_rng(seed).integers(0, 2**31 - 1, n),
+                       size, dev)
+
+
+def _train_sr(dev: str) -> dict:
+    """``bench_generative.bench_sr``: the default ``SRGANTrainer`` (GAN off:
+    its warm-up is the whole budget), a pool of 48 scenes, held-out
+    scenes against bicubic."""
+    from pcmi_tpu_torch.models.metrics import psnr
+    from pcmi_tpu_torch.models.scenes import make_pool, sample_batch
+    from pcmi_tpu_torch.models.training import (
+        SRGANTrainer, SRTrainConfig, make_sr_pairs)
+    from pcmi_tpu_torch.models.unet import bicubic_upsample
+
+    T = TRAIN
+    held = _peak_start()
+    trainer = SRGANTrainer(SRTrainConfig(warmup_steps=max(T["sr_steps"], 1)),
+                           device=dev)
+    pool = make_pool(0, T["pool"], T["sr_size"], dev)
+    box = [trainer.init(None, _gen(1))]
+    rng = _gen(0)
+
+    def step(_):
+        lr_b, hr_b = make_sr_pairs(sample_batch(pool, T["sr_batch"], rng))
+        box[0], _m = trainer.train_step(box[0], lr_b, hr_b)
+
+    s, ms = _steps(step, T["sr_steps"])
+    lr_t, hr_t = make_sr_pairs(_held_out(50_000, T["sr_batch"],
+                                         T["sr_size"], dev))
+    p_sr = float(psnr(trainer.infer(box[0], lr_t), hr_t))
+    p_bi = float(psnr(bicubic_upsample(lr_t, 4), hr_t))
+    out = dict(steps=T["sr_steps"], train_s=s, ms_step=ms,
+               peak_mb=_peak_mb(held), sr_psnr=p_sr, bicubic_psnr=p_bi,
+               gain_db=p_sr - p_bi,
+               profile=_profiled(lambda: [step(0) for _ in range(5)]))
+    if not out["gain_db"] > 0:
+        raise SystemExit(f"training sr: SR below bicubic {out}")
+    return out
+
+
+def _train_inpaint(dev: str):
+    """``bench_generative.bench_inpaint`` with a shorter budget: widths
+    (48, 96, 192, 384), cosine decay over the budget, bfloat16-rounded
+    inputs (the default), then 3 held-out seeds with the flip ensemble
+    against the Jacobi prefill, in-hole PSNR and composite SSIM."""
+    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.metrics import psnr, ssim
+    from pcmi_tpu_torch.models.scenes import make_pool, sample_batch
+    from pcmi_tpu_torch.models.training import (
+        InpaintGANTrainer, InpaintTrainConfig)
+    from pcmi_tpu_torch.models.unet import InpaintUNet
+    from pcmi_tpu_torch.ops.filters import masked_jacobi_fill_batch
+
+    T = TRAIN
+    n, size, b = T["inpaint_steps"], T["inpaint_size"], T["inpaint_batch"]
+    held = _peak_start()
+    trainer = InpaintGANTrainer(
+        InpaintTrainConfig(total_steps=n),
+        generator=InpaintUNet(widths=T["inpaint_widths"]), device=dev)
+    pool = make_pool(0, T["pool"], size, dev)
+    box = [trainer.init(None, _gen(1))]
+    rng = _gen(0)
+
+    def step(_):
+        box[0], _m = trainer.train_step(box[0], sample_batch(pool, b, rng),
+                                        rng)
+
+    s, ms = _steps(step, n)
+    gains, psnrs, pres, ssims = [], [], [], []
+    for es in range(T["eval_seeds"]):
+        imgs = _held_out(60_000 + 97 * es, b, size, dev)
+        mask = random_hole_masks(_gen(61_000 + 97 * es), (b, size, size), 6,
+                                 10, device=dev)
+        out = trainer.infer(box[0], imgs, mask, ensemble=True)
+        pre = masked_jacobi_fill_batch(imgs, mask[..., 0], 128)
+        p_model = float(psnr(out, imgs, mask=mask))
+        p_pre = float(psnr(pre, imgs, mask=mask))
+        gains.append(p_model - p_pre)
+        psnrs.append(p_model)
+        pres.append(p_pre)
+        ssims.append((float(ssim(torch.where(mask > 0.5, out, imgs), imgs)),
+                      float(ssim(torch.where(mask > 0.5, pre, imgs), imgs))))
+    g = np.asarray(gains)
+    out = dict(steps=n, train_s=s, ms_step=ms, peak_mb=_peak_mb(held),
+               inpaint_psnr=float(np.mean(psnrs)),
+               prefill_psnr=float(np.mean(pres)), gain_db=float(g.mean()),
+               gain_db_min=float(g.min()), gain_db_std=float(g.std()),
+               ssim=float(np.mean([a for a, _ in ssims])),
+               ssim_prefill=float(np.mean([c for _, c in ssims])),
+               gate_1p5db_mean_at_30000=bool(g.mean() >= 1.5),
+               profile=_profiled(lambda: [step(0) for _ in range(5)]))
+    if not (g > 0).all():
+        raise SystemExit(f"training inpaint: a seed below the prefill {out}")
+    return out, trainer, box[0]
+
+
+def _train_dip(dev: str) -> dict:
+    """``bench_generative.bench_dip``: ``DIPConfig(iters=300).enhance`` of
+    a 96² scene with N(0, 0.1²) noise against the noisy input."""
+    from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
+    from pcmi_tpu_torch.models.metrics import psnr
+    from pcmi_tpu_torch.models.scenes import make_scene_rgb
+
+    T = TRAIN
+    clean = torch.from_numpy(make_scene_rgb(70_000, T["dip_size"])).to(dev)
+    noise = torch.randn(clean.shape, generator=_gen(70_001)).to(dev)
+    noisy = torch.clamp(clean + 0.1 * noise, 0.0, 1.0)
+    held = _peak_start()
+    engine = DIPEngine(DIPConfig(iters=T["dip_iters"]), device=dev)
+    box = []
+    s, _ms = _steps(lambda _: box.append(engine.enhance(noisy)), 1)
+    res = box[0]
+    p_out = float(psnr(res.output, clean))
+    p_in = float(psnr(noisy, clean))
+    losses = res.losses.cpu().numpy()
+    out = dict(iters=T["dip_iters"], train_s=s,
+               ms_step=s * 1e3 / T["dip_iters"], peak_mb=_peak_mb(held),
+               dip_psnr=p_out, noisy_psnr=p_in, gain_db=p_out - p_in,
+               loss_first=float(losses[0]), loss_last=float(losses[-1]))
+    if not out["gain_db"] > 0:
+        raise SystemExit(f"training dip: no denoising {out}")
+    return out
+
+
+def _train_plugin(dev: str) -> dict:
+    """``registry.create("generative-restoration", device=...)`` on an
+    RGB scene with a NaN hole: finite, every pixel outside the hole and
+    its margin kept bit for bit."""
+    from pcmi_tpu_torch import registry
+    from pcmi_tpu_torch.models.scenes import make_scene_rgb
+    from pcmi_tpu_torch.pipelines.generative import nan_mask
+
+    size = TRAIN["plugin_size"]
+    img = make_scene_rgb(71_000, size)
+    img[size // 2 - 12: size // 2 + 12, size // 3: size // 3 + 24] = np.nan
+    held = _peak_start()
+    plugin = registry.create("generative-restoration", device=dev)
+    box = []
+    s, _ms = _steps(lambda _: box.append(plugin.run(img)), 1)
+    restored = box[0][1][0]
+    keep = ~nan_mask(img, 10, dev)
+    out = dict(run_s=s, peak_mb=_peak_mb(held),
+               finite=bool(np.isfinite(restored).all()),
+               kept=bool(np.array_equal(restored[keep], img[keep])),
+               hole_px=int((~keep).sum()))
+    if not (out["finite"] and out["kept"]
+            and [p["name"] for _, p, _ in box[0]] == ["input", "restored"]):
+        raise SystemExit(f"training plugin: {out}")
+    return out
+
+
+def _train_obb(dev: str) -> dict:
+    """``bench_detector.py``: ``OBBDetectorTrainer(lr=1e-3)`` on a fresh
+    hard batch each step, then mAP50 over held-out scenes."""
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainConfig, OBBDetectorTrainer, synthesize_obb_batch)
+    from pcmi_tpu_torch.models.detector_eval import map50
+
+    T = TRAIN
+    held = _peak_start()
+    trainer = OBBDetectorTrainer(DetectorTrainConfig(lr=1e-3), device=dev)
+    net, opt = trainer.init(None, _gen(1))
+    rng = _gen(0)
+    last = []
+
+    def step(i):
+        batch = synthesize_obb_batch(rng, T["obb_batch"], T["obb_size"],
+                                     hard=True, device=dev)
+        _n, _o, m = trainer.train_step(net, opt, *batch)
+        if i == T["obb_steps"] - 1:
+            last.append(m["loss"])
+
+    s, ms = _steps(step, T["obb_steps"])
+    detect = trainer.make_obb_detector(net, max_boxes=8, score_thresh=0.25)
+    erng = _gen(10_000)
+    dets, gts = [], []
+    for _ in range(T["obb_eval"] // 8):
+        imgs, obbs, valid = synthesize_obb_batch(erng, 8, T["obb_size"],
+                                                 hard=True, device=dev)
+        got = detect(imgs).cpu().numpy()
+        obbs, valid = obbs.cpu().numpy(), valid.cpu().numpy()
+        for i in range(8):
+            dets.append(got[i][got[i][:, 5] > 0.25])
+            gts.append(obbs[i][valid[i]])
+    ap, stats = map50(dets, gts)
+    stats.pop("pr_curve")
+    out = dict(steps=T["obb_steps"], train_s=s, ms_step=ms,
+               peak_mb=_peak_mb(held), final_loss=float(last[0]),
+               map50=ap, **stats,
+               profile=_profiled(lambda: [step(0) for _ in range(5)]))
+    if not ap >= 0.9:
+        raise SystemExit(f"training obb: mAP50 below 0.9 {out}")
+    return out
+
+
+def _train_tile(dev: str) -> dict:
+    """``make_tile_detector`` of a briefly trained ``DetectorTrainer``
+    driving the port's ``ObjectDetector`` over a larger scene in tiles of
+    128: it runs end to end; how many objects it finds is reported."""
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainer, synthesize_detection_batch)
+    from pcmi_tpu_torch.pipelines.detection import ObjectDetector
+
+    T = TRAIN
+    trainer = DetectorTrainer(device=dev)
+    net, opt = trainer.init(None, _gen(2))
+    rng = _gen(3)
+
+    def step(_):
+        trainer.train_step(net, opt, *synthesize_detection_batch(
+            rng, 16, 128, device=dev))
+
+    s, ms = _steps(step, T["tile_steps"])
+    scene, boxes, valid = synthesize_detection_batch(
+        _gen(99), 1, T["tile_scene"], max_objects=24, device=dev)
+    driver = ObjectDetector(detector=trainer.make_tile_detector(
+        net, score_thresh=0.2), tile=128, score_thresh=0.2, device=dev)
+    t0 = time.perf_counter()
+    det = driver.detect(scene[0, :, :, 0].cpu().numpy())
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    gt = boxes[0][valid[0]].cpu().numpy()
+    gt_c = (gt[:, :2] + gt[:, 2:]) / 2
+    got_c = (det.boxes[:, :2] + det.boxes[:, 2:]) / 2
+    near = (np.abs(gt_c[:, None] - got_c[None]).sum(-1).min(1) < 12
+            if len(got_c) else np.zeros(len(gt_c), bool))
+    out = dict(steps=T["tile_steps"], train_s=s, ms_step=ms,
+               detect_ms=detect_ms, boxes=len(det.boxes), objects=len(gt),
+               found=float(near.mean()))
+    if not (len(det.boxes) and np.isfinite(det.boxes).all()):
+        raise SystemExit(f"training tile detector: {out}")
+    return out
+
+
+def _norm_biases(net) -> set:
+    """Biases that an instance norm follows: no output depends on them,
+    so Adam moves them by rounding noise scaled to a full step."""
+    from pcmi_tpu_torch.models.unet import ConvBlock, PatchDiscriminator
+
+    out = set()
+    for name, m in net.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, ConvBlock) and m.norm:
+            out |= {pre + "conv0.bias", pre + "conv1.bias"}
+        if isinstance(m, PatchDiscriminator):
+            out |= {f"{pre}convs.{i}.bias" for i in range(1, len(m.convs))}
+    return out
+
+
+def _close(cpu_net, card_net, lr: float, tol: float = 1e-4) -> dict:
+    """The card's parameters against the CPU's after one step: the
+    largest difference (at most 2 lr + tol: Adam scales a gradient that
+    rounding dominates to a full step) and the share within ``tol`` of
+    those an output depends on (at least 99.9 %)."""
+    null = _norm_biases(cpu_net)
+    card = {k: v.cpu() for k, v in card_net.state_dict().items()}
+    worst, close, total = 0.0, 0, 0
+    for k, v in cpu_net.state_dict().items():
+        d = (card[k] - v).abs()
+        worst = max(worst, float(d.max()))
+        if k not in null:
+            close += int((d <= tol).sum())
+            total += d.numel()
+    return dict(max_diff=worst, share=close / total,
+                ok=worst <= 2 * lr + tol and close >= 0.999 * total)
+
+
+def _train_card_vs_cpu(dev: str) -> dict:
+    """One step of each trainer (and of DIP) from one state and one batch
+    on the card and on the CPU: losses within 1e-4, parameters as
+    :func:`_close`."""
+    import copy
+
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainConfig, DetectorTrainer, OBBDetectorTrainer,
+        synthesize_detection_batch, synthesize_obb_batch)
+    from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
+    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.scenes import make_pool
+    from pcmi_tpu_torch.models.training import (
+        InpaintGANTrainer, InpaintTrainConfig, SRGANTrainer, SRTrainConfig,
+        make_sr_pairs)
+    from pcmi_tpu_torch.models.unet import InpaintUNet, _init_params
+
+    T = TRAIN
+    b, size = T["cmp_batch"], T["cmp_size"]
+    imgs = make_pool(5, b, size, "cpu")
+    out = {}
+
+    def losses_close(mc, mg):
+        return max(abs(float(mc[k]) - float(mg[k])) for k in mc)
+
+    def gan(name, make, args):
+        tc, tg = make("cpu"), make(dev)
+        sc = tc.init(None, _gen(7))
+        sg = tg.optimizers(copy.deepcopy(sc.g).to(dev),
+                           copy.deepcopy(sc.d).to(dev))
+        step = "_step" if name == "inpaint" else "train_step"
+        sc, mc = getattr(tc, step)(sc, *args)
+        sg, mg = getattr(tg, step)(sg, *(a.to(dev) for a in args))
+        lr = max(g["lr"] for o in (sc.g_opt, sc.d_opt)
+                 for g in o.param_groups)
+        row = dict(loss_diff=losses_close(mc, mg),
+                   g=_close(sc.g, sg.g, lr), d=_close(sc.d, sg.d, lr))
+        row["ok"] = row["loss_diff"] <= 1e-4 and row["g"]["ok"] \
+            and row["d"]["ok"]
+        out[name] = row
+
+    mask = random_hole_masks(_gen(8), (b, size, size), 6, 10, device="cpu")
+    gan("inpaint", lambda d: InpaintGANTrainer(
+        InpaintTrainConfig(total_steps=T["inpaint_steps"]),
+        generator=InpaintUNet(widths=T["inpaint_widths"]), device=d),
+        (imgs, mask))
+    gan("sr", lambda d: SRGANTrainer(SRTrainConfig(warmup_steps=0), device=d),
+        make_sr_pairs(imgs))
+
+    for name, make, synth in (
+            ("obb", lambda d: OBBDetectorTrainer(DetectorTrainConfig(lr=1e-3),
+                                                 device=d),
+             lambda: synthesize_obb_batch(_gen(9), 4, 128, hard=True,
+                                          device="cpu")),
+            ("detector", lambda d: DetectorTrainer(device=d),
+             lambda: synthesize_detection_batch(_gen(9), 4, 128,
+                                                device="cpu"))):
+        tc, tg = make("cpu"), make(dev)
+        nc, oc = tc.init(None, _gen(10))
+        ng = copy.deepcopy(nc).to(dev)
+        og = tg.optimizer(ng)
+        batch = synth()
+        nc, oc, mc = tc.train_step(nc, oc, *batch)
+        ng, og, mg = tg.train_step(ng, og, *(t.to(dev) for t in batch))
+        row = dict(loss_diff=losses_close(mc, mg), net=_close(nc, ng, 1e-3))
+        row["ok"] = row["loss_diff"] <= 1e-4 and row["net"]["ok"]
+        out[name] = row
+
+    # DIP: one Adam step from one noise input, weights and jitter
+    cfg = DIPConfig(iters=1)
+    ec, eg = DIPEngine(cfg, device="cpu"), DIPEngine(cfg, device=dev)
+    img = imgs[0]
+    known = torch.ones(img.shape[:2], dtype=torch.bool)
+    known[size // 4: size // 2, size // 4: size // 2] = False
+    rng = _gen(11)
+    z0 = 0.1 * torch.randn((1, size, size, cfg.noise_channels), generator=rng)
+    net = copy.deepcopy(ec.model)
+    _init_params(net, rng)
+    jit = [torch.randn(z0.shape, generator=rng)]
+    net_g = copy.deepcopy(net)
+    oc_, lc = ec._fit(img, known, z0, net, jit)
+    og_, lg = eg._fit(img, known, z0, net_g, jit)
+    row = dict(loss_diff=float((lc - lg.cpu()).abs().max()),
+               out_diff=float((oc_ - og_.cpu()).abs().max()),
+               net=_close(net, net_g, cfg.lr))
+    row["ok"] = row["loss_diff"] <= 1e-4 and row["net"]["ok"]
+    out["dip"] = row
+    bad = [k for k, v in out.items() if not v["ok"]]
+    if bad:
+        raise SystemExit(f"training card against CPU: {bad} {out}")
+    return out
+
+
+def _train_checkpoint(trainer, state) -> dict:
+    """``save_checkpoint`` / ``restore_checkpoint`` of the trained
+    inpainting state on the card: every tensor bit-equal, the step kept,
+    and a step from the restored state finite."""
+    from pcmi_tpu_torch.models.scenes import make_pool
+    from pcmi_tpu_torch.models.training import (
+        restore_checkpoint, save_checkpoint)
+
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_inpaint.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, state)
+    template = trainer.init(None, _gen(12))
+    back = restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+
+    def leaves(s):
+        out = [v for n in (s.g, s.d) for v in n.state_dict().values()]
+        for o in (s.g_opt, s.d_opt):
+            for st in o.state_dict()["state"].values():
+                out += [st[k] for k in sorted(st)]
+        return out
+
+    same = all(torch.equal(a, c) for a, c in zip(leaves(state), leaves(back)))
+    imgs = make_pool(13, 2, TRAIN["inpaint_size"], trainer.device)
+    _s, m = trainer.train_step(back, imgs, _gen(14))
+    out = dict(ms=ms, mb=os.path.getsize(path) / 2**20, equal=same,
+               step=back.step, resumed_loss=float(m["g_loss"]))
+    os.remove(path)
+    if not (same and back.step == state.step
+            and np.isfinite(out["resumed_loss"])):
+        raise SystemExit(f"training checkpoint: {out}")
+    return out
+
+
+def phase_training(smi: str) -> dict:
+    """Phase 13: the trainers, DIP and generative restoration on the card
+    at the reference benches' widths, each with its gate, training seconds,
+    ms per step and peak MB; then the card against the CPU, a checkpoint
+    round trip and the registry. No stereo kernel launches."""
+    from pcmi_tpu_torch import registry
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    out: dict = {"card": smi}
+    cases = (("sr", _train_sr), ("inpaint", _train_inpaint),
+             ("dip", _train_dip), ("plugin", _train_plugin),
+             ("obb", _train_obb), ("tile", _train_tile))
+    inpaint = None
+    for name, fn in cases:
+        row = fn("cuda")
+        if name == "inpaint":
+            row, *inpaint = row
+        out[name] = row
+        print(f"training {name}: {json.dumps(_sig(row, 6))} ({smi})")
+    out["card_vs_cpu"] = _train_card_vs_cpu("cuda")
+    print(f"training card_vs_cpu: {json.dumps(_sig(out['card_vs_cpu'], 4))}")
+    out["checkpoint"] = _train_checkpoint(*inpaint)
+    print(f"training checkpoint: {json.dumps(_sig(out['checkpoint'], 6))}")
+    fails = registry.failures()
+    if fails:
+        raise SystemExit(f"training: registry failures {sorted(fails)}")
+    out["registry"] = registry.available()
+    _launched("training", dict(K.LAUNCHES), NONE)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"training: phase {out['phase_s']:.1f} s, registry "
+          f"{len(out['registry'])} plugins, none failing")
+    return out
+
+
 def _sig(x, digits: int):
     """``x`` with every float rounded to ``digits`` significant digits (and
     written as an integer where that is exact)."""
@@ -2407,6 +2906,7 @@ def main() -> int:
     lowtex = phase_lowtex()
     disk = phase_from_disk(dctx)
     comp = phase_components(smi)
+    train = phase_training(smi)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = par[0][name]
@@ -2463,7 +2963,14 @@ def main() -> int:
                            disk["fuse"]["dsm"]["rmse_m"]],
             "ms": [disk["height_map_ms"], disk["fuse_ms"]]},
         "components_ms": {k: v["ms"] for k, v in comp.items()
-                          if isinstance(v, dict)}}
+                          if isinstance(v, dict)},
+        "training": {
+            "db": {k: train[k]["gain_db"] for k in ("sr", "inpaint", "dip")},
+            "inpaint_min_db": train["inpaint"]["gain_db_min"],
+            "map50": train["obb"]["map50"],
+            "ms_step": {k: train[k]["ms_step"]
+                        for k in ("sr", "inpaint", "dip", "obb")},
+            "s": train["phase_s"]}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:
