@@ -10,9 +10,8 @@ visualisations.
 SLIC is K-means over (colour, compact·y, compact·x) features: each Lloyd
 step's distances are chunked ``|q|² - 2 q·c + |c|²`` products (the
 reference's form, whose rounding decides the argmin). Per-superpixel sums
-are one ``index_add_`` each: in float32 in index order on the CPU, as the
-reference's scatter adds, and in float64 cast back on the card, so that
-its sums do not depend on the order of its atomic adds. The PCA's
+are one ``index_add_`` each, accumulated in float64 and cast back, so the
+card's sums do not depend on the order of its atomic adds. The PCA's
 eigenvectors come from LAPACK's ``ssyevd`` on the CPU, as the reference's
 do, signs included.
 """
@@ -65,13 +64,7 @@ class SlicResult(NamedTuple):
 
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """``segment_sum`` of the rows of ``x`` by ``ids`` into ``n`` segments,
-    float32. On the CPU the rows add in float32 in index order, as the
-    reference's scatter does there (bit for bit); on the card the atomic
-    adds come in any order, so they accumulate in float64 and round once.
-    """
-    if x.device.type == "cpu":
-        out = torch.zeros((n,) + x.shape[1:], dtype=torch.float32)
-        return out.index_add_(0, ids.long(), x.float())
+    accumulated in float64 and returned in float32."""
     out = torch.zeros((n,) + x.shape[1:], dtype=torch.float64, device=x.device)
     return out.index_add_(0, ids.long(), x.double()).float()
 

@@ -227,6 +227,17 @@ def test_plugin_matches_reference(rng, scale):
                                atol=1e-6 * scale, rtol=0)
 
 
+def test_plugin_copies_the_reference_scale_fault(rng):
+    """A 0-255 image with a NaN hole: the reference scales by
+    ``img.max()``, which is NaN there, so every output pixel is NaN
+    (a fault of the reference, ROADMAP Queue 3); the port does the same."""
+    img = (rng.uniform(0.1, 0.9, (24, 32, 3)) * 255).astype(np.float32)
+    img[5:8, 5:8] = np.nan
+    want = np.asarray(jg.RestorationGenerativePlugin(REF_ENGINE).run(img)[1][0])
+    got = tg.RestorationGenerativePlugin(PORT_ENGINE, device="cpu").run(img)
+    assert np.isnan(want).all() and np.isnan(got[1][0]).all()
+
+
 def test_registry_plugin_runs_on_the_cpu(rng):
     """The registry's ninth plugin with its default engine (DIP, 300
     steps) on a small image: finite, the pixels outside the hole and its

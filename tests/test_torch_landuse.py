@@ -5,12 +5,10 @@ Inputs are numpy draws from a seed fed to both packages; K-means is fed
 the reference's first centre (its Gumbel draw from ``PRNGKey(seed)``)
 through ``_obia_core(..., first=...)``. Tolerances: LAB within 1e-4,
 features within 1e-4 (relative 1e-5); SLIC labels, superpixels, classes
-and boundaries identical (the port's per-segment sums add in float32 in
-index order, as the reference's scatter does on the CPU); SLIC centres
-bit-equal on a grey image and within relative 1e-6 on an RGB one (the
-two packages' ``pow`` and ``cbrt`` differ in the last bit on 3 % of the
-LAB values); PCA colours within 1e-5, with the reference's eigenvector
-signs (LAPACK's ``ssyevd`` on both sides). The reference's cases
+and boundaries identical; SLIC centres within relative 2e-6 (the port
+sums each segment in float64, the reference in float32); PCA colours
+within 1e-5, with the reference's eigenvector signs (LAPACK's ``ssyevd``
+on both sides). The reference's cases
 (``tests/test_components2.py``) are mirrored at the port's surface.
 """
 
@@ -75,12 +73,8 @@ def test_slic(rng, rgb):
     got = tl.slic(_t(img), **kw)
     assert got.n_segments == ref.n_segments
     _agree(got.labels.numpy(), np.asarray(ref.labels))
-    if rgb:
-        np.testing.assert_allclose(got.centers.numpy(),
-                                   np.asarray(ref.centers), atol=0, rtol=1e-6)
-    else:
-        np.testing.assert_array_equal(got.centers.numpy(),
-                                      np.asarray(ref.centers))
+    np.testing.assert_allclose(got.centers.numpy(), np.asarray(ref.centers),
+                               atol=0, rtol=2e-6)
     # the chunk size changes nothing
     np.testing.assert_array_equal(
         tl.slic(_t(img), n_segments=48, iters=6).labels.numpy(),
