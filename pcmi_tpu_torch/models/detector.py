@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcmi_tpu_torch.models.training import adam, apply_gradients
 from pcmi_tpu_torch.models.unet import (
     ConvBlock, SameConv2d, _down, _init_params, image_resize)
 from pcmi_tpu_torch.ops.pointcloud import top_k
@@ -153,7 +154,7 @@ class _Trainer:
         self.device = torch.device(device)
 
     def optimizer(self, net: nn.Module) -> torch.optim.Adam:
-        return torch.optim.Adam(net.parameters(), lr=self.cfg.lr)
+        return adam(net.parameters(), self.device, lr=self.cfg.lr)
 
     def init(self, sample_images=None, rng: Optional[torch.Generator] = None):
         """A copy of the model with weights drawn from ``rng`` (a CPU
@@ -168,10 +169,7 @@ class _Trainer:
         return net, self.optimizer(net)
 
     def _finish(self, net, opt, total, parts):
-        params = list(net.parameters())
-        for p, g in zip(params, torch.autograd.grad(total, params)):
-            p.grad = g
-        opt.step()
+        apply_gradients(opt, list(net.parameters()), total)
         return net, opt, {"loss": total.detach(),
                           **{k: v.detach() for k, v in parts.items()}}
 

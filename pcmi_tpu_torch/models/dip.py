@@ -22,6 +22,7 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from pcmi_tpu_torch.models.training import adam, apply_gradients
 from pcmi_tpu_torch.models.unet import DIPUNet, _init_params, image_resize
 
 
@@ -72,7 +73,7 @@ class DIPEngine:
         target = image.to(dev)[None]
         kw = known.to(dev)[None, ..., None].float()
         denom = torch.clamp(kw.sum(), min=1.0)
-        opt = torch.optim.Adam(net.parameters(), lr=cfg.lr)
+        opt = adam(net.parameters(), dev, lr=cfg.lr)
         params = list(net.parameters())
         losses = []
         n = 0
@@ -81,10 +82,7 @@ class DIPEngine:
                 break
             z = z0 + cfg.noise_reg * noise.to(dev)
             loss = (((net(z) - target) ** 2) * kw).sum() / denom
-            grads = torch.autograd.grad(loss, params)
-            for p, g in zip(params, grads):
-                p.grad = g
-            opt.step()
+            apply_gradients(opt, params, loss)
             losses.append(loss.detach())
             n += 1
         if n != cfg.iters:

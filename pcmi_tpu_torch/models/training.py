@@ -76,11 +76,21 @@ def _rounder(compute_dtype: str):
     raise ValueError(f"compute_dtype {compute_dtype!r}")
 
 
-def _apply(opt: torch.optim.Optimizer, params, loss: torch.Tensor) -> None:
+def adam(params, device, **kw) -> torch.optim.Adam:
+    """``torch.optim.Adam`` over ``params`` on ``device``: one fused kernel
+    for all of them on the card, the multi-tensor form on the CPU."""
+    return torch.optim.Adam(params, fused=torch.device(device).type == "cuda",
+                            **kw)
+
+
+def apply_gradients(opt: torch.optim.Optimizer, params,
+                    loss: torch.Tensor) -> None:
     """One optimiser step on ``loss``'s gradients with respect to
-    ``params`` only (every parameter gets a gradient, zeros included)."""
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
-        p.grad = g
+    ``params`` only: every one of them gets a gradient (zeros where the
+    loss does not depend on it), in its own memory layout, and no other
+    parameter collects one."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward(inputs=params)
     opt.step()
 
 
@@ -146,8 +156,10 @@ class InpaintGANTrainer:
         """A state of ``g`` and ``d`` with fresh optimisers (and schedules
         positioned at ``step``)."""
         cfg = self.cfg
-        g_opt = torch.optim.Adam(g.parameters(), lr=cfg.lr_g, betas=(0.5, 0.999))
-        d_opt = torch.optim.Adam(d.parameters(), lr=cfg.lr_d, betas=(0.5, 0.999))
+        g_opt = adam(g.parameters(), self.device, lr=cfg.lr_g,
+                     betas=(0.5, 0.999))
+        d_opt = adam(d.parameters(), self.device, lr=cfg.lr_d,
+                     betas=(0.5, 0.999))
         scheds = (None, None)
         if cfg.total_steps > 0:
             factor = cosine_decay(cfg.total_steps, 0.02)
@@ -187,20 +199,18 @@ class InpaintGANTrainer:
         mask = mask.to(self.device)
         g, d = state.g, state.d
         inp = self._condition(images, mask)
-        g_params = list(g.parameters())
-        d_params = list(d.parameters())
 
         with torch.no_grad():
             fake = g(rnd(inp))
         d_loss = hinge_d_loss(d(rnd(images)), d(rnd(fake)))
-        _apply(state.d_opt, d_params, d_loss)
+        apply_gradients(state.d_opt, list(d.parameters()), d_loss)
 
         fake = g(rnd(inp))
         rec, parts = residual_inpaint_loss(fake, images, mask, cfg.w_grad,
                                            cfg.w_ring)
         gan = hinge_g_loss(d(rnd(fake)))
         g_loss = rec + cfg.w_gan * gan
-        _apply(state.g_opt, g_params, g_loss)
+        apply_gradients(state.g_opt, list(g.parameters()), g_loss)
         for sched in (state.g_sched, state.d_sched):
             if sched is not None:
                 sched.step()
@@ -264,8 +274,8 @@ class SRGANTrainer:
         self._round = _rounder(cfg.compute_dtype)
 
     def optimizers(self, g: nn.Module, d: nn.Module, step: int = 0) -> GANState:
-        g_opt = torch.optim.Adam(g.parameters(), lr=self.cfg.lr)
-        d_opt = torch.optim.Adam(d.parameters(), lr=self.cfg.lr_d)
+        g_opt = adam(g.parameters(), self.device, lr=self.cfg.lr)
+        d_opt = adam(d.parameters(), self.device, lr=self.cfg.lr_d)
         return GANState(g, d, g_opt, d_opt, step)
 
     def init(self, lr_sample=None, rng: Optional[torch.Generator] = None
@@ -292,13 +302,13 @@ class SRGANTrainer:
         with torch.no_grad():
             fake = g(rnd(up))
         d_loss = gan_on * hinge_d_loss(d(rnd(hr_batch)), d(rnd(fake)))
-        _apply(state.d_opt, d_params, d_loss)
+        apply_gradients(state.d_opt, d_params, d_loss)
 
         sr = g(rnd(up))
         rec = mixge_loss(sr, hr_batch)
         gan = hinge_g_loss(d(rnd(sr)))
         g_loss = rec + cfg.w_gan * gan_on * gan
-        _apply(state.g_opt, g_params, g_loss)
+        apply_gradients(state.g_opt, g_params, g_loss)
         metrics = {"d_loss": d_loss, "g_loss": g_loss, "rec": rec, "gan": gan}
         return state._replace(step=state.step + 1), {
             k: v.detach() for k, v in metrics.items()}

@@ -34,8 +34,7 @@ from torch import nn
 def instance_norm(x: torch.Tensor, dims=(1, 2)) -> torch.Tensor:
     """Normalise over the spatial ``dims`` (NHWC: (1, 2); NCHW: (2, 3))
     with the population variance."""
-    mu = x.mean(dim=dims, keepdim=True)
-    var = x.var(dim=dims, keepdim=True, correction=0)
+    var, mu = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
     return (x - mu) * torch.rsqrt(var + 1e-5)
 
 
@@ -48,18 +47,23 @@ def _same_pads(n: int, k: int, s: int):
 
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with Flax's "SAME" padding, worked out from each
-    input's size."""
+    input's size. An odd kernel at stride 1 pads (k - 1) / 2 on every side,
+    which the convolution does itself; other shapes pad first."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1):
-        super().__init__(in_channels, out_channels, kernel, stride=stride)
+        odd = kernel % 2 == 1 and stride == 1
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=(kernel - 1) // 2 if odd else 0)
+        self._pads_itself = odd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.kernel_size[0], self.stride[0]
-        (t, b), (l, r) = (_same_pads(x.shape[-2], k, s),
-                          _same_pads(x.shape[-1], k, s))
-        if t or b or l or r:
-            x = F.pad(x, (l, r, t, b))
+        if not self._pads_itself:
+            k, s = self.kernel_size[0], self.stride[0]
+            (t, b), (l, r) = (_same_pads(x.shape[-2], k, s),
+                              _same_pads(x.shape[-1], k, s))
+            if t or b or l or r:
+                x = F.pad(x, (l, r, t, b))
         return super().forward(x)
 
 
@@ -110,7 +114,7 @@ def _down(x: torch.Tensor) -> torch.Tensor:
 
 def _up(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
     """Nearest upsampling by 2 (NCHW), then ``conv``."""
-    return conv(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
+    return conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 class _UNet(nn.Module):
