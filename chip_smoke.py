@@ -156,18 +156,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the default ``SRGANTrainer`` for 2,500 steps at 96², batch 8 (SR
     beats bicubic on a held-out batch); ``InpaintGANTrainer`` with widths
     (48, 96, 192, 384) and cosine decay, twice: the bench's configuration
-    (GAN term 0.1) for 3,000 steps (cut from the reference bench's
-    30,000), and without the GAN term (the reference's tier-1 gate
-    setting) for 2,000; each on 3 held-out seeds with the flip ensemble
-    against the Jacobi prefill in-hole (gated for the second: every seed
-    beats the prefill; for the first the comparison, the mean, minimum and
-    the reference's +1.5 dB bar, which belongs to 30,000 steps, are
-    reported: at this budget the GAN term leaves both packages below the
-    prefill, PERF.md §6); ``DIPConfig(iters=300).enhance`` of a noisy 96²
-    scene (the output beats the noisy input); the ``generative-restoration`` plugin
-    from the registry on a 192² scene with a NaN hole (finite, known
+    (GAN term 0.1) and without it (the reference's tier-1 gate setting),
+    each for 2,000 steps (cut from the reference bench's 30,000) and on 3
+    held-out seeds with the flip ensemble against the Jacobi prefill
+    in-hole (gated for the second: every seed beats the prefill; for the
+    first the comparison, the mean, minimum and the reference's +1.5 dB
+    bar, which belongs to 30,000 steps, are reported: at this budget the
+    GAN term leaves both packages below the prefill, PERF.md §6);
+    ``DIPConfig(iters=300).enhance`` of a noisy 96² scene (the output
+    beats the noisy input); the ``generative-restoration`` plugin from
+    the registry on a 192² scene with a NaN hole (finite, known
     pixels kept); ``OBBDetectorTrainer(lr=1e-3)`` for 1,500 steps, batch
-    16, 128² hard scenes, mAP50 over 64 held-out scenes (>= 0.9);
+    16, 128² hard scenes, mAP50 over 8 held-out sets of the bench's 64
+    scenes together (>= 0.9; the first set's and each set's reported);
     ``make_tile_detector`` of a briefly trained ``DetectorTrainer``
     through ``ObjectDetector`` (runs end to end); each with its training
     seconds, ms per step and peak MB (SR, inpainting and OBB: five more
@@ -2406,11 +2407,12 @@ def phase_components(smi: str) -> dict:
 # (and run a second time without the GAN term)
 TRAIN = dict(
     sr_steps=2500, sr_size=96, sr_batch=8,
-    inpaint_steps=3000, inpaint_rec_steps=2000,
+    inpaint_steps=2000, inpaint_rec_steps=2000,
     inpaint_widths=(48, 96, 192, 384), inpaint_size=96,
     inpaint_batch=8, eval_seeds=3,
     dip_iters=300, dip_size=96, plugin_size=192, pool=48,
     obb_steps=1500, obb_batch=16, obb_size=128, obb_eval=64,
+    obb_eval_sets=8,
     tile_steps=300, tile_scene=512,
     # card against CPU: one step of each trainer at these batches
     cmp_batch=2, cmp_size=64)
@@ -2600,7 +2602,10 @@ def _train_plugin(dev: str) -> dict:
 
 def _train_obb(dev: str) -> dict:
     """``bench_detector.py``: ``OBBDetectorTrainer(lr=1e-3)`` on a fresh
-    hard batch each step, then mAP50 over held-out scenes."""
+    hard batch each step, then mAP50 over held-out scenes: the bench's 64
+    (seed 10,000) and 8 such sets in all. One model scores 0.90-0.97 on
+    different sets of 64 (`train_probe.py obb`, PR 11), wider than the
+    margin the gate tests, so the gate reads the 512 scenes together."""
     from pcmi_tpu_torch.models.detector import (
         DetectorTrainConfig, OBBDetectorTrainer, synthesize_obb_batch)
     from pcmi_tpu_torch.models.detector_eval import map50
@@ -2621,21 +2626,27 @@ def _train_obb(dev: str) -> dict:
 
     s, ms = _steps(step, T["obb_steps"])
     detect = trainer.make_obb_detector(net, max_boxes=8, score_thresh=0.25)
-    erng = _gen(10_000)
-    dets, gts = [], []
-    for _ in range(T["obb_eval"] // 8):
-        imgs, obbs, valid = synthesize_obb_batch(erng, 8, T["obb_size"],
-                                                 hard=True, device=dev)
-        got = detect(imgs).cpu().numpy()
-        obbs, valid = obbs.cpu().numpy(), valid.cpu().numpy()
-        for i in range(8):
-            dets.append(got[i][got[i][:, 5] > 0.25])
-            gts.append(obbs[i][valid[i]])
-    ap, stats = map50(dets, gts)
+    sets = []
+    for e in range(T["obb_eval_sets"]):
+        erng = _gen(10_000 + e)
+        dets, gts = [], []
+        for _ in range(T["obb_eval"] // 8):
+            imgs, obbs, valid = synthesize_obb_batch(erng, 8, T["obb_size"],
+                                                     hard=True, device=dev)
+            got = detect(imgs).cpu().numpy()
+            obbs, valid = obbs.cpu().numpy(), valid.cpu().numpy()
+            for i in range(8):
+                dets.append(got[i][got[i][:, 5] > 0.25])
+                gts.append(obbs[i][valid[i]])
+        sets.append((dets, gts))
+    per_set = [map50(d, g)[0] for d, g in sets]
+    ap, stats = map50([x for d, _ in sets for x in d],
+                      [x for _, g in sets for x in g])
     stats.pop("pr_curve")
     out = dict(steps=T["obb_steps"], train_s=s, ms_step=ms,
                peak_mb=_peak_mb(held), final_loss=float(last[0]),
-               map50=ap, **stats,
+               map50=ap, map50_first_64=per_set[0],
+               map50_sets=[min(per_set), max(per_set)], **stats,
                profile=_profiled(lambda: [step(0) for _ in range(5)]))
     if not ap >= 0.9:
         raise SystemExit(f"training obb: mAP50 below 0.9 {out}")

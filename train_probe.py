@@ -7,6 +7,12 @@ phase 13.
         scenes, batch 8, cosine decay over --steps) and its in-hole gain
         over the Jacobi prefill on chip_smoke's 3 held-out seeds (flip
         ensemble) every --every steps, with ms per step;
+    python3 train_probe.py obb --runs 4 --eval-sets 1
+        on the card: chip_smoke's OBB detector case (``bench_detector.py``'s
+        configuration) trained --runs times, each from its own weights and
+        batch stream (seeds 100 + r, 200 + r), each scored on --eval-sets
+        held-out sets of 64 scenes (seeds 10,000 + e; e = 0 is
+        chip_smoke's): mAP50 of each;
     python3 train_probe.py ab --steps 400 --w-gan 0.1
         on the CPU: the reference (``pcmi_tpu``) and the port trained side
         by side at 48 px, widths (24, 48, 96, 96), from one state on the
@@ -64,6 +70,41 @@ def trajectory(steps: int, w_gan: float, every: int) -> None:
             print(f"trajectory w_gan={w_gan} step {i + 1} "
                   f"{time.perf_counter() - t0:.1f} s gains_db "
                   f"{[round(g, 3) for g in gains]}", flush=True)
+
+
+def obb(runs: int, eval_sets: int) -> None:
+    import chip_smoke as cs
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainConfig, OBBDetectorTrainer, synthesize_obb_batch)
+    from pcmi_tpu_torch.models.detector_eval import map50
+
+    print(cs.phase_device())
+    T = cs.TRAIN
+    for r in range(runs):
+        trainer = OBBDetectorTrainer(DetectorTrainConfig(lr=1e-3),
+                                     device="cuda")
+        net, opt = trainer.init(None, cs._gen(200 + r))
+        rng = cs._gen(100 + r)
+        for _ in range(T["obb_steps"]):
+            trainer.train_step(net, opt, *synthesize_obb_batch(
+                rng, T["obb_batch"], T["obb_size"], hard=True, device="cuda"))
+        detect = trainer.make_obb_detector(net, max_boxes=8,
+                                           score_thresh=0.25)
+        for e in range(eval_sets):
+            erng = cs._gen(10_000 + e)
+            dets, gts = [], []
+            for _ in range(T["obb_eval"] // 8):
+                imgs, obbs, valid = synthesize_obb_batch(
+                    erng, 8, T["obb_size"], hard=True, device="cuda")
+                got = detect(imgs).cpu().numpy()
+                obbs, valid = obbs.cpu().numpy(), valid.cpu().numpy()
+                for i in range(8):
+                    dets.append(got[i][got[i][:, 5] > 0.25])
+                    gts.append(obbs[i][valid[i]])
+            ap, stats = map50(dets, gts)
+            print(f"obb run {r} eval set {e} map50 {ap:.4f} recall "
+                  f"{stats['recall']:.4f} precision {stats['precision']:.4f} "
+                  f"objects {stats['n_gt']}", flush=True)
 
 
 def ab(package: str, steps: int, w_gan: float) -> None:
@@ -129,14 +170,18 @@ def ab(package: str, steps: int, w_gan: float) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=["trajectory", "ab"])
+    ap.add_argument("mode", choices=["trajectory", "obb", "ab"])
     ap.add_argument("--steps", type=int, default=6000)
     ap.add_argument("--w-gan", type=float, default=0.1)
     ap.add_argument("--every", type=int, default=1000)
     ap.add_argument("--package", choices=["ref", "port"], default="port")
+    ap.add_argument("--runs", type=int, default=4)
+    ap.add_argument("--eval-sets", type=int, default=1)
     a = ap.parse_args()
     if a.mode == "trajectory":
         trajectory(a.steps, a.w_gan, a.every)
+    elif a.mode == "obb":
+        obb(a.runs, a.eval_sets)
     else:
         ab(a.package, a.steps, a.w_gan)
 
