@@ -78,7 +78,7 @@ def masked_quantile_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,
     frac = torch.where(c_hi > c_lo,
                        (target - c_lo) / torch.clamp(c_hi - c_lo, min=1e-6),
                        torch.zeros_like(target))
-    return mul_add(frac.clamp(0.0, 1.0), hi - lo, lo)
+    return lo + frac.clamp(0.0, 1.0) * (hi - lo)
 
 
 def masked_median_grid(x: torch.Tensor, mask: torch.Tensor, lo, hi,

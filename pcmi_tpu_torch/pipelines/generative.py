@@ -26,18 +26,13 @@ import torch
 
 from pcmi_tpu_torch.interface import Layer, SatellitePlugin
 from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
+from pcmi_tpu_torch.models.dip import _as_tensor as _tensor
 from pcmi_tpu_torch.ops.filters import gaussian_filter, masked_jacobi_fill
 from pcmi_tpu_torch.ops.fused import mul_add, recip
 from pcmi_tpu_torch.ops.morphology import binary_dilation, distance_transform
 
 # one implementation, shared with the inpainting trainer's conditioning
 diffusion_prefill = masked_jacobi_fill
-
-
-def _tensor(a, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 def feather_blend(original: torch.Tensor, generated: torch.Tensor,
