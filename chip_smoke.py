@@ -2604,7 +2604,7 @@ def _train_obb(dev: str) -> dict:
     """``bench_detector.py``: ``OBBDetectorTrainer(lr=1e-3)`` on a fresh
     hard batch each step, then mAP50 over held-out scenes: the bench's 64
     (seed 10,000) and 8 such sets in all. One model scores 0.90-0.97 on
-    different sets of 64 (`train_probe.py obb`, PR 11), wider than the
+    different sets of 64 (`train_probe.py obb`), wider than the
     margin the gate tests, so the gate reads the 512 scenes together."""
     from pcmi_tpu_torch.models.detector import (
         DetectorTrainConfig, OBBDetectorTrainer, synthesize_obb_batch)
@@ -2880,7 +2880,7 @@ def phase_training(smi: str) -> dict:
     cases = (
         ("sr", _train_sr),
         # the bench's configuration (GAN term 0.1): at this cut budget its
-        # prefill comparison is reported, not gated (PERF.md §6, PR 11)
+        # prefill comparison is reported, not gated (PERF.md §6)
         ("inpaint", lambda d: _train_inpaint(d, 0.1, T["inpaint_steps"],
                                              False)),
         # the reference's tier-1 gate setting (no GAN term) at the bench's
