@@ -10,6 +10,8 @@ filter bank is one float32 convolution (TF32 is off in this package).
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -170,20 +172,16 @@ def filter_bank_2d(img: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 def masked_jacobi_fill(image: torch.Tensor, mask: torch.Tensor,
                        iters: int = 128) -> torch.Tensor:
-    """Fill the ``mask`` holes of an (H, W) or (H, W, C) image by Jacobi
-    relaxation from the rim: the holes start at the mean of the known
-    pixels, then take ``iters`` times a radius-2, sigma-1.5 Gaussian blur
-    while the known pixels stay."""
+    """Fill the (H, W) ``mask``'s holes of an (H, W) or (H, W, C) image by
+    Jacobi relaxation from the rim: the holes start at the mean of the
+    known pixels, then take ``iters`` times a radius-2, sigma-1.5 Gaussian
+    blur while the known pixels stay (:func:`masked_jacobi_fill_batch` of a
+    batch of one)."""
     img = image.float()
-    m = mask.float()
-    m3 = m[..., None] if img.dim() == 3 and m.dim() == 2 else m
-    w = torch.broadcast_to(1.0 - m3, img.shape)
-    known_mean = (img * w).sum() / torch.clamp(w.sum(), min=1.0)
-    x = img * (1.0 - m3) + known_mean * m3
-    hole = m3 > 0.5
-    for _ in range(iters):
-        x = torch.where(hole, gaussian_filter(x, 1.5, radius=2), img)
-    return x
+    flat = img.dim() == 2
+    out = masked_jacobi_fill_batch(img[None, ..., None] if flat else img[None],
+                                   mask[None], iters)[0]
+    return out[..., 0] if flat else out
 
 
 def masked_jacobi_fill_batch(images: torch.Tensor, masks: torch.Tensor,
@@ -222,8 +220,10 @@ def _relaxation(x, img, hole, k, iters: int) -> torch.Tensor:
     return x
 
 
-# CUDA graphs of _relaxation, by shape, step count and device
-_RELAXATION_GRAPHS: dict = {}
+# CUDA graphs of _relaxation by shape, step count and device, the most
+# recently used few (a trainer replays one or two shapes at every step)
+_RELAXATION_GRAPHS: OrderedDict = OrderedDict()
+_MAX_GRAPHS = 4
 
 
 def _graphed_relaxation(x, img, hole, k, iters: int) -> torch.Tensor:
@@ -231,7 +231,7 @@ def _graphed_relaxation(x, img, hole, k, iters: int) -> torch.Tensor:
     kernels in the same order (so the same result), without the ~1,400
     launches from the host that 64 steps take. The graph is captured at
     the first call of each shape and step count, then replayed on copies
-    of the inputs."""
+    of the inputs; the least recently used is dropped past four."""
     key = (tuple(x.shape), iters, x.device)
     entry = _RELAXATION_GRAPHS.get(key)
     if entry is None:
@@ -245,6 +245,9 @@ def _graphed_relaxation(x, img, hole, k, iters: int) -> torch.Tensor:
         with torch.cuda.graph(graph):
             out = _relaxation(*static, iters)
         entry = _RELAXATION_GRAPHS[key] = (graph, static, out)
+        while len(_RELAXATION_GRAPHS) > _MAX_GRAPHS:
+            _RELAXATION_GRAPHS.popitem(last=False)
+    _RELAXATION_GRAPHS.move_to_end(key)
     graph, static, out = entry
     for dst, src in zip(static[:3], (x, img, hole)):
         dst.copy_(src)

@@ -91,22 +91,25 @@ def warp_points_affine(matrix: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
 def invert_affine(matrix: torch.Tensor) -> torch.Tensor:
     """Invert a 2x3 (promoted to 3x3) or 3x3 affine matrix, float32, on
-    the host, as the reference's ``jnp.linalg.inv`` does on the CPU: LAPACK's
-    ``sgetrf`` (partial pivoting), then ``strsm`` on the permuted identity,
-    unit lower and upper triangles in turn. ``torch.linalg.inv`` rounds
-    differently (an ulp in a coordinate offset moves whole rows of a
-    rectified image). Returned on the matrix's device."""
+    its device. On the host, as the reference's ``jnp.linalg.inv`` does on
+    the CPU: LAPACK's ``sgetrf`` (partial pivoting), then ``strsm`` on the
+    permuted identity, unit lower and upper triangles in turn
+    (``torch.linalg.inv`` rounds differently, and an ulp in a coordinate
+    offset moves whole rows of a rectified image). The rectifier builds its
+    matrices on the host; a matrix on the card is inverted there by
+    ``torch.linalg.inv``, without a copy to the host."""
+    t = torch.as_tensor(matrix, dtype=torch.float32)
+    if t.shape == (2, 3):
+        t = torch.cat([t, t.new_tensor([[0.0, 0.0, 1.0]])], 0)
+    if t.device.type != "cpu":
+        return torch.linalg.inv(t)
     from scipy.linalg import blas, lapack
 
-    t = torch.as_tensor(matrix, dtype=torch.float32)
-    m = t.detach().cpu().numpy()
-    if m.shape == (2, 3):
-        m = np.concatenate([m, np.array([[0.0, 0.0, 1.0]], np.float32)], 0)
-    lu, piv, _ = lapack.sgetrf(m)  # singular: inf / nan, as the reference
-    perm = np.arange(len(m))
+    lu, piv, _ = lapack.sgetrf(t.numpy())  # singular: inf / nan, as the reference
+    perm = np.arange(len(t))
     for i, p in enumerate(piv):
         perm[i], perm[p] = perm[p], perm[i]
-    x = np.eye(len(m), dtype=np.float32)[perm]
+    x = np.eye(len(t), dtype=np.float32)[perm]
     x = blas.strsm(1.0, lu, x, side=0, lower=1, diag=1)
     x = blas.strsm(1.0, lu, x, side=0, lower=0, diag=0)
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(t.device)
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))

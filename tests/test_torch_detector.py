@@ -34,6 +34,8 @@ from pcmi_tpu_torch.models import detector as td
 from pcmi_tpu_torch.models import detector_eval as tev
 from pcmi_tpu_torch.pipelines.detection import ObjectDetector
 
+from _torch_draws import obb_draws
+
 torch.set_num_threads(1)
 
 TOL = 1e-5
@@ -237,48 +239,11 @@ def test_decode_matches_reference(obb, rng):
     assert (want[..., score] == 0).any()
 
 
-def _obb_draws(key, batch, size, max_objects=5, hard=True):
-    """``synthesize_obb_batch``'s own draws from ``key``."""
-    r = jax.random
-    kb, kn, kc, ks, ka, kg, kd = r.split(key, 7)
-    lo_l, hi_l = (11.0, 34.0) if hard else (16.0, 30.0)
-    lo_b = 0.18 if hard else 0.25
-    sh = (batch, max_objects)
-    d = dict(gy=r.normal(kn, (batch, size // 8 + 2, size // 8 + 2, 1)),
-             g2=r.normal(r.fold_in(kn, 1), (batch, size // 2, size // 2, 1)),
-             n_obj=r.randint(kb, (batch,), 1, max_objects + 1),
-             cy=r.uniform(kc, sh, minval=0.18, maxval=0.82) * size,
-             cx=r.uniform(r.fold_in(kc, 1), sh, minval=0.18,
-                          maxval=0.82) * size,
-             length=r.uniform(ks, sh, minval=lo_l, maxval=hi_l))
-    d["span"] = d["length"] * r.uniform(r.fold_in(ks, 1), sh, minval=0.7,
-                                        maxval=0.95)
-    d["theta"] = r.uniform(ka, sh, minval=-np.pi / 2, maxval=np.pi / 2)
-    d["bright"] = r.uniform(kg, sh, minval=lo_b, maxval=0.45)
-    if hard:
-        nd = 4
-        k1, k2, k3, k4, k5 = r.split(kd, 5)
-        d["dy"] = r.uniform(k1, (batch, nd)) * size
-        d["dx"] = r.uniform(r.fold_in(k1, 1), (batch, nd)) * size
-        d["dl"] = r.uniform(k2, (batch, nd), minval=8.0, maxval=26.0)
-        d["dw"] = d["dl"] * r.uniform(r.fold_in(k2, 1), (batch, nd),
-                                      minval=0.3, maxval=0.6)
-        d["dth"] = r.uniform(k3, (batch, nd), minval=-np.pi / 2,
-                             maxval=np.pi / 2)
-        d["dbr"] = r.uniform(k4, (batch, nd), minval=lo_b, maxval=0.45)
-        d["round"] = r.bernoulli(k5, 0.4, (batch, nd))
-        kr = r.fold_in(kd, 7)
-        d["p0"] = r.uniform(kr, (batch, 2, 2)) * size
-        d["ang"] = r.uniform(r.fold_in(kr, 1), (batch, 2), minval=0.0,
-                             maxval=np.pi)
-    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
-
-
 @pytest.mark.parametrize("hard", [False, True])
 def test_render_obb_batch_matches_reference(hard):
     key = jax.random.PRNGKey(5)
     want = jd.synthesize_obb_batch(key, 3, 64, hard=hard)
-    got = td.render_obb_batch(64, _obb_draws(key, 3, 64, hard=hard), hard)
+    got = td.render_obb_batch(64, obb_draws(key, 3, 64, hard=hard), hard)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                atol=1e-6, rtol=0)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))

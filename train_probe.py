@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Measurements of the port's inpainting GAN trainer beyond chip_smoke's
-phase 13.
+"""Measurements of the port's trainers beyond chip_smoke's phase 13.
 
-    python3 train_probe.py trajectory --steps 6000 --w-gan 0.1 --every 1000
-        on the card: the bench's configuration (widths 48/96/192/384, 96²
-        scenes, batch 8, cosine decay over --steps) and its in-hole gain
-        over the Jacobi prefill on chip_smoke's 3 held-out seeds (flip
-        ensemble) every --every steps, with ms per step;
+    python3 train_probe.py export
+        on the CPU, with JAX (``JAX_PLATFORMS=cpu``): writes the reference
+        benches' own draws into ``reference_draws.npz`` (see
+        ``chip_smoke.reference_draws``): the scene seeds of
+        ``bench_generative``'s pool and held-out sets, its held-out hole
+        masks, and the draws of ``bench_detector``'s 64 held-out scenes;
+    python3 train_probe.py inpaint --config bench|record --steps N --every K
+        on the card: the inpainting GAN on the reference bench's pool of 48
+        scenes, its in-hole gain over the Jacobi prefill on the bench's 3
+        held-out sets (the reference's scenes and masks) every K steps,
+        without and with the flip ensemble. ``bench``: the bench's
+        configuration (widths 48/96/192/384, cosine decay over N steps);
+        ``record``: the configuration of the bench's 12,000-step record
+        (the trainer's defaults: widths 32/64/128/256, constant learning
+        rate, evaluated without the ensemble). ``--seed`` picks the
+        weights and the batch stream (0: chip_smoke's);
     python3 train_probe.py obb --runs 4 --eval-sets 1
         on the card: chip_smoke's OBB detector case (``bench_detector.py``'s
         configuration) trained --runs times, each from its own weights and
-        batch stream (seeds 100 + r, 200 + r), each scored on --eval-sets
-        held-out sets of 64 scenes (seeds 10,000 + e; e = 0 is
-        chip_smoke's): mAP50 of each;
-    python3 train_probe.py ab --steps 400 --w-gan 0.1
+        batch stream (seeds 200 + r, 100 + r), each scored on the bench's
+        64 held-out scenes (the reference's draws) and on --eval-sets sets
+        of 64 drawn by the port (seeds 10,000 + e): mAP50 of each;
+    python3 train_probe.py ab --steps 400 --w-gan 0.1 --every 100
         on the CPU: the reference (``pcmi_tpu``) and the port trained side
         by side at 48 px, widths (24, 48, 96, 96), from one state on the
-        same batches and hole masks (the reference's draws), the gain over
-        the prefill on 2 held-out seeds every 100 steps. Needs JAX
+        same batches and hole masks (the reference's draws; ``--seed``
+        picks the state and the batch stream), the gain over the prefill
+        on 2 held-out seeds every K steps. Needs JAX
         (``JAX_PLATFORMS=cpu``); runs one package per process
         (``--package ref`` or ``port``).
 
@@ -27,59 +38,92 @@ Each prints one line per evaluation.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
 import torch
 
 
-def trajectory(steps: int, w_gan: float, every: int) -> None:
+def export(path: str) -> None:
+    import jax
+
+    sys.path.insert(0, "tests")
+    from _torch_draws import obb_draws
+    from pcmi_tpu.models.losses import random_hole_masks
+
+    r = jax.random
+
+    def scene_seeds(key, n):  # bench_generative._batch's per-scene seeds
+        return np.array([int(r.randint(k, (), 0, 2**31 - 1))
+                         for k in r.split(key, n)], np.int64)
+
+    out = {"inpaint_pool_seeds": scene_seeds(r.PRNGKey(0), 48),
+           "sr_eval_seeds": scene_seeds(r.PRNGKey(50_000), 8)}
+    seeds, masks = [], []
+    for es in range(3):
+        seeds.append(scene_seeds(r.PRNGKey(60_000 + 97 * es), 8))
+        m = random_hole_masks(r.PRNGKey(61_000 + 97 * es), (8, 96, 96), 6, 10)
+        masks.append(np.asarray(m)[..., 0] > 0.5)
+    out["inpaint_eval_seeds"] = np.stack(seeds)
+    out["inpaint_eval_masks"] = np.packbits(np.stack(masks), axis=-1)
+    key, parts = r.PRNGKey(10_000), []
+    for _ in range(8):
+        key, sub = r.split(key)
+        parts.append(obb_draws(sub, 8, 128, hard=True))
+    for k in parts[0]:
+        out["obb_" + k] = np.concatenate([p[k].numpy() for p in parts])
+    np.savez_compressed(path, **out)
+    print(f"export {path}: " + ", ".join(f"{k} {v.shape}"
+                                          for k, v in out.items()))
+
+
+def inpaint(config: str, steps: int, every: int, seed: int) -> None:
     import chip_smoke as cs
-    from pcmi_tpu_torch.models.losses import random_hole_masks
-    from pcmi_tpu_torch.models.metrics import psnr
-    from pcmi_tpu_torch.models.scenes import make_pool, sample_batch
+    from pcmi_tpu_torch.models.scenes import sample_batch, scene_batch
     from pcmi_tpu_torch.models.training import (
         InpaintGANTrainer, InpaintTrainConfig)
     from pcmi_tpu_torch.models.unet import InpaintUNet
-    from pcmi_tpu_torch.ops.filters import masked_jacobi_fill_batch
 
     print(cs.phase_device())
     T = cs.TRAIN
-    size, b = T["inpaint_size"], T["inpaint_batch"]
-    trainer = InpaintGANTrainer(
-        InpaintTrainConfig(total_steps=steps, w_gan=w_gan),
-        generator=InpaintUNet(widths=T["inpaint_widths"]), device="cuda")
-    pool = make_pool(0, T["pool"], size, "cuda")
-    state = trainer.init(None, cs._gen(1))
-    rng = cs._gen(0)
-    evals = []
-    for es in range(T["eval_seeds"]):
-        imgs = cs._held_out(60_000 + 97 * es, b, size, "cuda")
-        mask = random_hole_masks(cs._gen(61_000 + 97 * es), (b, size, size),
-                                 6, 10, device="cuda")
-        pre = masked_jacobi_fill_batch(imgs, mask[..., 0], 128)
-        evals.append((imgs, mask, float(psnr(pre, imgs, mask=mask))))
+    draws = cs.reference_draws()
+    if config == "bench":
+        trainer = InpaintGANTrainer(
+            InpaintTrainConfig(total_steps=steps),
+            generator=InpaintUNet(widths=T["inpaint_widths"]), device="cuda")
+    else:
+        trainer = InpaintGANTrainer(InpaintTrainConfig(), device="cuda")
+    pool = scene_batch(draws["inpaint_pool_seeds"], T["inpaint_size"], "cuda")
+    sets = cs.inpaint_eval_sets(draws, "cuda")
+    state = trainer.init(None, cs._gen(1 + 100 * seed))
+    rng = cs._gen(100 * seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        state, _m = trainer.train_step(state, sample_batch(pool, b, rng), rng)
+        state, _m = trainer.train_step(
+            state, sample_batch(pool, T["inpaint_batch"], rng), rng)
         if (i + 1) % every == 0:
             torch.cuda.synchronize()
-            gains = [float(psnr(trainer.infer(state, im, mk, ensemble=True),
-                                im, mask=mk)) - p for im, mk, p in evals]
-            print(f"trajectory w_gan={w_gan} step {i + 1} "
-                  f"{time.perf_counter() - t0:.1f} s gains_db "
-                  f"{[round(g, 3) for g in gains]}", flush=True)
+            s = time.perf_counter() - t0
+            plain, ens = (cs.inpaint_gains(trainer, state, sets, e)
+                          for e in (False, True))
+            print(f"inpaint {config} seed {seed} step {i + 1} {s:.1f} s "
+                  f"prefill_psnr {plain['prefill_psnr']:.4f} gains_db "
+                  f"{[round(g, 3) for g in plain['gains_db']]} ensemble "
+                  f"{[round(g, 3) for g in ens['gains_db']]}", flush=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter() - s
 
 
 def obb(runs: int, eval_sets: int) -> None:
     import chip_smoke as cs
     from pcmi_tpu_torch.models.detector import (
         DetectorTrainConfig, OBBDetectorTrainer, synthesize_obb_batch)
-    from pcmi_tpu_torch.models.detector_eval import map50
 
     print(cs.phase_device())
     T = cs.TRAIN
+    draws = cs.reference_draws()
     for r in range(runs):
         trainer = OBBDetectorTrainer(DetectorTrainConfig(lr=1e-3),
                                      device="cuda")
@@ -90,24 +134,21 @@ def obb(runs: int, eval_sets: int) -> None:
                 rng, T["obb_batch"], T["obb_size"], hard=True, device="cuda"))
         detect = trainer.make_obb_detector(net, max_boxes=8,
                                            score_thresh=0.25)
+        named = [("bench", cs.obb_bench_scenes(draws, "cuda"))]
         for e in range(eval_sets):
             erng = cs._gen(10_000 + e)
-            dets, gts = [], []
-            for _ in range(T["obb_eval"] // 8):
-                imgs, obbs, valid = synthesize_obb_batch(
-                    erng, 8, T["obb_size"], hard=True, device="cuda")
-                got = detect(imgs).cpu().numpy()
-                obbs, valid = obbs.cpu().numpy(), valid.cpu().numpy()
-                for i in range(8):
-                    dets.append(got[i][got[i][:, 5] > 0.25])
-                    gts.append(obbs[i][valid[i]])
-            ap, stats = map50(dets, gts)
-            print(f"obb run {r} eval set {e} map50 {ap:.4f} recall "
+            named.append((f"port {e}", [
+                synthesize_obb_batch(erng, 8, T["obb_size"], hard=True,
+                                     device="cuda")
+                for _ in range(T["obb_eval"] // 8)]))
+        for name, batches in named:
+            ap, stats = cs.obb_map50(detect, batches)
+            print(f"obb run {r} scenes {name} map50 {ap:.4f} recall "
                   f"{stats['recall']:.4f} precision {stats['precision']:.4f} "
                   f"objects {stats['n_gt']}", flush=True)
 
 
-def ab(package: str, steps: int, w_gan: float) -> None:
+def ab(package: str, steps: int, w_gan: float, seed: int, every: int) -> None:
     import jax
     import jax.numpy as jnp
 
@@ -126,7 +167,7 @@ def ab(package: str, steps: int, w_gan: float) -> None:
                                discriminator=ju.PatchDiscriminator(
                                    widths=d_widths))
     pool = make_pool(jax.random.PRNGKey(0), 24, size)
-    state = ref.init(jax.random.PRNGKey(3), pool[:b])
+    state = ref.init(jax.random.PRNGKey(3 + 100 * seed), pool[:b])
     if package == "port":
         from pcmi_tpu_torch import convert
         from pcmi_tpu_torch.models import training as tt, unet as tu
@@ -143,7 +184,7 @@ def ab(package: str, steps: int, w_gan: float) -> None:
         pre = jnp.stack([diffusion_prefill(imgs[i], mask[i, ..., 0] > 0.5)
                          for i in range(b)])
         evals.append((imgs, mask, float(psnr(pre, imgs, mask=mask))))
-    key = jax.random.PRNGKey(2)
+    key = jax.random.PRNGKey(2 + 100 * seed)
     for i in range(steps):
         key, k1, k2 = jax.random.split(key, 3)
         imgs = sample_batch(k1, pool, b)
@@ -154,7 +195,7 @@ def ab(package: str, steps: int, w_gan: float) -> None:
             mask = random_hole_masks(km, (b, size, size), 6, 10)
             state, _m = port._step(state, torch.from_numpy(np.array(imgs)),
                                    torch.from_numpy(np.array(mask)))
-        if (i + 1) % 100 == 0:
+        if (i + 1) % every == 0:
             gains = []
             for im, mk, p in evals:
                 if package == "ref":
@@ -164,26 +205,31 @@ def ab(package: str, steps: int, w_gan: float) -> None:
                                                  np.array(mk),
                                                  ensemble=True).numpy())
                 gains.append(round(float(psnr(out, im, mask=mk)) - p, 3))
-            print(f"ab {package} w_gan={w_gan} step {i + 1} gains_db {gains}",
-                  flush=True)
+            print(f"ab {package} w_gan={w_gan} seed {seed} step {i + 1} "
+                  f"gains_db {gains}", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=["trajectory", "obb", "ab"])
+    ap.add_argument("mode", choices=["export", "inpaint", "obb", "ab"])
+    ap.add_argument("--out", default="reference_draws.npz")
+    ap.add_argument("--config", choices=["bench", "record"], default="bench")
     ap.add_argument("--steps", type=int, default=6000)
-    ap.add_argument("--w-gan", type=float, default=0.1)
     ap.add_argument("--every", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--w-gan", type=float, default=0.1)
     ap.add_argument("--package", choices=["ref", "port"], default="port")
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--eval-sets", type=int, default=1)
     a = ap.parse_args()
-    if a.mode == "trajectory":
-        trajectory(a.steps, a.w_gan, a.every)
+    if a.mode == "export":
+        export(a.out)
+    elif a.mode == "inpaint":
+        inpaint(a.config, a.steps, a.every, a.seed)
     elif a.mode == "obb":
         obb(a.runs, a.eval_sets)
     else:
-        ab(a.package, a.steps, a.w_gan)
+        ab(a.package, a.steps, a.w_gan, a.seed, a.every)
 
 
 if __name__ == "__main__":
