@@ -180,9 +180,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     its own norm; the share of parameters within 1e-4 after the third
     step; DIP's output); a checkpoint round trip on the card (bit-equal),
     and ``registry.failures()`` empty. No stereo kernel launches in this
-    phase.
+    phase;
+14. tiled diffusion (``bench_generative.bench_diffusion``, uncut,
+    ``DIFFUSION``): ``DiffusionConfig(steps=18, tile=32, stride=24,
+    train_timesteps=400, text_conditioning=True)``, ``CondUNet(widths=(16,
+    32, 64))``, the bench's 48 styled 64² scenes of each of its seeds 0-2
+    (``reference_draws.npz``), batch 16, Adam 2e-3, 4,000 steps, hole
+    masks ``random_hole_masks(..., 8, 16)``; the bench's evaluation on its
+    two held-out scenes (centre hole, guidance 1 and 3) and its three
+    gates (steer > 0.02, divergence at guidance 3 above guidance 1, the
+    matched prompt's PSNR above the mismatched one) on seed 0, seeds 1-2
+    reported; loss at step 20 and at the end, training s, ms per step,
+    peak MB, busy share over 5 profiled steps; then the trained engine
+    through ``RestorationGenerativePlugin(engine=...)`` on a 1024² RGB
+    image with NaN holes (finite, known pixels kept) and
+    ``EnhancementProcessor`` on 512², median ms; one training step and one
+    DDIM and one DPM++ fill at guidance 3 on the card and on the CPU from
+    shared weights and draws (``DIFF_CMP_BOUNDS``). No stereo kernel
+    launches;
+15. the scale-out layer on one card, a 1 x 1 mesh over a world-size-1
+    NCCL group: the halo exchange pads zeros; ``sharded_disparity`` on the
+    headline pair's matcher inputs (interior rows within 0.51 px of the
+    single-device matcher on > 98 %, 6/3/1 launches);
+    ``batched_pair_step`` on phase 7's pairs 0 and 1 (bit-equal to
+    ``pair_core``, 12/6/2 launches); ``sharded_dsm_update`` equal to the
+    sequential loop; ``data_parallel_step`` of one inpainting GAN step
+    within phase 13's card-against-CPU bounds of the plain step.
 
-The last lines are a summary of phases 7b-13 (under 1500 characters;
+The last lines are a summary of phases 7b-15 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
@@ -3004,6 +3029,415 @@ def phase_training(smi: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: tiled diffusion (bench_generative.bench_diffusion, uncut)
+# ---------------------------------------------------------------------------
+
+# bench_generative.py:249-369: the engine, the widths, the budget, the
+# batch, the hole masks and the evaluation of bench_diffusion; the gates
+# (:413-417) hold on its seed 0, seeds 1-2 are reported beside it
+DIFFUSION = dict(
+    steps=4000, size=64, batch=16, lr=2e-3, widths=(16, 32, 64),
+    sample_steps=18, tile=32, stride=24, timesteps=400, dropout=0.1,
+    hole_seeds=8, hole_steps=16, seeds=(0, 1, 2), gated_seed=0,
+    plugin_size=1024, enhance_size=512, cmp_batch=4)
+DIFFUSION_PROMPTS = {"fields": "dark farm fields",
+                     "urban": "bright urban blocks"}
+# card against CPU on shared weights and draws: one training step's loss
+# (absolute) and worst leaf gradient (relative to the leaf's norm; the
+# biases an instance norm follows left out), the DDIM and DPM++ fills
+# with guidance 3 (largest absolute difference)
+DIFF_CMP_BOUNDS = dict(loss=1e-4, grad_rel=1e-2, ddim=5e-2, dpmpp=5e-2)
+
+
+def _diffusion_engine(dev: str):
+    from pcmi_tpu_torch.models.diffusion import (
+        CondUNet, DiffusionConfig, TiledDiffusionEngine)
+
+    D = DIFFUSION
+    cfg = DiffusionConfig(steps=D["sample_steps"], tile=D["tile"],
+                          stride=D["stride"], img_channels=3,
+                          train_timesteps=D["timesteps"],
+                          text_conditioning=True, cfg_dropout=D["dropout"])
+    return TiledDiffusionEngine(cfg, device=dev, model=CondUNet(
+        widths=D["widths"], out_channels=3, text_conditioning=True))
+
+
+def _diffusion_pool(draws: dict, seed: int, dev: str):
+    """bench_diffusion(seed)'s 24 fields and 24 urban scenes (the
+    reference's seeds) and its caption tokens, (2, 5, L)."""
+    from pcmi_tpu_torch.models.diffusion import tokenize_prompt
+    from pcmi_tpu_torch.models.scenes import STYLE_CAPTIONS, make_styled_scene
+
+    size = DIFFUSION["size"]
+    pool = np.stack([make_styled_scene(int(s), style, size)
+                     for style, seeds in zip(
+                         ("fields", "urban"), draws["diffusion_pool_seeds"][seed])
+                     for s in seeds])
+    toks = np.stack([[tokenize_prompt(c) for c in STYLE_CAPTIONS[s]]
+                     for s in ("fields", "urban")]).astype(np.int64)
+    return torch.from_numpy(pool).to(dev), torch.from_numpy(toks).to(dev)
+
+
+def _diffusion_trainer(seed: int, draws: dict, dev: str, steps: int):
+    """bench_diffusion's training loop: (engine, network, ``step(i)``, the
+    losses of steps 20 and ``steps - 1``). Each step draws the styles,
+    scenes and caption variants of a batch, its hole masks and the
+    training draws from one CPU generator (the reference splits a key)."""
+    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.training import adam, apply_gradients
+
+    D = DIFFUSION
+    size, b = D["size"], D["batch"]
+    eng = _diffusion_engine(dev)
+    pool, toks = _diffusion_pool(draws, seed, dev)
+    n_pool = pool.shape[0] // 2
+    net = eng.init_params(_gen(seed + 1))
+    params = list(net.parameters())
+    opt = adam(params, dev, lr=D["lr"])
+    rng = _gen(3000 + seed)
+    losses: dict = {}
+
+    def step(i):
+        style = torch.randint(0, 2, (b,), generator=rng)
+        idx = torch.randint(0, n_pool, (b,), generator=rng) + style * n_pool
+        variant = torch.randint(0, toks.shape[1], (b,), generator=rng)
+        imgs = pool[idx.to(dev)] * 2.0 - 1.0
+        tk = toks[style.to(dev), variant.to(dev)]
+        masks = random_hole_masks(rng, (b, size, size), D["hole_seeds"],
+                                  D["hole_steps"], device=dev)
+        loss = eng.train_step_loss(net, imgs, masks, rng, None, tk)
+        apply_gradients(opt, params, loss)
+        if i in (20, steps - 1):
+            losses[i] = loss.detach()
+
+    return eng, net, step, losses
+
+
+def _diffusion_eval(eng, net, seed: int, draws: dict, dev: str) -> dict:
+    """bench_diffusion's held-out evaluation: its two scenes (one per
+    style) with the centre hole, each filled under the matched and the
+    mismatched prompt at guidance 1 and 3 (DPM++, seeds 7 and 8): in-hole
+    L1 divergence of the two fills per guidance, the brightness steer and
+    the matched prompt's PSNR advantage at guidance 3."""
+    from pcmi_tpu_torch.models.metrics import psnr
+    from pcmi_tpu_torch.models.scenes import make_styled_scene
+
+    size = DIFFUSION["size"]
+    q = size // 4
+    hole = torch.zeros((size, size, 1), device=dev)
+    hole[q:size - q, q:size - q] = 1.0
+    hv = hole[..., 0] > 0.5
+    div = {1.0: [], 3.0: []}
+    steer, adv = [], []
+    for s_i, style in enumerate(("fields", "urban")):
+        img = torch.from_numpy(make_styled_scene(
+            int(draws["diffusion_eval_seeds"][seed][s_i]), style, size)).to(dev)
+        other = "urban" if style == "fields" else "fields"
+        for g in (1.0, 3.0):
+            fa, fb = ((eng.inpaint(net, img * 2.0 - 1.0, hole, seed=7 + s_i,
+                                   prompt=DIFFUSION_PROMPTS[p], guidance=g)
+                       + 1.0) * 0.5 for p in (style, other))
+            div[g].append(float((fa - fb).abs()[hv].mean()))
+            if g == 3.0:
+                adv.append(float(psnr(fa[None], img[None], mask=hole[None]))
+                           - float(psnr(fb[None], img[None],
+                                        mask=hole[None])))
+                sign = 1.0 if style == "urban" else -1.0
+                steer.append(sign * float(fa[hv].mean() - fb[hv].mean()))
+    return dict(divergence_g1=float(np.mean(div[1.0])),
+                divergence_g3=float(np.mean(div[3.0])),
+                steer_brightness=float(np.mean(steer)),
+                matched_minus_mismatched_db=float(np.mean(adv)))
+
+
+def _diffusion_gates(row: dict) -> dict:
+    """bench_generative.py:413-417."""
+    return dict(steers=row["steer_brightness"] > 0.02,
+                cfg_amplifies=row["divergence_g3"] > row["divergence_g1"],
+                matched_better=row["matched_minus_mismatched_db"] > 0)
+
+
+def _nan_holes(img: np.ndarray) -> np.ndarray:
+    """``img`` with three rectangular NaN holes."""
+    out = img.copy()
+    h, w = out.shape[:2]
+    for y, x, hh, ww in ((h // 5, w // 4, 40, 64), (h // 2, w // 2, 96, 48),
+                         (3 * h // 4, w // 6, 24, 120)):
+        out[y:y + hh, x:x + ww] = np.nan
+    return out
+
+
+def _diffusion_user_path(eng, net) -> dict:
+    """The trained engine through the user's entry points on the card:
+    ``RestorationGenerativePlugin(engine=...)`` on a 1024² RGB image with
+    NaN holes (tiled DPM++; finite, the pixels outside the holes and their
+    margin kept) and ``EnhancementProcessor`` on 512² (img2img; finite),
+    each median ms of 3 after a warm-up, with peak MB."""
+    from pcmi_tpu_torch.models.scenes import make_styled_scene
+    from pcmi_tpu_torch.pipelines.generative import (
+        EnhancementProcessor, RestorationGenerativePlugin, nan_mask)
+
+    D = DIFFUSION
+    eng.load_params(net)
+    img = make_styled_scene(91_000, "urban", D["plugin_size"])
+    holed = _nan_holes(img)
+    plugin = RestorationGenerativePlugin(engine=eng, device="cuda")
+    held = _peak_start()
+    box = []
+    ms = _median_ms(lambda: box.append(plugin.run(holed)), 3)
+    restored = box[-1][1][0]
+    keep = ~nan_mask(holed, 10, "cuda")
+    out = dict(fill_ms=ms, fill_peak_mb=_peak_mb(held),
+               fill_finite=bool(np.isfinite(restored).all()),
+               fill_kept=bool(np.array_equal(restored[keep], img[keep])),
+               hole_px=int((~keep).sum()))
+    small = make_styled_scene(91_001, "fields", D["enhance_size"])
+    proc = EnhancementProcessor(eng, device="cuda")
+    held = _peak_start()
+    box = []
+    out["enhance_ms"] = _median_ms(lambda: box.append(proc.process(small)), 3)
+    out["enhance_peak_mb"] = _peak_mb(held)
+    out["enhance_finite"] = bool(np.isfinite(box[-1]).all()
+                                 and box[-1].shape == small.shape)
+    if not (out["fill_finite"] and out["fill_kept"]
+            and out["enhance_finite"]):
+        raise SystemExit(f"diffusion user path: {out}")
+    return out
+
+
+def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
+    """One training step and one DDIM and one DPM++ fill (guidance 3, the
+    urban prompt, bench_diffusion's held-out urban scene and centre hole)
+    on the card and on the CPU from the trained weights and shared draws,
+    held to ``DIFF_CMP_BOUNDS``."""
+    import copy
+
+    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.scenes import make_styled_scene
+
+    D = DIFFUSION
+    size, b = D["size"], D["cmp_batch"]
+    pool, toks = _diffusion_pool(draws, D["gated_seed"], "cpu")
+    imgs = pool[::12][:b] * 2.0 - 1.0
+    tk = toks[torch.arange(b) % 2, torch.arange(b) % toks.shape[1]]
+    masks = random_hole_masks(_gen(5), (b, size, size), D["hole_seeds"],
+                              D["hole_steps"], device="cpu")
+    scene = torch.from_numpy(make_styled_scene(
+        int(draws["diffusion_eval_seeds"][D["gated_seed"]][1]), "urban",
+        size)) * 2.0 - 1.0
+    hole = torch.zeros((size, size, 1))
+    hole[size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
+    g = _gen(6)
+    sdraws = (torch.randn((size, size, 3), generator=g),
+              [torch.randn((size, size, 3), generator=g)
+               for _ in range(D["sample_steps"])])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _diffusion_engine(dev)
+        n = copy.deepcopy(net).to(dev)
+        tdraws = eng.train_draws(b, imgs.shape, _gen(7))
+        loss = eng.train_step_loss(n, imgs, masks, None, None, tk,
+                                   _draws=tdraws)
+        loss.backward()
+        tok = eng.tokens_for_prompt(DIFFUSION_PROMPTS["urban"])
+        fills = {m: fn(n, scene.to(dev), hole.to(dev), None, (size, size),
+                       tokens=tok, guidance=3.0, _draws=sdraws).cpu()
+                 for m, fn in (("ddim", eng._sample),
+                               ("dpmpp", eng._sample_dpmpp))}
+        runs[dev] = (loss.item(), _grads(n), fills, n)
+    (l_card, g_card, f_card, n_card), (l_cpu, g_cpu, f_cpu, n_cpu) = (
+        runs["cuda"], runs["cpu"])
+    null = _norm_biases(n_cpu)
+    out = dict(loss=abs(l_card - l_cpu), grad_rel=max(
+        float((g_card[k] - g_cpu[k]).norm()) / max(float(g_cpu[k].norm()),
+                                                   1e-30)
+        for k in g_cpu if k not in null))
+    for m in ("ddim", "dpmpp"):
+        out[m] = float((f_card[m] - f_cpu[m]).abs().max())
+    bad = {k: v for k, v in out.items() if not v <= DIFF_CMP_BOUNDS[k]}
+    if bad:
+        raise SystemExit(f"diffusion card_vs_cpu beyond {DIFF_CMP_BOUNDS}: "
+                         f"{bad}")
+    return out
+
+
+def phase_diffusion(smi: str) -> dict:
+    """Phase 14: bench_diffusion on the card, uncut, for the bench's seeds
+    0-2 (gated on seed 0), then the user's path and the card against the
+    CPU. No stereo kernel launches."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    D = DIFFUSION
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    draws = reference_draws()
+    out: dict = {"card": smi}
+    for seed in D["seeds"]:
+        eng, net, step, losses = _diffusion_trainer(seed, draws, "cuda",
+                                                    D["steps"])
+        held = _peak_start()
+        s, ms = _steps(step, D["steps"])
+        row = dict(loss_20=float(losses[20]),
+                   loss_end=float(losses[D["steps"] - 1]), train_s=s,
+                   ms_step=ms, peak_mb=_peak_mb(held))
+        row.update(_diffusion_eval(eng, net, seed, draws, "cuda"))
+        row["gates"] = _diffusion_gates(row)
+        if seed == D["gated_seed"]:
+            gated = (eng, net, row)
+        out[f"seed{seed}"] = row
+        print(f"diffusion seed {seed}: {json.dumps(_sig(row, 6))} ({smi})")
+    eng, net, row = gated
+    pstep = _diffusion_trainer(D["gated_seed"], draws, "cuda", 7)[2]
+    _steps(pstep, 2)  # warm-up
+    prof = _profiled(lambda: [pstep(i) for i in range(2, 7)])
+    out["profile"] = prof
+    print(f"diffusion profile (5 steps): {json.dumps(_sig(prof, 4))}")
+    out["user"] = _diffusion_user_path(eng, net)
+    print(f"diffusion user path: {json.dumps(_sig(out['user'], 6))} ({smi})")
+    out["card_vs_cpu"] = _diffusion_card_vs_cpu(net, draws)
+    print(f"diffusion card_vs_cpu: {json.dumps(_sig(out['card_vs_cpu'], 4))}"
+          f" (bounds {DIFF_CMP_BOUNDS})")
+    _launched("diffusion", dict(K.LAUNCHES), NONE)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"diffusion: phase {out['phase_s']:.1f} s, gates on seed "
+          f"{D['gated_seed']} {row['gates']}")
+    if not all(row["gates"].values()):
+        raise SystemExit(f"diffusion: a gate of bench_generative.py:413-417 "
+                         f"fails on seed {D['gated_seed']}: {row}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the scale-out layer on one card (a world of one NCCL rank)
+# ---------------------------------------------------------------------------
+
+
+def _nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def phase_parallel(ctx: "Headline", dctx: "D288") -> dict:
+    """Phase 15: ``pcmi_tpu_torch.parallel`` and ``data_parallel_step`` on
+    a 1 x 1 mesh over a world-size-1 NCCL group (the multi-rank cases run
+    on the CPU in ``tests/test_torch_parallel.py``): the halo exchange
+    pads zeros; ``sharded_disparity`` on the headline pair's matcher
+    inputs agrees with ``compute_disparity`` + ``refine_disparity`` on
+    the interior rows (within 0.51 px on > 98 %, ``tests/test_parallel.py``)
+    with 6/3/1 launches; ``batched_pair_step`` on phase 7's pairs 0 and 1
+    equals ``pair_core`` pair by pair with 12/6/2 launches;
+    ``sharded_dsm_update`` equals the sequential ``dsm_update`` loop;
+    ``data_parallel_step`` of one inpainting GAN step equals the plain
+    step within phase 13's card-against-CPU bounds."""
+    import torch.distributed as dist
+
+    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.training import (
+        InpaintGANTrainer, InpaintTrainConfig, data_parallel_step)
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo.matching import (
+        compute_disparity, refine_disparity)
+    from pcmi_tpu_torch.parallel import (
+        batched_pair_step, halo_exchange_rows, make_mesh, sharded_disparity,
+        sharded_dsm_update)
+    from pcmi_tpu_torch.parallel.mesh import shard_blocks
+    from pcmi_tpu_torch.pipelines.height_map import pair_core
+    from pcmi_tpu_torch.pipelines.streaming import dsm_update, empty_dsm
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(1, 1, device_type="cuda")
+    out: dict = dict(world=dist.get_world_size(), backend=dist.get_backend())
+
+    x = torch.rand((64, 48), generator=_gen(3)).to("cuda")
+    ext = halo_exchange_rows(x, 8, mesh)
+    out["halo_zeros"] = bool(ext.shape == (80, 48) and not ext[:8].any()
+                             and not ext[-8:].any()
+                             and torch.equal(ext[8:-8], x))
+
+    n1, n2, v1, v2 = _matcher_inputs(ctx)
+    scfg = ctx.scfg
+    K.reset_launches()
+    disp, ok = sharded_disparity(mesh, scfg)(n1[None], n2[None], v1[None],
+                                              v2[None])
+    torch.cuda.synchronize()
+    out["sd_launches"] = dict(K.LAUNCHES)
+    ref = refine_disparity(compute_disparity(n1, n2, v1, v2, scfg, "sgm"),
+                           n1, scfg)
+    h = n1.shape[0]
+    inner = slice(16, h - 16)
+    out["sd_close"] = float(((disp[0] - ref.disparity).abs()[inner] <= 0.51)
+                            .float().mean())
+
+    pairs = [_d288_inputs(dctx, k) for k in (0, 1)]
+    rects = torch.stack([torch.stack(p[:2]) for p in pairs])
+    tri_M = torch.stack([p[2] for p in pairs])
+    tri_b = torch.stack([p[3] for p in pairs])
+    K.reset_launches()
+    t0 = time.perf_counter()
+    bp = batched_pair_step(mesh, dctx.strict)(rects, tri_M, tri_b)
+    torch.cuda.synchronize()
+    out["bp_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bp_launches"] = dict(K.LAUNCHES)
+    same = []
+    for k, (r1, r2, M, b) in enumerate(pairs):
+        prod = pair_core(r1, r2, M, b, dctx.strict)
+        same.append(bool(torch.equal(bp[0][k], prod.disparity)
+                         and torch.equal(bp[1][k], prod.valid)
+                         and _nan_equal(bp[2][k], prod.height)))
+    out["bp_equal"] = same
+
+    g = _gen(4)
+    xy = (torch.rand((8, 1 << 16, 2), generator=g) * 264 - 4).to("cuda")
+    vals = (torch.randn((8, 1 << 16), generator=g) * 5 + 20).to("cuda")
+    wts = (torch.rand((8, 1 << 16), generator=g) > 0.1).float().to("cuda")
+    out["dsm_equal"] = []
+    for sigma in (0.0, 3.0):
+        acc = sharded_dsm_update(mesh, (0.0, 0.0), 1.0, (256, 256),
+                                 robust_sigma=sigma)(
+            *(shard_blocks(a, mesh) for a in (xy, vals, wts)))
+        seq = empty_dsm((256, 256), "cuda")
+        for k in range(8):
+            seq = dsm_update(seq, xy[k], vals[k], wts[k], (0.0, 0.0), 1.0,
+                             (256, 256), robust_sigma=sigma)
+        out["dsm_equal"].append(all(torch.equal(a, s)
+                                    for a, s in zip(acc, seq)))
+
+    T = TRAIN
+    trainer = InpaintGANTrainer(InpaintTrainConfig(compute_dtype="float32"),
+                                device="cuda")
+    size, b = T["cmp_size"], 4
+    images = torch.rand((b, size, size, 3), generator=_gen(5)).to("cuda")
+    masks = random_hole_masks(_gen(6), (b, size, size), 6, 10, device="cuda")
+    plain, m_plain = trainer._step(trainer.init(None, _gen(0)), images, masks)
+    dp, m_dp = data_parallel_step(trainer._step, mesh)(
+        trainer.init(None, _gen(0)), images, masks)
+    loss_bound, _, share_bound = CMP_BOUNDS["inpaint_f32"]
+    out["dp_loss"] = max(abs(float(m_plain[k]) - float(m_dp[k]))
+                         for k in m_plain)
+    close = total = 0
+    for net_a, net_b in ((plain.g, dp.g), (plain.d, dp.d)):
+        null = _norm_biases(net_a)
+        pb = dict(net_b.named_parameters())
+        for k, p in net_a.named_parameters():
+            if k not in null:
+                d = (p - pb[k]).abs()
+                close += int((d <= trainer.cfg.lr_g / 2).sum())
+                total += d.numel()
+    out["dp_share"] = close / total
+    dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel: {json.dumps(_sig(out, 6))}")
+    if not (out["halo_zeros"] and out["sd_close"] > 0.98
+            and out["sd_launches"] == PER_PAIR and all(out["bp_equal"])
+            and out["bp_launches"] == {k: 2 * v for k, v in PER_PAIR.items()}
+            and all(out["dsm_equal"]) and out["dp_loss"] <= loss_bound
+            and out["dp_share"] >= share_bound):
+        raise SystemExit(f"parallel: {out}")
+    return out
+
+
 def _sig(x, digits: int):
     """``x`` with every float rounded to ``digits`` significant digits (and
     written as an integer where that is exact)."""
@@ -3043,6 +3477,8 @@ def main() -> int:
     disk = phase_from_disk(dctx)
     comp = phase_components(smi)
     train = phase_training(smi)
+    diff = phase_diffusion(smi)
+    par_run = phase_parallel(ctx, dctx)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = par[0][name]
@@ -3107,7 +3543,21 @@ def main() -> int:
             "map50": train["obb"]["map50"],
             "ms_step": {k: train[k]["ms_step"]
                         for k in ("sr", "inpaint", "dip", "obb")},
-            "s": train["phase_s"]}}
+            "s": train["phase_s"]},
+        "diffusion": {
+            f"seed{k}": [diff[f"seed{k}"][m] for m in (
+                "steer_brightness", "divergence_g1", "divergence_g3",
+                "matched_minus_mismatched_db")]
+            for k in DIFFUSION["seeds"]} | {
+            "gates_seed0": all(diff["seed0"]["gates"].values()),
+            "ms_step": diff["seed0"]["ms_step"],
+            "fill_ms": diff["user"]["fill_ms"], "s": diff["phase_s"]},
+        "parallel": {
+            "sd_close": par_run["sd_close"],
+            "bp_equal": all(par_run["bp_equal"]),
+            "launches": [par_run["sd_launches"]["sgm_dir"],
+                         par_run["bp_launches"]["sgm_dir"]],
+            "s": par_run["phase_s"]}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:

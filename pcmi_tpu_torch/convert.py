@@ -6,8 +6,9 @@ attributes, an RPC camera through its float64 tag dict. So a scene, a pair
 selection or a running DSM that the reference started can be carried
 over and finished by the port. A reference config becomes the port's own
 through :func:`config_from_reference`, a reference U-Net's or detector
-head's Flax parameters the port network's ``state_dict`` through
-:func:`unet_state_dict` and :func:`centernet_state_dict`, and a training
+head's or diffusion network's Flax parameters the port network's
+``state_dict`` through :func:`unet_state_dict`,
+:func:`centernet_state_dict` and :func:`diffusion_state_dict`, and a training
 run of the reference (networks, optax Adam moments, step) a port
 trainer's state through :func:`gan_state_from_reference` and
 :func:`detector_state_from_reference`.
@@ -28,6 +29,7 @@ from pcmi_tpu_torch.geometry.pairs import ImageMeta
 from pcmi_tpu_torch.geometry.rpc import RPCCamera
 from pcmi_tpu_torch.geometry.synthetic import SyntheticScene
 from pcmi_tpu_torch.models.detector import CenterNetHead
+from pcmi_tpu_torch.models.diffusion import CondUNet
 from pcmi_tpu_torch.models.unet import PatchDiscriminator
 from pcmi_tpu_torch.pipelines.streaming import StreamingDSM
 
@@ -102,38 +104,53 @@ def config_from_reference(cfg):
         for f in dataclasses.fields(cfg)})
 
 
+# Flax leaf -> (port suffix, array): 2-D kernels HWIO to OIHW, 1-D (K, I,
+# O) to (O, I, K), dense (I, O) to (O, I)
+_LEAVES = {
+    "conv": {"kernel": ("weight", (3, 2, 0, 1)), "bias": ("bias", None)},
+    "conv1d": {"kernel": ("weight", (2, 1, 0)), "bias": ("bias", None)},
+    "dense": {"kernel": ("weight", (1, 0)), "bias": ("bias", None)},
+    "embed": {"embedding": ("weight", None)},
+}
+
+
 def _flax_state_dict(params, model: torch.nn.Module, layout) -> dict:
     """A ``state_dict`` of ``model`` from a Flax parameter tree (with or
     without its ``"params"`` level; numpy leaves): ``layout`` lists
-    ``(port prefix, Flax name, kind)``, kind "conv" (a kernel and a bias,
-    HWIO to OIHW) or "block" (a ``ConvBlock``: ``Conv_0``, ``Conv_1``).
-    Raises ``KeyError`` on a parameter left over or missing on either
-    side, ``ValueError`` on a shape that differs from the network's."""
-    tree = dict(params.get("params", params))
+    ``(port prefix, Flax name, kind)``, kind one of ``_LEAVES`` (a 2-D or
+    1-D convolution, a dense layer, an embedding), "block" (a
+    ``ConvBlock``: ``Conv_0``, ``Conv_1``) or a nested layout of the
+    same form for a submodule. Raises ``KeyError`` on a parameter left
+    over or missing on either side, ``ValueError`` on a shape that
+    differs from the network's."""
     out = {}
 
-    def conv(prefix, leaf):
-        if set(leaf) != {"kernel", "bias"}:
-            raise KeyError(f"{prefix}: Flax conv keys {sorted(leaf)}")
-        k = np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1)
-        out[prefix + ".weight"] = torch.from_numpy(k.copy())
-        out[prefix + ".bias"] = torch.from_numpy(
-            np.array(leaf["bias"], np.float32))
+    def leaf(prefix, kind, node):
+        spec = _LEAVES[kind]
+        if set(node) != set(spec):
+            raise KeyError(f"{prefix}: Flax {kind} keys {sorted(node)}")
+        for key, (name, axes) in spec.items():
+            a = np.asarray(node[key], np.float32)
+            out[f"{prefix}.{name}"] = torch.from_numpy(
+                (a if axes is None else a.transpose(axes)).copy())
 
-    for prefix, name, kind in layout:
-        if name not in tree:
-            raise KeyError(f"no Flax parameters {name!r}")
-        leaf = tree[name]
-        if kind == "conv":
-            conv(prefix, leaf)
-        elif set(leaf) != {"Conv_0", "Conv_1"}:
-            raise KeyError(f"{prefix}: Flax ConvBlock keys {sorted(leaf)}")
-        else:
-            conv(prefix + ".conv0", leaf["Conv_0"])
-            conv(prefix + ".conv1", leaf["Conv_1"])
-    left = set(tree) - {name for _, name, _ in layout}
-    if left:
-        raise KeyError(f"Flax parameters left over: {sorted(left)}")
+    def walk(tree, layout):
+        for prefix, name, kind in layout:
+            if name not in tree:
+                raise KeyError(f"no Flax parameters {name!r}")
+            node = tree[name]
+            if kind == "block":
+                walk(node, [(prefix + ".conv0", "Conv_0", "conv"),
+                            (prefix + ".conv1", "Conv_1", "conv")])
+            elif isinstance(kind, list):
+                walk(node, [(f"{prefix}.{p}", n, k) for p, n, k in kind])
+            else:
+                leaf(prefix, kind, node)
+        left = set(tree) - {name for _, name, _ in layout}
+        if left:
+            raise KeyError(f"Flax parameters left over: {sorted(left)}")
+
+    walk(dict(params.get("params", params)), layout)
     want = model.state_dict()
     if set(want) != set(out):
         raise KeyError(f"state_dict keys differ: missing "
@@ -144,6 +161,17 @@ def _flax_state_dict(params, model: torch.nn.Module, layout) -> dict:
             raise ValueError(f"{k}: shape {tuple(v.shape)} from Flax, "
                              f"{tuple(want[k].shape)} in the network")
     return out
+
+
+def _unet_layout(L: int):
+    """The U-Net part of a layout: L widths, ``Conv_`` counted from 0."""
+    layout = [(f"enc.{i}", f"ConvBlock_{i}", "block") for i in range(L - 1)]
+    layout.append(("mid", f"ConvBlock_{L - 1}", "block"))
+    for j in range(L - 1):
+        layout += [(f"ups.{j}", f"Conv_{j}", "conv"),
+                   (f"dec.{j}", f"ConvBlock_{L + j}", "block")]
+    layout.append(("head", f"Conv_{L - 1}", "conv"))
+    return layout
 
 
 def unet_state_dict(params, model: torch.nn.Module) -> dict:
@@ -166,15 +194,30 @@ def unet_state_dict(params, model: torch.nn.Module) -> dict:
         layout = [(f"convs.{i}", f"Conv_{i}", "conv") for i in range(n)]
         layout.append(("head", f"Conv_{n}", "conv"))
     else:
-        L = len(model.widths)
-        layout = [(f"enc.{i}", f"ConvBlock_{i}", "block")
-                  for i in range(L - 1)]
-        layout.append(("mid", f"ConvBlock_{L - 1}", "block"))
-        for j in range(L - 1):
-            layout += [(f"ups.{j}", f"Conv_{j}", "conv"),
-                       (f"dec.{j}", f"ConvBlock_{L + j}", "block")]
-        layout.append(("head", f"Conv_{L - 1}", "conv"))
+        layout = _unet_layout(len(model.widths))
     return _flax_state_dict(params, model, layout)
+
+
+def diffusion_state_dict(params, model: CondUNet) -> dict:
+    """The ``state_dict`` of a port :class:`CondUNet` from the reference's
+    Flax parameters of the same network. Beside the U-Net's names (see
+    :func:`unet_state_dict`) Flax has ``Embed_0`` (the class embedding),
+    ``TextEncoder_0`` (``Embed_0``, the kernel-3 ``Conv_0``, ``Dense_0``)
+    and one ``Dense_k`` per encoder level and the bottleneck, in creation
+    order. Kernels go from HWIO to OIHW, a 1-D convolution's (3, in, out)
+    to (out, in, 3), a dense layer's (in, out) to (out, in). Raises as
+    :func:`unet_state_dict` does."""
+    L = len(model.widths)
+    layout = []
+    if model.class_embed is not None:
+        layout.append(("class_embed", "Embed_0", "embed"))
+    if model.text is not None:
+        layout.append(("text", "TextEncoder_0", [
+            ("embed", "Embed_0", "embed"), ("conv", "Conv_0", "conv1d"),
+            ("dense", "Dense_0", "dense")]))
+    layout += [(f"enc_temb.{i}", f"Dense_{i}", "dense") for i in range(L - 1)]
+    layout.append(("mid_temb", f"Dense_{L - 1}", "dense"))
+    return _flax_state_dict(params, model, layout + _unet_layout(L))
 
 
 def centernet_state_dict(params, model: CenterNetHead) -> dict:

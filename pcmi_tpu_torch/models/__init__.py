@@ -1,5 +1,5 @@
 """The port's model zoo and training loops: the reference's exported
-names but ``data_parallel_step``, which waits for the parallel slice."""
+names, each from the module of the same path."""
 
 from pcmi_tpu_torch.models.unet import (
     DIPUNet,
@@ -14,6 +14,7 @@ from pcmi_tpu_torch.models.training import (
     InpaintTrainConfig,
     SRGANTrainer,
     SRTrainConfig,
+    data_parallel_step,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "InpaintTrainConfig",
     "SRGANTrainer",
     "SRTrainConfig",
+    "data_parallel_step",
     "restore_checkpoint",
     "save_checkpoint",
 ]

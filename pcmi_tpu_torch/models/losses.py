@@ -16,10 +16,30 @@ from a ``torch.Generator`` on the host (not the reference's
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+# The process group of the data-parallel step running in this context
+# (``training.data_parallel_step``), else None: its ranks hold equal
+# shards of one batch.
+DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "data_parallel_group", default=None)
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t``, a sum over the local batch, averaged over the data-parallel
+    group's ranks (``t`` itself outside a data-parallel step): a
+    normaliser that makes each rank's loss average to the whole batch's."""
+    group = DATA_GROUP.get()
+    if group is None:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, group=group)
+    return t / dist.get_world_size(group)
 
 
 def _grad_xy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,10 +50,11 @@ def _grad_xy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def masked_l1(pred, target, mask):
     """Mean |pred - target| over mask pixels (mask broadcast over
-    channels)."""
+    channels). In a data-parallel step the pixel count is the group's
+    mean, so the ranks' losses average to the whole batch's."""
     num = ((pred - target).abs() * mask).sum()
-    return num / torch.clamp(mask.sum() * pred.shape[-1] / mask.shape[-1],
-                             min=1.0)
+    return num / torch.clamp(batch_mean(mask.sum()) * pred.shape[-1]
+                             / mask.shape[-1], min=1.0)
 
 
 def gradient_l1(pred, target):

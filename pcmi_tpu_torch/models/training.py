@@ -24,7 +24,13 @@ without TF32 on the card.
 Everything runs on the trainer's ``device`` (default ``"cuda"``). Random
 draws (initial weights, hole masks) come from CPU ``torch.Generator``s
 and move to the device; :meth:`InpaintGANTrainer._step` takes the hole
-masks from outside. The reference's ``data_parallel_step`` is not ported.
+masks from outside.
+
+:func:`data_parallel_step` runs a step on each rank's shard of the batch
+and averages every gradient over the data group before each optimiser
+step (the reference lets GSPMD insert that all-reduce). It is not
+``DistributedDataParallel``: the GAN steps update two networks and pass
+the generator's output through the discriminator.
 """
 
 from __future__ import annotations
@@ -32,13 +38,15 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.optim.lr_scheduler import LambdaLR
 
 from pcmi_tpu_torch.models.losses import (
+    DATA_GROUP,
     hinge_d_loss,
     hinge_g_loss,
     mixge_loss,
@@ -88,9 +96,18 @@ def apply_gradients(opt: torch.optim.Optimizer, params,
     """One optimiser step on ``loss``'s gradients with respect to
     ``params`` only: every one of them gets a gradient (zeros where the
     loss does not depend on it), in its own memory layout, and no other
-    parameter collects one."""
+    parameter collects one. In a data-parallel step the gradients are
+    averaged over the data group first."""
     opt.zero_grad(set_to_none=True)
     loss.backward(inputs=params)
+    group = DATA_GROUP.get()
+    if group is not None:
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view(g.shape))
     opt.step()
 
 
@@ -317,6 +334,43 @@ class SRGANTrainer:
         lr_batch = torch.as_tensor(lr_batch, dtype=torch.float32).to(self.device)
         with torch.no_grad():
             return state.g(bicubic_upsample(lr_batch, self.cfg.factor))
+
+
+def data_parallel_step(step_fn: Callable, mesh, data_axis: str = "data"
+                       ) -> Callable:
+    """Run a ``(state, batch, ...) -> (state, metrics)`` step data-parallel
+    over ``mesh``'s ``data_axis``: each rank takes its equal shard of every
+    argument of three or more dimensions whose leading axis divides by the
+    group's size (images, masks) and the rest whole (generators, scalars);
+    every gradient is averaged over the group before each optimiser step
+    (:func:`apply_gradients`), batch-global normalisers are averaged too
+    (:func:`pcmi_tpu_torch.models.losses.batch_mean`), and the metrics are
+    averaged over the group, so each rank's networks take the whole
+    batch's step. The state (networks and optimisers, stepped in place)
+    must start equal on every rank."""
+    dim = mesh.mesh_dim_names.index(data_axis)
+    group = mesh.get_group(dim)
+    n, r = mesh.size(dim), mesh.get_local_rank(dim)
+
+    def place(x):
+        if hasattr(x, "ndim") and x.ndim >= 3 and x.shape[0] % n == 0:
+            k = x.shape[0] // n
+            return x[r * k:(r + 1) * k]
+        return x
+
+    def wrapped(state, *args):
+        token = DATA_GROUP.set(group)
+        try:
+            state, metrics = step_fn(state, *(place(a) for a in args))
+        finally:
+            DATA_GROUP.reset(token)
+        names = sorted(metrics)
+        vec = torch.stack([metrics[k].float() for k in names])
+        dist.all_reduce(vec, group=group)
+        vec /= n
+        return state, dict(zip(names, vec.unbind(0)))
+
+    return wrapped
 
 
 def make_sr_pairs(images: torch.Tensor, factor: int = 4

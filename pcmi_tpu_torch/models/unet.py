@@ -69,19 +69,24 @@ class SameConv2d(nn.Conv2d):
 
 def _init_params(module: nn.Module,
                  generator: Optional[torch.Generator]) -> None:
-    """Flax's default initialisers on every conv, in creation order:
-    kernels truncated normal (at ±2 sigma) of variance ``1 / fan_in``,
-    biases 0."""
+    """Flax's default initialisers on every layer, in creation order:
+    convolution and dense kernels truncated normal (at ±2 sigma) of
+    variance ``1 / fan_in``, biases 0; embeddings normal of variance
+    ``1 / features``."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = float(np.sqrt(1.0 / fan_in) / .87962566103423978)
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0,
+                                float(np.sqrt(1.0 / m.embedding_dim)),
+                                generator=generator)
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:

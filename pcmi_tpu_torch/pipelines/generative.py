@@ -11,10 +11,11 @@ Three task processors share their pre- and post-steps:
 * a side-by-side composite with an ``overlap`` gap for stitching;
 * a high-frequency re-blend for enhancement.
 
-Engines answer ``restore(image, mask)``, ``stitch`` and ``enhance``; the
-port has :class:`pcmi_tpu_torch.models.dip.DIPEngine`. The processors and
-the plugin run on ``device`` (default ``"cuda"``) and take and return host
-arrays.
+Engines answer ``restore(image, mask)``, ``stitch`` and ``enhance``:
+:class:`pcmi_tpu_torch.models.dip.DIPEngine` and
+:class:`pcmi_tpu_torch.models.diffusion.TiledDiffusionEngine`. The
+processors and the plugin run on ``device`` (default ``"cuda"``) and take
+and return host arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from pcmi_tpu_torch.interface import Layer, SatellitePlugin
+from pcmi_tpu_torch.models.diffusion import TiledDiffusionEngine
 from pcmi_tpu_torch.models.dip import DIPConfig, DIPEngine
 from pcmi_tpu_torch.models.dip import _as_tensor as _tensor
 from pcmi_tpu_torch.ops.filters import gaussian_filter, masked_jacobi_fill
@@ -141,11 +143,8 @@ class EnhancementProcessor:
 
 
 def available_engines() -> Dict[str, Callable]:
-    """Engine registry: name -> engine class. The port offers Deep Image
-    Prior only; the reference also lists its tiled diffusion engine, and
-    drops it the same way when that module does not import. "Diffusion"
-    joins when ``models/diffusion.py`` is ported."""
-    return {"Deep Image Prior": DIPEngine}
+    """Engine registry: name -> engine class (each takes ``device=``)."""
+    return {"Deep Image Prior": DIPEngine, "Diffusion": TiledDiffusionEngine}
 
 
 class RestorationGenerativePlugin(SatellitePlugin):

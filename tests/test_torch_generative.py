@@ -258,9 +258,12 @@ def test_registry_plugin_runs_on_the_cpu(rng):
 
 
 def test_available_engines():
+    from pcmi_tpu_torch.models.diffusion import TiledDiffusionEngine
+
     engines = tg.available_engines()
-    assert engines == {"Deep Image Prior": tdip.DIPEngine}
-    assert set(engines) <= set(jg.available_engines())
+    assert engines == {"Deep Image Prior": tdip.DIPEngine,
+                       "Diffusion": TiledDiffusionEngine}
+    assert set(engines) == set(jg.available_engines())
 
 
 def _tiny_dip(iters=60):

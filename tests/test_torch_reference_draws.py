@@ -9,7 +9,9 @@ the same numpy draws, bit for bit), the hole masks those of
 in-hole PSNR on each set the reference's within 1e-4 dB (the seed mean
 sums in another order), and ``bench_detector``'s 64 held-out scenes,
 rendered by the port from the stored draws, the reference's own (images
-within 1e-6, boxes and their validity exact).
+within 1e-6, boxes and their validity exact); and ``bench_diffusion``'s
+pool and held-out scene seeds for its seeds 0-2, whose styled scenes the
+port draws bit for bit as the reference does.
 """
 
 import jax
@@ -77,3 +79,27 @@ def test_obb_bench_scenes_match_reference(draws, batch):
                                atol=1e-6, rtol=0)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_diffusion_bench_seeds_match_reference(draws, seed):
+    from bench_generative import STYLE_CAPTIONS as REF_CAPTIONS
+    from bench_generative import make_styled_scene as ref_styled
+    from pcmi_tpu_torch.models.scenes import (
+        STYLE_CAPTIONS, make_styled_scene)
+
+    assert STYLE_CAPTIONS == REF_CAPTIONS
+    kf, ku = jax.random.split(jax.random.PRNGKey(seed))
+    pool = draws["diffusion_pool_seeds"][seed]
+    held = draws["diffusion_eval_seeds"][seed]
+    assert pool[0].tolist() == _seeds(kf, 24)
+    assert pool[1].tolist() == _seeds(ku, 24)
+    keys = [jax.random.PRNGKey(90_000 + seed + i) for i in range(2)]
+    assert held.tolist() == [int(jax.random.randint(k, (), 0, 2**31 - 1))
+                             for k in keys]
+    for got_seed, key, style in (
+            (pool[0][0], jax.random.split(kf, 24)[0], "fields"),
+            (pool[1][23], jax.random.split(ku, 24)[23], "urban"),
+            (held[0], keys[0], "fields"), (held[1], keys[1], "urban")):
+        np.testing.assert_array_equal(make_styled_scene(int(got_seed), style),
+                                      np.asarray(ref_styled(key, style)))

@@ -57,6 +57,11 @@ MODULES = [
     "pcmi_tpu_torch.models.training", "pcmi_tpu_torch.models.detector",
     "pcmi_tpu_torch.models.detector_eval", "pcmi_tpu_torch.models.scenes",
     "pcmi_tpu_torch.pipelines.generative",
+    # tiled diffusion and the scale-out layer
+    "pcmi_tpu_torch.models.diffusion", "pcmi_tpu_torch.parallel",
+    "pcmi_tpu_torch.parallel.mesh", "pcmi_tpu_torch.parallel.halo",
+    "pcmi_tpu_torch.parallel.fusion_sharded",
+    "pcmi_tpu_torch.parallel.multihost",
 ]
 
 
@@ -80,18 +85,42 @@ def test_pipelines_exports():
 
 
 def test_models_exports():
-    """The port's ``models`` exports the reference's names but
-    ``data_parallel_step`` (the parallel slice), each from its own
-    module."""
+    """The port's ``models`` exports the reference's names, each from its
+    own module, and ``models.diffusion`` the reference module's public
+    names."""
     import pcmi_tpu.models as ref
+    import pcmi_tpu.models.diffusion as ref_diffusion
     import pcmi_tpu_torch.models as port
+    import pcmi_tpu_torch.models.diffusion as port_diffusion
 
-    assert port.__all__ == [n for n in ref.__all__
-                            if n != "data_parallel_step"]
+    assert port.__all__ == ref.__all__
     for name in port.__all__:
         mod = getattr(ref, name).__module__.replace("pcmi_tpu.",
                                                     "pcmi_tpu_torch.")
         assert getattr(port, name).__module__ == mod, name
+    for name in ("MAX_PROMPT_TOKENS", "TOKEN_HASH_BUCKETS",
+                 "tokenize_prompt", "TextEncoder", "CondUNet",
+                 "DiffusionConfig", "Schedule", "make_schedule",
+                 "karras_sigmas", "sobel_edges", "gaussian_weights",
+                 "tile_origins", "TiledDiffusionEngine"):
+        assert hasattr(ref_diffusion, name) and hasattr(port_diffusion,
+                                                         name), name
+
+
+def test_parallel_exports():
+    """``pcmi_tpu_torch.parallel`` exports the reference's fourteen names,
+    each from the module of the same path."""
+    import pcmi_tpu.parallel as ref
+    import pcmi_tpu_torch.parallel as port
+
+    assert port.__all__ == ref.__all__ and len(port.__all__) == 14
+    for name in port.__all__:
+        obj = getattr(port, name)
+        if callable(obj):
+            assert obj.__module__ == getattr(ref, name).__module__.replace(
+                "pcmi_tpu.", "pcmi_tpu_torch."), name
+        else:
+            assert obj == getattr(ref, name), name
 
 
 def test_package_and_io_exports():

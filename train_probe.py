@@ -5,8 +5,10 @@
         on the CPU, with JAX (``JAX_PLATFORMS=cpu``): writes the reference
         benches' own draws into ``reference_draws.npz`` (see
         ``chip_smoke.reference_draws``): the scene seeds of
-        ``bench_generative``'s pool and held-out sets, its held-out hole
-        masks, and the draws of ``bench_detector``'s 64 held-out scenes;
+        ``bench_generative``'s pools and held-out sets (the inpainting and
+        SR benches' and the diffusion bench's for its seeds 0-2), its
+        held-out hole masks, and the draws of ``bench_detector``'s 64
+        held-out scenes;
     python3 train_probe.py inpaint --config bench|record --steps N --every K
         on the card: the inpainting GAN on the reference bench's pool of 48
         scenes, its in-hole gain over the Jacobi prefill on the bench's 3
@@ -17,6 +19,9 @@
         (the trainer's defaults: widths 32/64/128/256, constant learning
         rate, evaluated without the ensemble). ``--seed`` picks the
         weights and the batch stream (0: chip_smoke's);
+        ``--deterministic`` runs under
+        ``torch.use_deterministic_algorithms(True)`` with cuDNN's
+        deterministic algorithms and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``;
     python3 train_probe.py obb --runs 4 --eval-sets 1
         on the card: chip_smoke's OBB detector case (``bench_detector.py``'s
         configuration) trained --runs times, each from its own weights and
@@ -38,6 +43,7 @@ Each prints one line per evaluation.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -67,6 +73,16 @@ def export(path: str) -> None:
         masks.append(np.asarray(m)[..., 0] > 0.5)
     out["inpaint_eval_seeds"] = np.stack(seeds)
     out["inpaint_eval_masks"] = np.packbits(np.stack(masks), axis=-1)
+    # bench_diffusion(seed=s), s = 0, 1, 2: the 24 fields and 24 urban
+    # pool scenes' seeds and the two held-out scenes' (make_styled_scene)
+    pool, held = [], []
+    for s in range(3):
+        kf, ku = r.split(r.PRNGKey(s))
+        pool.append([scene_seeds(k, 24) for k in (kf, ku)])
+        held.append([int(r.randint(r.PRNGKey(90_000 + s + i), (), 0,
+                                   2**31 - 1)) for i in range(2)])
+    out["diffusion_pool_seeds"] = np.array(pool, np.int64)
+    out["diffusion_eval_seeds"] = np.array(held, np.int64)
     key, parts = r.PRNGKey(10_000), []
     for _ in range(8):
         key, sub = r.split(key)
@@ -78,7 +94,8 @@ def export(path: str) -> None:
                                           for k, v in out.items()))
 
 
-def inpaint(config: str, steps: int, every: int, seed: int) -> None:
+def inpaint(config: str, steps: int, every: int, seed: int,
+            deterministic: bool = False) -> None:
     import chip_smoke as cs
     from pcmi_tpu_torch.models.scenes import sample_batch, scene_batch
     from pcmi_tpu_torch.models.training import (
@@ -108,7 +125,9 @@ def inpaint(config: str, steps: int, every: int, seed: int) -> None:
             s = time.perf_counter() - t0
             plain, ens = (cs.inpaint_gains(trainer, state, sets, e)
                           for e in (False, True))
-            print(f"inpaint {config} seed {seed} step {i + 1} {s:.1f} s "
+            print(f"inpaint {config} seed {seed}"
+                  f"{' deterministic' if deterministic else ''} "
+                  f"step {i + 1} {s:.1f} s "
                   f"prefill_psnr {plain['prefill_psnr']:.4f} gains_db "
                   f"{[round(g, 3) for g in plain['gains_db']]} ensemble "
                   f"{[round(g, 3) for g in ens['gains_db']]}", flush=True)
@@ -221,11 +240,18 @@ def main() -> None:
     ap.add_argument("--package", choices=["ref", "port"], default="port")
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--eval-sets", type=int, default=1)
+    ap.add_argument("--deterministic", action="store_true")
     a = ap.parse_args()
+    if a.deterministic:
+        # before the first CUDA call: cuBLAS reads it when it starts
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     if a.mode == "export":
         export(a.out)
     elif a.mode == "inpaint":
-        inpaint(a.config, a.steps, a.every, a.seed)
+        inpaint(a.config, a.steps, a.every, a.seed, a.deterministic)
     elif a.mode == "obb":
         obb(a.runs, a.eval_sets)
     else:
