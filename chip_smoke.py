@@ -3047,8 +3047,9 @@ DIFFUSION_PROMPTS = {"fields": "dark farm fields",
 # card against CPU on shared weights and draws: one training step's loss
 # (absolute) and worst leaf gradient (relative to the leaf's norm; the
 # biases an instance norm follows left out), the DDIM and DPM++ fills
-# with guidance 3 (largest absolute difference)
-DIFF_CMP_BOUNDS = dict(loss=1e-4, grad_rel=1e-2, ddim=5e-2, dpmpp=5e-2)
+# with guidance 3 (largest absolute difference); 10-15x the first card
+# reading (loss 0, 7.7e-4, 9.4e-6, 1.4e-5; PERF.md §6)
+DIFF_CMP_BOUNDS = dict(loss=1e-5, grad_rel=1e-2, ddim=1e-4, dpmpp=2e-4)
 
 
 def _diffusion_engine(dev: str):
@@ -3085,7 +3086,7 @@ def _diffusion_trainer(seed: int, draws: dict, dev: str, steps: int):
     losses of steps 20 and ``steps - 1``). Each step draws the styles,
     scenes and caption variants of a batch, its hole masks and the
     training draws from one CPU generator (the reference splits a key)."""
-    from pcmi_tpu_torch.models.losses import random_hole_masks
+    from pcmi_tpu_torch.models.losses import draws_to, random_hole_masks
     from pcmi_tpu_torch.models.training import adam, apply_gradients
 
     D = DIFFUSION
@@ -3103,8 +3104,10 @@ def _diffusion_trainer(seed: int, draws: dict, dev: str, steps: int):
         style = torch.randint(0, 2, (b,), generator=rng)
         idx = torch.randint(0, n_pool, (b,), generator=rng) + style * n_pool
         variant = torch.randint(0, toks.shape[1], (b,), generator=rng)
-        imgs = pool[idx.to(dev)] * 2.0 - 1.0
-        tk = toks[style.to(dev), variant.to(dev)]
+        idx, style, variant = draws_to(torch.stack([idx, style, variant]),
+                                       dev)
+        imgs = pool[idx] * 2.0 - 1.0
+        tk = toks[style, variant]
         masks = random_hole_masks(rng, (b, size, size), D["hole_seeds"],
                                   D["hole_steps"], device=dev)
         loss = eng.train_step_loss(net, imgs, masks, rng, None, tk)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcmi_tpu_torch.models.dip import DIPResult
+from pcmi_tpu_torch.models.losses import draws_to
 from pcmi_tpu_torch.models.unet import (
     ConvBlock, SameConv2d, _down, _init_params, _up)
 
@@ -137,14 +138,15 @@ class CondUNet(nn.Module):
                                  zip(dec_w, (widths[-1],) + dec_w[:-1]))
         self.dec = nn.ModuleList(ConvBlock(w, True, 2 * w) for w in dec_w)
         self.head = SameConv2d(widths[0], out_channels, 1)
+        self.register_buffer("freqs", torch.exp(torch.from_numpy(
+            _linspace32(0.0, 6.0, 16))), persistent=False)
         _init_params(self, generator)
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 class_id: Optional[torch.Tensor] = None,
                 tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
         dev = x_t.device
-        freqs = torch.exp(torch.from_numpy(_linspace32(0.0, 6.0, 16)).to(dev))
-        arg = t.float()[:, None] * freqs
+        arg = t.float()[:, None] * self.freqs
         temb = torch.cat([torch.sin(arg), torch.cos(arg)], dim=1)  # (B, 32)
         if self.class_embed is not None:
             cid = (torch.zeros(t.shape, dtype=torch.long, device=dev)
@@ -381,7 +383,7 @@ class TiledDiffusionEngine:
             _draws = self.train_draws(
                 b, images.shape, generator if generator is not None
                 else _gen(0))
-        t_idx, noise, drop = (d.to(dev) for d in _draws)
+        t_idx, noise, drop = (draws_to(d, dev) for d in _draws)
         ab = self.schedule.alphas_bar[t_idx.long()][:, None, None, None]
         x_t = torch.sqrt(ab) * images + torch.sqrt(1 - ab) * noise
         cond = _cond_stack(cfg, images, masks)
@@ -492,10 +494,11 @@ class TiledDiffusionEngine:
         """(initial noise, one locking draw per step) of ``shape``."""
         if _draws is not None:
             x0, per_step = _draws
-            return x0.to(self.device), [d.to(self.device) for d in per_step]
-        x0 = torch.randn(shape, generator=generator).to(self.device)
-        return x0, (torch.randn(shape, generator=generator).to(self.device)
-                    for _ in range(steps))
+            return (draws_to(x0, self.device),
+                    [draws_to(d, self.device) for d in per_step])
+        x0 = draws_to(torch.randn(shape, generator=generator), self.device)
+        return x0, (draws_to(torch.randn(shape, generator=generator),
+                             self.device) for _ in range(steps))
 
     def _t01(self, t) -> float:
         return float(np.float32(t) / np.float32(self.cfg.train_timesteps))
@@ -683,8 +686,8 @@ class TiledDiffusionEngine:
         t0 = int(cfg.train_timesteps * strength)
         n_steps = max(2, int(cfg.steps * strength))
         t_steps = _linspace32(t0 - 1, 0, n_steps).astype(np.int32)
-        noise = (torch.randn(tuple(image.shape), generator=generator)
-                 if _draws is None else _draws).to(self.device)
+        noise = draws_to(torch.randn(tuple(image.shape), generator=generator)
+                         if _draws is None else _draws, self.device)
         ab0 = self._ab[t0 - 1]
         x = (float(np.sqrt(ab0)) * image
              + float(np.sqrt(f(1) - ab0)) * noise)

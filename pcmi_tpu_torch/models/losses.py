@@ -30,6 +30,15 @@ DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
     "data_parallel_group", default=None)
 
 
+def draws_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A host draw on ``device``: to a card through pinned memory without
+    waiting for the card (a pageable copy would wait for its queue)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def batch_mean(t: torch.Tensor) -> torch.Tensor:
     """``t``, a sum over the local batch, averaged over the data-parallel
     group's ranks (``t`` itself outside a data-parallel step): a
@@ -65,9 +74,12 @@ def gradient_l1(pred, target):
 
 def _window_max(m: torch.Tensor, size: int) -> torch.Tensor:
     """Max over a ``size x size`` window of (B, H, W), "SAME" placement
-    with -inf outside (``lax.reduce_window``'s)."""
+    with -inf outside (``lax.reduce_window``'s; the pooling's own padding
+    is -inf)."""
     lo = (size - 1) // 2
     hi = size - 1 - lo
+    if lo == hi:
+        return F.max_pool2d(m[:, None], size, stride=1, padding=lo)[:, 0]
     x = F.pad(m[:, None], (lo, hi, lo, hi), value=float("-inf"))
     return F.max_pool2d(x, size, stride=1)[:, 0]
 
@@ -122,12 +134,9 @@ def grow_hole_masks(shape: Tuple[int, int, int], seeds_y: torch.Tensor,
     float32, 1 = hole, on the seeds' device."""
     b, h, w = shape
     dev = seeds_y.device
-    ys = torch.arange(h, device=dev)[None, :, None]
-    xs = torch.arange(w, device=dev)[None, None, :]
-    mask = torch.zeros((b, h, w), dtype=torch.float32, device=dev)
-    for i in range(seeds_y.shape[1]):
-        hit = (ys == seeds_y[:, i, None, None]) & (xs == seeds_x[:, i, None, None])
-        mask = torch.maximum(mask, hit.float())
+    mask = torch.zeros((b, h * w), dtype=torch.float32, device=dev)
+    mask.scatter_(1, (seeds_y * w + seeds_x).long(), 1.0)
+    mask = mask.view(b, h, w)
     for keep in keeps:
         mask = torch.maximum(mask, _window_max(mask, 3) * keep.to(dev))
     return mask[..., None]
@@ -149,5 +158,5 @@ def random_hole_masks(rng: Optional[torch.Generator],
     seeds_y = torch.randint(h // 8, 7 * h // 8, (b, n_seeds), generator=rng)
     seeds_x = torch.randint(w // 8, 7 * w // 8, (b, n_seeds), generator=rng)
     keeps = torch.rand((steps, b, h, w), generator=rng) < p_grow
-    return grow_hole_masks(shape, seeds_y.to(device), seeds_x.to(device),
-                           keeps.to(device))
+    return grow_hole_masks(shape, *(draws_to(t, device)
+                                    for t in (seeds_y, seeds_x, keeps)))

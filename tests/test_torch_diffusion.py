@@ -399,3 +399,66 @@ def test_engine_registry_and_processor():
     np.testing.assert_allclose(res[far], img[far], atol=1e-6)
     layers = RestorationGenerativePlugin(engine=eng, device="cpu").run(holes)
     assert np.isfinite(layers[1][0]).all()
+
+
+def test_text_conditioning_and_cfg_steer_generation():
+    """The reference's trained steering test (``tests/test_generative.py``,
+    text and guidance) on the port alone, with the port's draws: 600 Adam
+    steps on two captioned pattern classes, then the prompt steers the
+    DDIM fill's pattern coefficient, guidance 3 widens the gap and a
+    negative prompt pushes away from the negated content (the reference's
+    bounds)."""
+    from pcmi_tpu_torch.models.training import adam, apply_gradients
+
+    cfg = td.DiffusionConfig(steps=12, tile=16, stride=12, img_channels=1,
+                             train_timesteps=64, beta_end=0.15,
+                             text_conditioning=True, cfg_dropout=0.15)
+    eng = td.TiledDiffusionEngine(cfg, device="cpu", model=td.CondUNet(
+        widths=WIDTHS, out_channels=1, text_conditioning=True))
+    net = eng.init_params(torch.Generator().manual_seed(0))
+    caps = {-1: ["dark quiet fields", "flat dark farmland", "fields dark flat"],
+            +1: ["bright dense urban", "urban bright blocks",
+                 "dense bright city"]}
+    tok = {s: _t(np.stack([_tok(c) for c in cs]).astype(np.int64))
+           for s, cs in caps.items()}
+    ys, xs = np.mgrid[0:16, 0:16]
+    pat = _t(np.sign(np.sin(ys * 0.9) * np.sin(xs * 0.9))
+             .astype(np.float32))[None, :, :, None]
+    params = list(net.parameters())
+    opt = adam(params, "cpu", lr=3e-3)
+    g = torch.Generator().manual_seed(1)
+    masks = torch.ones((16, 16, 16, 1))
+    loss0 = None
+    for _ in range(600):
+        sign = torch.randint(0, 2, (16,), generator=g)
+        variant = torch.randint(0, 3, (16,), generator=g)
+        toks = torch.where(sign[:, None] > 0, tok[1][variant],
+                           tok[-1][variant])
+        sc = (torch.where(sign > 0, 0.45, -0.45)
+              + 0.5 * torch.randn((16,), generator=g))
+        imgs = (sc[:, None, None, None] * pat
+                + 0.05 * torch.randn((16, 16, 16, 1), generator=g))
+        loss = eng.train_step_loss(net, imgs, masks, g, None, toks)
+        apply_gradients(opt, params, loss)
+        if loss0 is None:
+            loss0 = loss.item()
+    assert loss.item() < 0.5 * loss0
+
+    img, hole = torch.zeros((16, 16, 1)), torch.ones((16, 16, 1))
+
+    def coeff(prompt, seed, guidance=1.0, negative=None):
+        out = eng.inpaint(net, img, hole, seed=seed, prompt=prompt,
+                          method="ddim", guidance=guidance,
+                          negative_prompt=negative)
+        return float((out * pat[0]).mean())
+
+    seeds = (3, 4, 5)
+    c_dark = np.mean([coeff("quiet dark fields", s) for s in seeds])
+    c_bright = np.mean([coeff("bright urban blocks", s) for s in seeds])
+    assert c_bright > c_dark + 0.05, (c_dark, c_bright)
+    g_dark = np.mean([coeff("quiet dark fields", s, 3.0) for s in seeds])
+    g_bright = np.mean([coeff("bright urban blocks", s, 3.0) for s in seeds])
+    assert g_bright - g_dark > c_bright - c_dark, (g_dark, g_bright)
+    n_bright = np.mean([coeff("bright urban blocks", s, 2.0, "dark fields")
+                        for s in seeds])
+    assert n_bright > c_dark + 0.05
