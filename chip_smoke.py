@@ -3083,10 +3083,15 @@ def _diffusion_pool(draws: dict, seed: int, dev: str):
 
 def _diffusion_trainer(seed: int, draws: dict, dev: str, steps: int):
     """bench_diffusion's training loop: (engine, network, ``step(i)``, the
-    losses of steps 20 and ``steps - 1``). Each step draws the styles,
-    scenes and caption variants of a batch, its hole masks and the
-    training draws from one CPU generator (the reference splits a key)."""
-    from pcmi_tpu_torch.models.losses import draws_to, random_hole_masks
+    losses of steps 20 and ``steps - 1``). Each step's styles, scenes and
+    caption variants, hole masks and training draws come from one CPU
+    generator (the reference splits a key), drawn in order by a thread
+    that keeps two steps ahead of the card's work."""
+    import queue
+    import threading
+
+    from pcmi_tpu_torch.models.losses import (
+        draws_to, grow_hole_masks, hole_mask_draws)
     from pcmi_tpu_torch.models.training import adam, apply_gradients
 
     D = DIFFUSION
@@ -3098,19 +3103,39 @@ def _diffusion_trainer(seed: int, draws: dict, dev: str, steps: int):
     params = list(net.parameters())
     opt = adam(params, dev, lr=D["lr"])
     rng = _gen(3000 + seed)
+    pin = ((lambda t: t) if torch.device(dev).type == "cpu"
+           else (lambda t: t.pin_memory()))
+    ahead: queue.Queue = queue.Queue(maxsize=2)
+
+    def produce():
+        try:
+            for _ in range(steps):
+                style = torch.randint(0, 2, (b,), generator=rng)
+                idx = (torch.randint(0, n_pool, (b,), generator=rng)
+                       + style * n_pool)
+                variant = torch.randint(0, toks.shape[1], (b,), generator=rng)
+                holes = hole_mask_draws(rng, (b, size, size),
+                                        D["hole_seeds"], D["hole_steps"])
+                train = eng.train_draws(b, (b, size, size, 3), rng)
+                ahead.put([pin(t) for t in (
+                    torch.stack([idx, style, variant]), *holes, *train)])
+        except Exception as exc:  # handed to the step that waits for it
+            ahead.put(exc)
+
+    threading.Thread(target=produce, daemon=True).start()
     losses: dict = {}
 
     def step(i):
-        style = torch.randint(0, 2, (b,), generator=rng)
-        idx = torch.randint(0, n_pool, (b,), generator=rng) + style * n_pool
-        variant = torch.randint(0, toks.shape[1], (b,), generator=rng)
-        idx, style, variant = draws_to(torch.stack([idx, style, variant]),
-                                       dev)
+        item = ahead.get()
+        if isinstance(item, Exception):
+            raise item
+        batch, *holes_train = (draws_to(t, dev) for t in item)
+        idx, style, variant = batch
         imgs = pool[idx] * 2.0 - 1.0
         tk = toks[style, variant]
-        masks = random_hole_masks(rng, (b, size, size), D["hole_seeds"],
-                                  D["hole_steps"], device=dev)
-        loss = eng.train_step_loss(net, imgs, masks, rng, None, tk)
+        masks = grow_hole_masks((b, size, size), *holes_train[:3])
+        loss = eng.train_step_loss(net, imgs, masks, None, None, tk,
+                                   _draws=holes_train[3:])
         apply_gradients(opt, params, loss)
         if i in (20, steps - 1):
             losses[i] = loss.detach()
@@ -3266,10 +3291,34 @@ def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
     return out
 
 
+def _diffusion_run(seed: int):
+    """bench_diffusion(seed) on the card: 4,000 training steps, then its
+    evaluation and gates. Returns (row, engine, network)."""
+    D = DIFFUSION
+    draws = reference_draws()
+    eng, net, step, losses = _diffusion_trainer(seed, draws, "cuda",
+                                                D["steps"])
+    held = _peak_start()
+    s, ms = _steps(step, D["steps"])
+    row = dict(loss_20=float(losses[20]),
+               loss_end=float(losses[D["steps"] - 1]), train_s=s,
+               ms_step=ms, peak_mb=_peak_mb(held))
+    row.update(_diffusion_eval(eng, net, seed, draws, "cuda"))
+    row["gates"] = _diffusion_gates(row)
+    return row, eng, net
+
+
+def _diffusion_row(seed: int) -> dict:
+    return _diffusion_run(seed)[0]
+
+
 def phase_diffusion(smi: str) -> dict:
-    """Phase 14: bench_diffusion on the card, uncut, for the bench's seeds
-    0-2 (gated on seed 0), then the user's path and the card against the
-    CPU. No stereo kernel launches."""
+    """Phase 14: bench_diffusion on the card, uncut: the gated seed alone,
+    then the bench's other seeds at once, one process each (the step is
+    host-bound); then the user's path and the card against the CPU. No
+    stereo kernel launches."""
+    import multiprocessing
+
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
     D = DIFFUSION
@@ -3277,21 +3326,14 @@ def phase_diffusion(smi: str) -> dict:
     K.reset_launches()
     draws = reference_draws()
     out: dict = {"card": smi}
-    for seed in D["seeds"]:
-        eng, net, step, losses = _diffusion_trainer(seed, draws, "cuda",
-                                                    D["steps"])
-        held = _peak_start()
-        s, ms = _steps(step, D["steps"])
-        row = dict(loss_20=float(losses[20]),
-                   loss_end=float(losses[D["steps"] - 1]), train_s=s,
-                   ms_step=ms, peak_mb=_peak_mb(held))
-        row.update(_diffusion_eval(eng, net, seed, draws, "cuda"))
-        row["gates"] = _diffusion_gates(row)
-        if seed == D["gated_seed"]:
-            gated = (eng, net, row)
-        out[f"seed{seed}"] = row
-        print(f"diffusion seed {seed}: {json.dumps(_sig(row, 6))} ({smi})")
-    eng, net, row = gated
+    row, eng, net = _diffusion_run(D["gated_seed"])
+    rest = [s for s in D["seeds"] if s != D["gated_seed"]]
+    with multiprocessing.get_context("spawn").Pool(len(rest)) as pool:
+        rows = pool.map(_diffusion_row, rest)
+    for seed, r in zip([D["gated_seed"]] + rest, [row] + rows):
+        r["processes"] = 1 if seed == D["gated_seed"] else len(rest)
+        out[f"seed{seed}"] = r
+        print(f"diffusion seed {seed}: {json.dumps(_sig(r, 6))} ({smi})")
     pstep = _diffusion_trainer(D["gated_seed"], draws, "cuda", 7)[2]
     _steps(pstep, 2)  # warm-up
     prof = _profiled(lambda: [pstep(i) for i in range(2, 7)])
@@ -3547,20 +3589,19 @@ def main() -> int:
             "ms_step": {k: train[k]["ms_step"]
                         for k in ("sr", "inpaint", "dip", "obb")},
             "s": train["phase_s"]},
-        "diffusion": {
-            f"seed{k}": [diff[f"seed{k}"][m] for m in (
+        "diffusion": {  # per seed: steer, divergence g1, g3, dB
+            "seeds": [[diff[f"seed{k}"][m] for m in (
                 "steer_brightness", "divergence_g1", "divergence_g3",
-                "matched_minus_mismatched_db")]
-            for k in DIFFUSION["seeds"]} | {
-            "gates_seed0": all(diff["seed0"]["gates"].values()),
-            "ms_step": diff["seed0"]["ms_step"],
-            "fill_ms": diff["user"]["fill_ms"], "s": diff["phase_s"]},
-        "parallel": {
-            "sd_close": par_run["sd_close"],
-            "bp_equal": all(par_run["bp_equal"]),
-            "launches": [par_run["sd_launches"]["sgm_dir"],
-                         par_run["bp_launches"]["sgm_dir"]],
-            "s": par_run["phase_s"]}}
+                "matched_minus_mismatched_db")] for k in DIFFUSION["seeds"]],
+            "ok": all(diff[f"seed{DIFFUSION['gated_seed']}"]["gates"]
+                      .values()),
+            "ms": diff[f"seed{DIFFUSION['gated_seed']}"]["ms_step"],
+            "fill": diff["user"]["fill_ms"], "s": diff["phase_s"]},
+        "parallel": {"close": par_run["sd_close"],
+                     "eq": all(par_run["bp_equal"]),
+                     "k1": [par_run["sd_launches"]["sgm_dir"],
+                            par_run["bp_launches"]["sgm_dir"]],
+                     "s": par_run["phase_s"]}}
     line = json.dumps(_sig(summary, 3), separators=(",", ":"))
     kline = json.dumps({"kernels": _sig(kernels, 3)}, separators=(",", ":"))
     if len(line) >= 1500 or len(kline) >= 2000:

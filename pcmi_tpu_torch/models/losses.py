@@ -34,7 +34,7 @@ def draws_to(t: torch.Tensor, device) -> torch.Tensor:
     """A host draw on ``device``: to a card through pinned memory without
     waiting for the card (a pageable copy would wait for its queue)."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
@@ -154,9 +154,17 @@ def random_hole_masks(rng: Optional[torch.Generator],
     Returns (B, H, W, 1) float32, 1 = hole."""
     if rng is None:
         rng = torch.Generator().manual_seed(0)
+    return grow_hole_masks(shape, *(
+        draws_to(t, device)
+        for t in hole_mask_draws(rng, shape, n_seeds, steps, p_grow)))
+
+
+def hole_mask_draws(rng: torch.Generator, shape: Tuple[int, int, int],
+                    n_seeds: int = 6, steps: int = 10, p_grow: float = 0.7):
+    """:func:`random_hole_masks`' draws from ``rng`` on the host, in its
+    order: (B, n_seeds) seed rows and columns, (steps, B, H, W) keeps."""
     b, h, w = shape
     seeds_y = torch.randint(h // 8, 7 * h // 8, (b, n_seeds), generator=rng)
     seeds_x = torch.randint(w // 8, 7 * w // 8, (b, n_seeds), generator=rng)
     keeps = torch.rand((steps, b, h, w), generator=rng) < p_grow
-    return grow_hole_masks(shape, *(draws_to(t, device)
-                                    for t in (seeds_y, seeds_x, keeps)))
+    return seeds_y, seeds_x, keeps
