@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcmi_tpu_torch.models.dip import DIPResult
+from pcmi_tpu_torch.models.dip import _as_tensor as _as_float
 from pcmi_tpu_torch.models.losses import draws_to
 from pcmi_tpu_torch.models.unet import (
     ConvBlock, SameConv2d, _down, _init_params, _up)
@@ -292,12 +293,6 @@ def _pad_edge(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     iy = torch.clamp(torch.arange(h + ph, device=x.device), max=h - 1)
     ix = torch.clamp(torch.arange(w + pw, device=x.device), max=w - 1)
     return x[iy][:, ix]
-
-
-def _as_float(a, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 def _gen(seed: int) -> torch.Generator:

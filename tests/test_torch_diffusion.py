@@ -17,6 +17,8 @@ gradient is 0 up to rounding, within 1e-6 of 0 in both); DDIM, DPM++
 and img2img samples within 1e-4.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -110,8 +112,6 @@ def test_tokens_schedules_and_grids():
 
 
 def dataclass_fields(cls):
-    import dataclasses
-
     return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
 
