@@ -3237,13 +3237,11 @@ def _diffusion_user_path(eng, net) -> dict:
     return out
 
 
-def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
-    """One training step and one DDIM and one DPM++ fill (guidance 3, the
-    urban prompt, bench_diffusion's held-out urban scene and centre hole)
-    on the card and on the CPU from the trained weights and shared draws,
-    held to ``DIFF_CMP_BOUNDS``."""
-    import copy
-
+def _diffusion_cmp_inputs(draws: dict) -> dict:
+    """The card-against-CPU comparison's shared inputs, on the host: a
+    batch of 4 pool scenes, their captions and hole masks, the training
+    draws, bench_diffusion's held-out urban scene with the centre hole,
+    the urban prompt and the samplers' draws."""
     from pcmi_tpu_torch.models.losses import random_hole_masks
     from pcmi_tpu_torch.models.scenes import make_styled_scene
 
@@ -3251,44 +3249,77 @@ def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
     size, b = D["size"], D["cmp_batch"]
     pool, toks = _diffusion_pool(draws, D["gated_seed"], "cpu")
     imgs = pool[::12][:b] * 2.0 - 1.0
-    tk = toks[torch.arange(b) % 2, torch.arange(b) % toks.shape[1]]
-    masks = random_hole_masks(_gen(5), (b, size, size), D["hole_seeds"],
-                              D["hole_steps"], device="cpu")
-    scene = torch.from_numpy(make_styled_scene(
-        int(draws["diffusion_eval_seeds"][D["gated_seed"]][1]), "urban",
-        size)) * 2.0 - 1.0
     hole = torch.zeros((size, size, 1))
     hole[size // 4:3 * size // 4, size // 4:3 * size // 4] = 1.0
     g = _gen(6)
-    sdraws = (torch.randn((size, size, 3), generator=g),
-              [torch.randn((size, size, 3), generator=g)
-               for _ in range(D["sample_steps"])])
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        eng = _diffusion_engine(dev)
-        n = copy.deepcopy(net).to(dev)
-        tdraws = eng.train_draws(b, imgs.shape, _gen(7))
-        loss = eng.train_step_loss(n, imgs, masks, None, None, tk,
-                                   _draws=tdraws)
-        loss.backward()
-        tok = eng.tokens_for_prompt(DIFFUSION_PROMPTS["urban"])
-        fills = {m: fn(n, scene.to(dev), hole.to(dev), None, (size, size),
-                       tokens=tok, guidance=3.0, _draws=sdraws).cpu()
-                 for m, fn in (("ddim", eng._sample),
-                               ("dpmpp", eng._sample_dpmpp))}
-        runs[dev] = (loss.item(), _grads(n), fills, n)
-    (l_card, g_card, f_card, n_card), (l_cpu, g_cpu, f_cpu, n_cpu) = (
-        runs["cuda"], runs["cpu"])
-    null = _norm_biases(n_cpu)
-    rel = {k: float((g_card[k] - g_cpu[k]).norm())
-           / max(float(g_cpu[k].norm()), 1e-30)
-           for k in g_cpu if k not in null}
+    eng = _diffusion_engine("cpu")
+    return dict(
+        imgs=imgs, tokens=toks[torch.arange(b) % 2,
+                               torch.arange(b) % toks.shape[1]],
+        masks=random_hole_masks(_gen(5), (b, size, size), D["hole_seeds"],
+                                D["hole_steps"], device="cpu"),
+        train=eng.train_draws(b, imgs.shape, _gen(7)),
+        scene=torch.from_numpy(make_styled_scene(
+            int(draws["diffusion_eval_seeds"][D["gated_seed"]][1]), "urban",
+            size)) * 2.0 - 1.0,
+        hole=hole, prompt=eng.tokens_for_prompt(DIFFUSION_PROMPTS["urban"]),
+        sample=(torch.randn((size, size, 3), generator=g),
+                [torch.randn((size, size, 3), generator=g)
+                 for _ in range(D["sample_steps"])]))
+
+
+def _diffusion_cmp_run(net, x: dict, dev: str):
+    """A copy of ``net`` on ``dev``: one training step's loss and each
+    leaf's gradient, and the DDIM and DPM++ fills with guidance 3, on the
+    shared inputs ``x``."""
+    import copy
+
+    eng = _diffusion_engine(dev)
+    n = copy.deepcopy(net).to(dev)
+    loss = eng.train_step_loss(n, x["imgs"], x["masks"], None, None,
+                               x["tokens"], _draws=x["train"])
+    loss.backward()
+    size = DIFFUSION["size"]
+    fills = {m: fn(n, x["scene"].to(dev), x["hole"].to(dev), None,
+                   (size, size), tokens=x["prompt"].to(dev), guidance=3.0,
+                   _draws=x["sample"]).cpu()
+             for m, fn in (("ddim", eng._sample),
+                           ("dpmpp", eng._sample_dpmpp))}
+    return loss.item(), _grads(n), fills
+
+
+def _leaf_gaps(g_card: dict, g_cpu: dict, null: set) -> dict:
+    """Each leaf's ``|card - cpu| / |cpu|`` (L2 norms), the biases an
+    instance norm follows left out."""
+    return {k: float((g_card[k] - g_cpu[k]).norm())
+            / max(float(g_cpu[k].norm()), 1e-30)
+            for k in g_cpu if k not in null}
+
+
+def _diffusion_gaps(card, cpu, net) -> dict:
+    """The card's run against the CPU's (:func:`_diffusion_cmp_run`): the
+    loss's absolute gap, the worst leaf's relative gradient gap, and the
+    fills' largest absolute difference; the worst leaf as ``grad_leaf``."""
+    (l_card, g_card, f_card), (l_cpu, g_cpu, f_cpu) = card, cpu
+    rel = _leaf_gaps(g_card, g_cpu, _norm_biases(net))
     worst = max(rel, key=rel.get)
     out = dict(loss=abs(l_card - l_cpu), grad_rel=rel[worst])
     for m in ("ddim", "dpmpp"):
         out[m] = float((f_card[m] - f_cpu[m]).abs().max())
-    bad = {k: v for k, v in out.items() if not v <= DIFF_CMP_BOUNDS[k]}
     out["grad_leaf"] = worst
+    return out
+
+
+def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
+    """One training step and one DDIM and one DPM++ fill (guidance 3, the
+    urban prompt, bench_diffusion's held-out urban scene and centre hole)
+    on the card and on the CPU from the trained weights and shared draws,
+    held to ``DIFF_CMP_BOUNDS``."""
+    x = _diffusion_cmp_inputs(draws)
+    out = _diffusion_gaps(_diffusion_cmp_run(net, x, "cuda"),
+                          _diffusion_cmp_run(net, x, "cpu"), net)
+    bad = {k: v for k, v in out.items()
+           if k in DIFF_CMP_BOUNDS and not v <= DIFF_CMP_BOUNDS[k]}
     if bad:
         raise SystemExit(f"diffusion card_vs_cpu beyond {DIFF_CMP_BOUNDS}: "
                          f"{out}")

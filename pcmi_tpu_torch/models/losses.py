@@ -73,15 +73,11 @@ def gradient_l1(pred, target):
 
 
 def _window_max(m: torch.Tensor, size: int) -> torch.Tensor:
-    """Max over a ``size x size`` window of (B, H, W), "SAME" placement
-    with -inf outside (``lax.reduce_window``'s; the pooling's own padding
-    is -inf)."""
-    lo = (size - 1) // 2
-    hi = size - 1 - lo
-    if lo == hi:
-        return F.max_pool2d(m[:, None], size, stride=1, padding=lo)[:, 0]
-    x = F.pad(m[:, None], (lo, hi, lo, hi), value=float("-inf"))
-    return F.max_pool2d(x, size, stride=1)[:, 0]
+    """Max over an odd ``size x size`` window of (B, H, W), "SAME"
+    placement with -inf outside (``lax.reduce_window``'s; the pooling's
+    own padding is -inf)."""
+    assert size % 2 == 1, size
+    return F.max_pool2d(m[:, None], size, stride=1, padding=size // 2)[:, 0]
 
 
 def boundary_ring_mask(mask: torch.Tensor, width: int = 4) -> torch.Tensor:

@@ -26,9 +26,10 @@ draws (initial weights, hole masks) come from CPU ``torch.Generator``s
 and move to the device; :meth:`InpaintGANTrainer._step` takes the hole
 masks from outside.
 
-:func:`data_parallel_step` runs a step on each rank's shard of the batch
-and averages every gradient over the data group before each optimiser
-step (the reference lets GSPMD insert that all-reduce). It is not
+:func:`data_parallel_step` runs a GAN trainer's step on each rank's
+shard of the batch and averages every gradient over the data group before
+each optimiser step (the reference lets GSPMD insert that all-reduce, for
+any step). It is not
 ``DistributedDataParallel``: the GAN steps update two networks and pass
 the generator's output through the discriminator.
 """
@@ -199,12 +200,17 @@ class InpaintGANTrainer:
                    rng: Optional[torch.Generator]) -> Tuple[GANState, dict]:
         """One step on (B, H, W, 3) ``images`` with hole masks drawn from
         ``rng``. Trains ``state``'s networks in place; returns the state
-        with its step advanced, and the losses (0-d tensors)."""
+        with its step advanced, and the losses (0-d tensors). In a
+        data-parallel step each rank draws the whole batch's masks and
+        keeps its shard's."""
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         b, h, w, _ = images.shape
-        mask = random_hole_masks(rng, (b, h, w), self.cfg.mask_seeds,
+        group = DATA_GROUP.get()
+        n, r = ((1, 0) if group is None
+                else (dist.get_world_size(group), dist.get_rank(group)))
+        mask = random_hole_masks(rng, (b * n, h, w), self.cfg.mask_seeds,
                                  self.cfg.mask_steps, device=self.device)
-        return self._step(state, images, mask)
+        return self._step(state, images, mask[r * b:(r + 1) * b])
 
     def _step(self, state: GANState, images: torch.Tensor,
               mask: torch.Tensor) -> Tuple[GANState, dict]:
@@ -338,16 +344,29 @@ class SRGANTrainer:
 
 def data_parallel_step(step_fn: Callable, mesh, data_axis: str = "data"
                        ) -> Callable:
-    """Run a ``(state, batch, ...) -> (state, metrics)`` step data-parallel
-    over ``mesh``'s ``data_axis``: each rank takes its equal shard of every
-    argument of three or more dimensions whose leading axis divides by the
-    group's size (images, masks) and the rest whole (generators, scalars);
-    every gradient is averaged over the group before each optimiser step
-    (:func:`apply_gradients`), batch-global normalisers are averaged too
-    (:func:`pcmi_tpu_torch.models.losses.batch_mean`), and the metrics are
-    averaged over the group, so each rank's networks take the whole
-    batch's step. The state (networks and optimisers, stepped in place)
-    must start equal on every rank."""
+    """Run a GAN trainer's step data-parallel over ``mesh``'s
+    ``data_axis``: :meth:`InpaintGANTrainer.train_step` or ``_step``, or
+    :meth:`SRGANTrainer.train_step`; any other step raises ``TypeError``.
+    Each rank takes its equal shard of every argument of three or more
+    dimensions whose leading axis divides by the group's size (images,
+    masks) and the rest whole (generators, scalars); every gradient is
+    averaged over the group before each optimiser step
+    (:func:`apply_gradients`), and the metrics are averaged over the
+    group. The steps it takes are those whose losses are means over the
+    batch, or sums over a normaliser that is averaged over the group
+    (the inpainting loss's hole pixels,
+    :func:`pcmi_tpu_torch.models.losses.batch_mean`), so each rank's
+    networks take the whole batch's step. The detectors' losses divide
+    by counts of their shard and are not taken. The state (networks and
+    optimisers, stepped in place) must start equal on every rank."""
+    owner = getattr(step_fn, "__self__", None)
+    name = getattr(step_fn, "__name__", None)
+    if not ((isinstance(owner, InpaintGANTrainer)
+             and name in ("train_step", "_step"))
+            or (isinstance(owner, SRGANTrainer) and name == "train_step")):
+        raise TypeError(
+            "data_parallel_step takes InpaintGANTrainer.train_step or _step "
+            f"or SRGANTrainer.train_step, not {step_fn!r}")
     dim = mesh.mesh_dim_names.index(data_axis)
     group = mesh.get_group(dim)
     n, r = mesh.size(dim), mesh.get_local_rank(dim)

@@ -119,6 +119,11 @@ def main() -> None:
     dist.all_gather(every, flat)
     checks["dp_params_equal"] = all(torch.equal(e, flat) for e in every)
     res["dp_g_params"] = flat
+    # train_step draws the hole masks: the whole batch's on every rank
+    state = trainer.init(None, torch.Generator().manual_seed(0))
+    _, metrics = data_parallel_step(trainer.train_step, mesh)(
+        state, z["gan_images"], torch.Generator().manual_seed(3))
+    res.update({"dpt_" + k: v for k, v in metrics.items()})
 
     # the multi-host mesh: two hosts of two ranks (LOCAL_WORLD_SIZE=2)
     mh = make_multihost_mesh(data=1, tile=2, device_type="cpu")

@@ -8,8 +8,9 @@ which imports only the port; a ``file://`` store in ``tmp_path``): the
 2 x 2 (data, tile) mesh, the halo exchange, ``sharded_rows_map``,
 ``sharded_disparity``, ``batched_pair_step``, ``sharded_dsm_update``, a
 data-parallel GAN step and a (dcn, data, tile) mesh of two hosts of two
-ranks. The world is joined with a 120 s timeout and killed on expiry, so
-a hang fails these tests instead of stalling the suite.
+ranks. The whole world is joined within one 120 s deadline and every rank
+killed on expiry, so a hang fails these tests instead of stalling the
+suite.
 
 Tolerances: halo rows and the rows map equal the slices of the whole
 array; ``sharded_disparity`` within the port's ``compute_disparity``
@@ -21,13 +22,15 @@ matcher; ``batched_pair_step`` equal to single-device ``pair_core``; the
 sharded DSM within ``tests/test_fusion_sharded.py``'s tolerances of the
 port's sequential loop and within ``tests/test_torch_fusion.py``'s
 port-against-reference criteria of the reference's; the data-parallel
-metrics within rtol 2e-4, atol 2e-5 of the single-rank step.
+metrics (``_step`` on given masks, ``train_step`` drawing them) within
+rtol 2e-4, atol 2e-5 of the single-rank step.
 """
 
 import json
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -122,13 +125,15 @@ def world(tmp_path_factory):
          str(tmp / "inputs.npz"), str(tmp)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)]
+    deadline = time.monotonic() + TIMEOUT_S
     logs = []
     try:
         for p in procs:
             try:
-                out, _ = p.communicate(timeout=TIMEOUT_S)
+                out, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 0.0))
             except subprocess.TimeoutExpired:
-                out = f"timed out after {TIMEOUT_S} s"
+                out = f"the world ran past {TIMEOUT_S} s"
             logs.append(out)
     finally:
         for p in procs:
@@ -323,6 +328,58 @@ def test_data_parallel_step_matches_single_rank(world):
     # Adam moves a weight whose gradient rounding dominates by up to lr
     gap = np.abs(res["dp_g_params"] - flat.numpy())
     assert (gap <= 1e-5).mean() >= 0.99 and gap.max() <= 2 * 2e-4
+
+
+def test_data_parallel_train_step_draws_whole_batch_masks(world):
+    """``train_step`` under ``data_parallel_step``: each rank draws the
+    whole batch's hole masks from the shared generator and keeps its
+    shard's, so the metrics are the single-rank step's."""
+    from pcmi_tpu_torch.models.training import (
+        InpaintGANTrainer, InpaintTrainConfig)
+    from pcmi_tpu_torch.models.unet import InpaintUNet, PatchDiscriminator
+
+    inputs, res, _ = world
+    trainer = InpaintGANTrainer(
+        InpaintTrainConfig(compute_dtype="float32"),
+        generator=InpaintUNet(widths=(8, 16, 32)),
+        discriminator=PatchDiscriminator(widths=(8, 16, 32, 32)),
+        device="cpu")
+    state = trainer.init(None, torch.Generator().manual_seed(0))
+    _, m = trainer.train_step(state, inputs["gan_images"],
+                              torch.Generator().manual_seed(3))
+    for k, v in m.items():
+        np.testing.assert_allclose(float(res["dpt_" + k]), float(v),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+def _detector_step():
+    from pcmi_tpu_torch.models.detector import DetectorTrainer
+
+    return DetectorTrainer(device="cpu").train_step
+
+
+def _obb_step():
+    from pcmi_tpu_torch.models.detector import OBBDetectorTrainer
+
+    return OBBDetectorTrainer(device="cpu").train_step
+
+
+def _init_step():
+    from pcmi_tpu_torch.models.training import InpaintGANTrainer
+
+    return InpaintGANTrainer(device="cpu").init
+
+
+@pytest.mark.parametrize("make", [_detector_step, _obb_step, _init_step,
+                                  lambda: (lambda state, x: (state, {}))])
+def test_data_parallel_step_refuses_other_steps(make):
+    """Only the GAN trainers' steps are taken: the detectors' losses divide
+    by counts of the local shard, so averaging their gradients would not
+    give the whole batch's step."""
+    from pcmi_tpu_torch.models.training import data_parallel_step
+
+    with pytest.raises(TypeError, match="data_parallel_step takes"):
+        data_parallel_step(make(), None)
 
 
 def test_multihost_mesh_two_hosts(world):

@@ -36,6 +36,17 @@
         on 2 held-out seeds every K steps. Needs JAX
         (``JAX_PLATFORMS=cpu``); runs one package per process
         (``--package ref`` or ``port``).
+    python3 train_probe.py diffgap --steps 4000 --every 1000
+        on the card: chip_smoke's diffusion training (phase 14, seed 0) and,
+        every K steps, its card-against-CPU comparison on the weights of
+        that step, the CPU once and the card five times: twice as the
+        port runs, twice under ``torch.use_deterministic_algorithms(True,
+        warn_only=True)`` with cuDNN's deterministic algorithms, and once
+        with TF32 convolutions and matrix products. Per card run: the
+        loss and fill gaps, the worst leaf's relative gradient gap apart
+        for the embedding's leaves (``enc_temb``, ``mid_temb``, ``text``)
+        and for the rest, each worst leaf's share of the whole gradient's
+        norm, and the largest leaf gap to the earlier run of its mode.
 
 Each prints one line per evaluation.
 """
@@ -43,6 +54,8 @@ Each prints one line per evaluation.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import sys
 import time
@@ -228,9 +241,84 @@ def ab(package: str, steps: int, w_gan: float, seed: int, every: int) -> None:
                   f"gains_db {gains}", flush=True)
 
 
+# the leaves on the timestep and text embedding's path: it is added after
+# a ConvBlock as a constant per channel, and every later ConvBlock's
+# instance norm removes such a constant but for the zero-padded borders of
+# the convolution before it, so their gradients are sums that nearly cancel
+EMBED_LEAVES = ("enc_temb.", "mid_temb.", "text.", "class_embed.")
+
+
+@contextlib.contextmanager
+def _card_mode(mode: str):
+    """The card's arithmetic for one run: ``port`` (as the package sets
+    it), ``deterministic`` or ``tf32``; yields the list that receives the
+    messages of the operations without a deterministic version."""
+    import warnings
+
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+            cudnn.benchmark, cudnn.allow_tf32, mm.allow_tf32)
+    caught: list = []
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        if mode == "deterministic":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            cudnn.deterministic, cudnn.benchmark = True, False
+        elif mode == "tf32":
+            cudnn.allow_tf32 = mm.allow_tf32 = True
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(prev[0])
+            (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             mm.allow_tf32) = prev[1:]
+            caught.extend(sorted({str(m.message)[:100] for m in w}))
+
+
+def diffgap(steps: int, every: int) -> None:
+    import chip_smoke as cs
+
+    print(cs.phase_device())
+    D = cs.DIFFUSION
+    draws = cs.reference_draws()
+    _eng, net, step, _ = cs._diffusion_trainer(D["gated_seed"], draws,
+                                               "cuda", steps)
+    x = cs._diffusion_cmp_inputs(draws)
+    null = cs._norm_biases(net)
+    for i in range(steps):
+        step(i)
+        if (i + 1) % every:
+            continue
+        cpu = cs._diffusion_cmp_run(net, x, "cpu")
+        total = float(torch.cat([g.reshape(-1) for g in cpu[1].values()])
+                      .norm())
+        earlier: dict = {}
+        for mode in ("port", "port", "deterministic", "deterministic",
+                     "tf32"):
+            with _card_mode(mode) as caught:
+                card = cs._diffusion_cmp_run(net, x, "cuda")
+            gaps = cs._diffusion_gaps(card, cpu, net)
+            rel = cs._leaf_gaps(card[1], cpu[1], null)
+            row = dict(step=i + 1, mode=mode, loss=gaps["loss"],
+                       ddim=gaps["ddim"], dpmpp=gaps["dpmpp"])
+            for part, keep in (("embed", True), ("conv", False)):
+                sub = {k: v for k, v in rel.items()
+                       if k.startswith(EMBED_LEAVES) == keep}
+                k = max(sub, key=sub.get)
+                row[part] = [k, sub[k], float(cpu[1][k].norm()) / total]
+            if mode in earlier:
+                row["to_earlier"] = max(cs._leaf_gaps(
+                    card[1], earlier[mode][1], null).values())
+            earlier[mode] = card
+            if caught:
+                row["not_deterministic"] = caught
+            print("diffgap " + json.dumps(row), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=["export", "inpaint", "obb", "ab"])
+    ap.add_argument("mode", choices=["export", "inpaint", "obb", "ab",
+                                     "diffgap"])
     ap.add_argument("--out", default="reference_draws.npz")
     ap.add_argument("--config", choices=["bench", "record"], default="bench")
     ap.add_argument("--steps", type=int, default=6000)
@@ -242,9 +330,10 @@ def main() -> None:
     ap.add_argument("--eval-sets", type=int, default=1)
     ap.add_argument("--deterministic", action="store_true")
     a = ap.parse_args()
-    if a.deterministic:
+    if a.deterministic or a.mode == "diffgap":
         # before the first CUDA call: cuBLAS reads it when it starts
         os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    if a.deterministic:
         torch.use_deterministic_algorithms(True)
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -252,6 +341,8 @@ def main() -> None:
         export(a.out)
     elif a.mode == "inpaint":
         inpaint(a.config, a.steps, a.every, a.seed, a.deterministic)
+    elif a.mode == "diffgap":
+        diffgap(a.steps, a.every)
     elif a.mode == "obb":
         obb(a.runs, a.eval_sets)
     else:
