@@ -196,8 +196,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     image with NaN holes (finite, known pixels kept) and
     ``EnhancementProcessor`` on 512², median ms; one training step and one
     DDIM and one DPM++ fill at guidance 3 on the card and on the CPU from
-    shared weights and draws (``DIFF_CMP_BOUNDS``). No stereo kernel
-    launches;
+    shared weights and draws (``DIFF_CMP_BOUNDS``), and a control of the
+    card's run with TF32 that must exceed one of those bounds. No stereo
+    kernel launches;
 15. the scale-out layer on one card, a 1 x 1 mesh over a world-size-1
     NCCL group: the halo exchange pads zeros; ``sharded_disparity`` on the
     headline pair's matcher inputs (interior rows within 0.51 px of the
@@ -3045,13 +3046,22 @@ DIFFUSION = dict(
 DIFFUSION_PROMPTS = {"fields": "dark farm fields",
                      "urban": "bright urban blocks"}
 # card against CPU on shared weights and draws: one training step's loss
-# (absolute) and worst leaf gradient (relative to the leaf's norm; the
-# biases an instance norm follows left out), the DDIM and DPM++ fills
-# with guidance 3 (largest absolute difference). Bounds 8-15x the worst
-# of three card readings on three trainings (loss 0; gradient 4.2e-6 to
-# 6.1e-3; DDIM 5.6e-6 to 1.3e-5, DPM++ 1.3e-5 to 6.4e-5; PERF.md §6); the
-# worst leaf is printed as ``grad_leaf``
-DIFF_CMP_BOUNDS = dict(loss=1e-5, grad_rel=5e-2, ddim=2e-4, dpmpp=1e-3)
+# (absolute), the whole gradient's gap and the worst leaf's (each relative
+# to its norm; the biases an instance norm follows left out), the DDIM and
+# DPM++ fills with guidance 3 (largest absolute difference). Readings
+# (``train_probe.py diffgap``, 12 checkpoints of two trainings; PERF.md
+# §6): with no leaky ReLU whose input lies within rounding of zero the
+# whole gradient is within 2.5e-6 and the worst leaf within 7.5e-6; one
+# such ReLU taking the other slope on one device (1 of 1.7 million signs, in
+# 1 of 12 checkpoints) moved the whole gradient by 4.1e-4 and the leaves
+# beside it by up to 3.2e-3 (6.1e-3 in an earlier call), in deterministic
+# runs alike. The DDIM and DPM++ gaps stayed below 1.3e-5 and 6.4e-5. A
+# run with TF32 convolutions and matrix products, which the phase repeats
+# as a control that must exceed a bound, reads the whole gradient at
+# 5.6e-3 to 1.2e-2 and the fills at 1.7e-3 to 1.7e-2. The worst leaf is
+# printed as ``grad_leaf``
+DIFF_CMP_BOUNDS = dict(loss=1e-5, grad_all=2e-3, grad_rel=5e-2,
+                       ddim=2e-4, dpmpp=1e-3)
 
 
 def _diffusion_engine(dev: str):
@@ -3237,6 +3247,33 @@ def _diffusion_user_path(eng, net) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _card_mode(mode: str):
+    """The card's arithmetic for one run: ``port`` (as the package sets
+    it), ``deterministic`` or ``tf32``; yields the list that receives the
+    messages of the operations without a deterministic version."""
+    import warnings
+
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
+            cudnn.benchmark, cudnn.allow_tf32, mm.allow_tf32)
+    caught: list = []
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        if mode == "deterministic":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            cudnn.deterministic, cudnn.benchmark = True, False
+        elif mode == "tf32":
+            cudnn.allow_tf32 = mm.allow_tf32 = True
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(prev[0])
+            (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             mm.allow_tf32) = prev[1:]
+            caught.extend(sorted({str(m.message)[:100] for m in w}))
+
+
 def _diffusion_cmp_inputs(draws: dict) -> dict:
     """The card-against-CPU comparison's shared inputs, on the host: a
     batch of 4 pool scenes, their captions and hole masks, the training
@@ -3298,12 +3335,20 @@ def _leaf_gaps(g_card: dict, g_cpu: dict, null: set) -> dict:
 
 def _diffusion_gaps(card, cpu, net) -> dict:
     """The card's run against the CPU's (:func:`_diffusion_cmp_run`): the
-    loss's absolute gap, the worst leaf's relative gradient gap, and the
-    fills' largest absolute difference; the worst leaf as ``grad_leaf``."""
+    loss's absolute gap, the whole gradient's and the worst leaf's
+    relative gaps, and the fills' largest absolute difference; the worst
+    leaf as ``grad_leaf``."""
     (l_card, g_card, f_card), (l_cpu, g_cpu, f_cpu) = card, cpu
-    rel = _leaf_gaps(g_card, g_cpu, _norm_biases(net))
+    null = _norm_biases(net)
+    rel = _leaf_gaps(g_card, g_cpu, null)
     worst = max(rel, key=rel.get)
-    out = dict(loss=abs(l_card - l_cpu), grad_rel=rel[worst])
+    keys = [k for k in g_cpu if k not in null]
+    whole = [torch.cat([g[k].reshape(-1) for k in keys])
+             for g in (g_card, g_cpu)]
+    out = dict(loss=abs(l_card - l_cpu),
+               grad_all=float((whole[0] - whole[1]).norm())
+               / float(whole[1].norm()),
+               grad_rel=rel[worst])
     for m in ("ddim", "dpmpp"):
         out[m] = float((f_card[m] - f_cpu[m]).abs().max())
     out["grad_leaf"] = worst
@@ -3314,15 +3359,20 @@ def _diffusion_card_vs_cpu(net, draws: dict) -> dict:
     """One training step and one DDIM and one DPM++ fill (guidance 3, the
     urban prompt, bench_diffusion's held-out urban scene and centre hole)
     on the card and on the CPU from the trained weights and shared draws,
-    held to ``DIFF_CMP_BOUNDS``."""
+    held to ``DIFF_CMP_BOUNDS``; then the card's run again with TF32
+    convolutions and matrix products, which must exceed at least one of
+    them (listed under ``tf32_beyond``)."""
     x = _diffusion_cmp_inputs(draws)
-    out = _diffusion_gaps(_diffusion_cmp_run(net, x, "cuda"),
-                          _diffusion_cmp_run(net, x, "cpu"), net)
-    bad = {k: v for k, v in out.items()
-           if k in DIFF_CMP_BOUNDS and not v <= DIFF_CMP_BOUNDS[k]}
-    if bad:
-        raise SystemExit(f"diffusion card_vs_cpu beyond {DIFF_CMP_BOUNDS}: "
-                         f"{out}")
+    cpu = _diffusion_cmp_run(net, x, "cpu")
+    out = _diffusion_gaps(_diffusion_cmp_run(net, x, "cuda"), cpu, net)
+    with _card_mode("tf32"):
+        ctl = _diffusion_gaps(_diffusion_cmp_run(net, x, "cuda"), cpu, net)
+    bad = {k: out[k] for k, b in DIFF_CMP_BOUNDS.items() if not out[k] <= b}
+    out["tf32_beyond"] = {k: ctl[k] for k, b in DIFF_CMP_BOUNDS.items()
+                          if not ctl[k] <= b}
+    if bad or not out["tf32_beyond"]:
+        raise SystemExit(f"diffusion card_vs_cpu beyond {DIFF_CMP_BOUNDS}, "
+                         f"or its TF32 control within them: {out}")
     return out
 
 

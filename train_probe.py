@@ -36,17 +36,20 @@
         on 2 held-out seeds every K steps. Needs JAX
         (``JAX_PLATFORMS=cpu``); runs one package per process
         (``--package ref`` or ``port``).
-    python3 train_probe.py diffgap --steps 4000 --every 1000
+    python3 train_probe.py diffgap --steps 4000 --every 1000 --modes M,...
         on the card: chip_smoke's diffusion training (phase 14, seed 0) and,
         every K steps, its card-against-CPU comparison on the weights of
-        that step, the CPU once and the card five times: twice as the
-        port runs, twice under ``torch.use_deterministic_algorithms(True,
-        warn_only=True)`` with cuDNN's deterministic algorithms, and once
-        with TF32 convolutions and matrix products. Per card run: the
-        loss and fill gaps, the worst leaf's relative gradient gap apart
-        for the embedding's leaves (``enc_temb``, ``mid_temb``, ``text``)
-        and for the rest, each worst leaf's share of the whole gradient's
-        norm, and the largest leaf gap to the earlier run of its mode.
+        that step, the CPU once and the card once per mode (by default
+        twice as the port runs, ``port``; twice ``deterministic``, under
+        ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+        cuDNN's deterministic algorithms; once ``tf32``, with TF32
+        convolutions and matrix products). Per card run: the loss and
+        fill gaps, the whole gradient's relative gap, the worst leaf's
+        apart for the embedding's leaves (``enc_temb``, ``mid_temb``,
+        ``text``) and for the rest, each worst leaf's share of the whole
+        gradient's norm, the largest leaf gap to the earlier run of its
+        mode, and how many of the step's leaky ReLU signs and max-pool
+        choices differ from the CPU's.
 
 Each prints one line per evaluation.
 """
@@ -54,7 +57,6 @@ Each prints one line per evaluation.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -248,34 +250,40 @@ def ab(package: str, steps: int, w_gan: float, seed: int, every: int) -> None:
 EMBED_LEAVES = ("enc_temb.", "mid_temb.", "text.", "class_embed.")
 
 
-@contextlib.contextmanager
-def _card_mode(mode: str):
-    """The card's arithmetic for one run: ``port`` (as the package sets
-    it), ``deterministic`` or ``tf32``; yields the list that receives the
-    messages of the operations without a deterministic version."""
-    import warnings
+def _kinks(net, x: dict, dev: str) -> list:
+    """Where the training step's forward on ``dev`` meets a kink: each
+    leaky ReLU's signs, in order, then each 2x2 max pool's chosen
+    inputs, on the host."""
+    import copy
 
-    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic,
-            cudnn.benchmark, cudnn.allow_tf32, mm.allow_tf32)
-    caught: list = []
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        if mode == "deterministic":
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            cudnn.deterministic, cudnn.benchmark = True, False
-        elif mode == "tf32":
-            cudnn.allow_tf32 = mm.allow_tf32 = True
-        try:
-            yield caught
-        finally:
-            torch.use_deterministic_algorithms(prev[0])
-            (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
-             mm.allow_tf32) = prev[1:]
-            caught.extend(sorted({str(m.message)[:100] for m in w}))
+    import chip_smoke as cs
+    from pcmi_tpu_torch.models import diffusion, unet
+
+    leaky, down = unet._leaky, diffusion._down
+    signs, picks = [], []
+
+    def rec_leaky(t):
+        signs.append((t > 0).cpu())
+        return leaky(t)
+
+    def rec_down(t):
+        out, idx = torch.nn.functional.max_pool2d(t, 2, 2,
+                                                  return_indices=True)
+        picks.append(idx.cpu())
+        return out
+
+    unet._leaky, diffusion._down = rec_leaky, rec_down
+    try:
+        with torch.no_grad():
+            cs._diffusion_engine(dev).train_step_loss(
+                copy.deepcopy(net).to(dev), x["imgs"], x["masks"], None,
+                None, x["tokens"], _draws=x["train"])
+    finally:
+        unet._leaky, diffusion._down = leaky, down
+    return signs + picks
 
 
-def diffgap(steps: int, every: int) -> None:
+def diffgap(steps: int, every: int, modes) -> None:
     import chip_smoke as cs
 
     print(cs.phase_device())
@@ -290,17 +298,21 @@ def diffgap(steps: int, every: int) -> None:
         if (i + 1) % every:
             continue
         cpu = cs._diffusion_cmp_run(net, x, "cpu")
+        cpu_kinks = _kinks(net, x, "cpu")
         total = float(torch.cat([g.reshape(-1) for g in cpu[1].values()])
                       .norm())
         earlier: dict = {}
-        for mode in ("port", "port", "deterministic", "deterministic",
-                     "tf32"):
-            with _card_mode(mode) as caught:
+        for mode in modes:
+            with cs._card_mode(mode) as caught:
                 card = cs._diffusion_cmp_run(net, x, "cuda")
+                kinks = _kinks(net, x, "cuda")
             gaps = cs._diffusion_gaps(card, cpu, net)
             rel = cs._leaf_gaps(card[1], cpu[1], null)
             row = dict(step=i + 1, mode=mode, loss=gaps["loss"],
-                       ddim=gaps["ddim"], dpmpp=gaps["dpmpp"])
+                       ddim=gaps["ddim"], dpmpp=gaps["dpmpp"],
+                       grad_all=gaps["grad_all"],
+                       kinks_flipped=[int((a != b).sum()) for a, b in
+                                      zip(kinks, cpu_kinks)])
             for part, keep in (("embed", True), ("conv", False)):
                 sub = {k: v for k, v in rel.items()
                        if k.startswith(EMBED_LEAVES) == keep}
@@ -329,6 +341,8 @@ def main() -> None:
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--eval-sets", type=int, default=1)
     ap.add_argument("--deterministic", action="store_true")
+    ap.add_argument("--modes", default="port,port,deterministic,"
+                    "deterministic,tf32")
     a = ap.parse_args()
     if a.deterministic or a.mode == "diffgap":
         # before the first CUDA call: cuBLAS reads it when it starts
@@ -342,7 +356,7 @@ def main() -> None:
     elif a.mode == "inpaint":
         inpaint(a.config, a.steps, a.every, a.seed, a.deterministic)
     elif a.mode == "diffgap":
-        diffgap(a.steps, a.every)
+        diffgap(a.steps, a.every, a.modes.split(","))
     elif a.mode == "obb":
         obb(a.runs, a.eval_sets)
     else:
