@@ -205,8 +205,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     single-device matcher on > 98 %, 6/3/1 launches);
     ``batched_pair_step`` on phase 7's pairs 0 and 1 (bit-equal to
     ``pair_core``, 12/6/2 launches); ``sharded_dsm_update`` equal to the
-    sequential loop; ``data_parallel_step`` of one inpainting GAN step
-    within phase 13's card-against-CPU bounds of the plain step.
+    sequential loop; ``data_parallel_step`` of one inpainting GAN step,
+    one ``DetectorTrainer`` and one ``OBBDetectorTrainer`` step (four
+    128 px scenes) within phase 13's card-against-CPU bounds of the plain
+    step; a checkpoint round trip of the stepped detector's ``(net,
+    opt)`` (bit-equal, the template untouched, a step from it finite).
 
 The last lines are a summary of phases 7b-15 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
@@ -3459,8 +3462,10 @@ def phase_parallel(ctx: "Headline", dctx: "D288") -> dict:
     with 6/3/1 launches; ``batched_pair_step`` on phase 7's pairs 0 and 1
     equals ``pair_core`` pair by pair with 12/6/2 launches;
     ``sharded_dsm_update`` equals the sequential ``dsm_update`` loop;
-    ``data_parallel_step`` of one inpainting GAN step equals the plain
-    step within phase 13's card-against-CPU bounds."""
+    ``data_parallel_step`` of one inpainting GAN step and of one step of
+    each detector trainer equals the plain step within phase 13's
+    card-against-CPU bounds (:func:`_dp_detectors`, which also
+    round-trips a detector checkpoint)."""
     import torch.distributed as dist
 
     from pcmi_tpu_torch.models.losses import random_hole_masks
@@ -3556,6 +3561,7 @@ def phase_parallel(ctx: "Headline", dctx: "D288") -> dict:
                 close += int((d <= trainer.cfg.lr_g / 2).sum())
                 total += d.numel()
     out["dp_share"] = close / total
+    out["dp_detectors"] = _dp_detectors(mesh)
     dist.destroy_process_group()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"parallel: {json.dumps(_sig(out, 6))}")
@@ -3563,8 +3569,92 @@ def phase_parallel(ctx: "Headline", dctx: "D288") -> dict:
             and out["sd_launches"] == PER_PAIR and all(out["bp_equal"])
             and out["bp_launches"] == {k: 2 * v for k, v in PER_PAIR.items()}
             and all(out["dsm_equal"]) and out["dp_loss"] <= loss_bound
-            and out["dp_share"] >= share_bound):
+            and out["dp_share"] >= share_bound
+            and all(r["ok"] for r in out["dp_detectors"].values())):
         raise SystemExit(f"parallel: {out}")
+    return out
+
+
+def _dp_detectors(mesh) -> dict:
+    """``data_parallel_step`` of one step of each detector trainer on
+    ``mesh`` against the plain step from the same weights on the same
+    four 128 px scenes (phase 13's card-against-CPU batches): the losses
+    within the trainer's ``CMP_BOUNDS`` loss bound and at least its share
+    of the parameters within half an Adam step (``ms``: the wrapped step,
+    host clock to a synchronise, after the plain step). Then
+    ``save_checkpoint`` / ``restore_checkpoint`` of the OBB detector's
+    stepped ``(net, opt)`` into another draw's state: every tensor
+    bit-equal, the template untouched, one more step from the restored
+    state finite (its loss gap to the same step from the saved state
+    reported)."""
+    import copy
+
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainConfig, DetectorTrainer, OBBDetectorTrainer,
+        synthesize_detection_batch, synthesize_obb_batch)
+    from pcmi_tpu_torch.models.training import (
+        data_parallel_step, restore_checkpoint, save_checkpoint)
+
+    out: dict = {}
+    cases = (
+        ("detector", DetectorTrainer(device="cuda"),
+         lambda r: synthesize_detection_batch(r, 4, 128, device="cuda")),
+        ("obb", OBBDetectorTrainer(DetectorTrainConfig(lr=1e-3),
+                                   device="cuda"),
+         lambda r: synthesize_obb_batch(r, 4, 128, hard=True,
+                                        device="cuda")))
+    for name, trainer, synth in cases:
+        batch = synth(_gen(9))
+        net, opt = trainer.init(None, _gen(10))
+        dp_net = copy.deepcopy(net)
+        dp_opt = trainer.optimizer(dp_net)
+        net, opt, m = trainer.train_step(net, opt, *batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp_net, dp_opt, m_dp = data_parallel_step(trainer.train_step, mesh)(
+            dp_net, dp_opt, *batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lr = trainer.cfg.lr
+        gaps = [(p - q).abs() for p, q in zip(net.parameters(),
+                                               dp_net.parameters())]
+        share = (sum(int((g <= lr / 2).sum()) for g in gaps)
+                 / sum(g.numel() for g in gaps))
+        loss_bound, _, share_bound = CMP_BOUNDS[name]
+        row = dict(loss=max(abs(float(m[k]) - float(m_dp[k])) for k in m),
+                   share=share, ms=ms)
+        row["ok"] = row["loss"] <= loss_bound and share >= share_bound
+        out[name] = row
+
+    def leaves(n, o):
+        t = list(n.state_dict().values())
+        for st in o.state_dict()["state"].values():
+            t += [st[k] for k in sorted(st)]
+        return t
+
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_detector.pt")
+    template = trainer.init(None, _gen(12))
+    before = [t.clone() for t in leaves(*template)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, (dp_net, dp_opt))
+    back = restore_checkpoint(path, template)
+    torch.cuda.synchronize()
+    ck = dict(ms=(time.perf_counter() - t0) * 1e3,
+              equal=all(torch.equal(a, b) for a, b in zip(
+                  leaves(dp_net, dp_opt), leaves(*back))),
+              template_kept=all(torch.equal(a, b) for a, b in zip(
+                  before, leaves(*template))))
+    os.remove(path)
+    nxt = synth(_gen(13))
+    _n, _o, m_back = trainer.train_step(*back, *nxt)
+    _n, _o, m_saved = trainer.train_step(dp_net, dp_opt, *nxt)
+    ck["resumed_loss"] = float(m_back["loss"])
+    ck["resumed_gap"] = abs(float(m_back["loss"]) - float(m_saved["loss"]))
+    ck["ok"] = (ck["equal"] and ck["template_kept"]
+                and math.isfinite(ck["resumed_loss"]))
+    out["checkpoint"] = ck
     return out
 
 
@@ -3684,6 +3774,8 @@ def main() -> int:
             "fill": diff["user"]["fill_ms"], "s": diff["phase_s"]},
         "parallel": {"close": par_run["sd_close"],
                      "eq": all(par_run["bp_equal"]),
+                     "det": [par_run["dp_detectors"][k]["loss"]
+                             for k in ("detector", "obb")],
                      "k1": [par_run["sd_launches"]["sgm_dir"],
                             par_run["bp_launches"]["sgm_dir"]],
                      "s": par_run["phase_s"]}}

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcmi_tpu_torch.models.losses import batch_normaliser
 from pcmi_tpu_torch.models.training import adam, apply_gradients
 from pcmi_tpu_torch.models.unet import (
     ConvBlock, SameConv2d, _down, _init_params, image_resize)
@@ -103,13 +104,15 @@ def gaussian_heatmap(centers: torch.Tensor, valid: torch.Tensor,
 
 
 def focal_loss(pred_logits, gt_heat, alpha=2.0, beta=4.0):
-    """CenterNet's penalty-reduced focal loss."""
+    """CenterNet's penalty-reduced focal loss, over the batch's positive
+    centres (the whole batch's in a data-parallel step:
+    :func:`~pcmi_tpu_torch.models.losses.batch_normaliser`)."""
     p = torch.sigmoid(pred_logits)
     pos = gt_heat >= 0.999
     pos_loss = -((1 - p) ** alpha) * torch.log(torch.clamp(p, min=1e-6)) * pos
     neg_loss = (-((1 - gt_heat) ** beta) * (p ** alpha)
                 * torch.log(torch.clamp(1 - p, min=1e-6)) * (~pos))
-    n_pos = torch.clamp(pos.sum().float(), min=1.0)
+    n_pos = batch_normaliser(pos.sum().float())
     return (pos_loss.sum() + neg_loss.sum()) / n_pos
 
 
@@ -197,7 +200,8 @@ class DetectorTrainer(_Trainer):
 
     def train_step(self, net, opt, images, boxes, box_valid):
         """One Adam step of ``net`` (in place); returns ``(net, opt,
-        losses)``."""
+        losses)``. The size and offset losses are means over the batch's
+        valid boxes, the whole batch's in a data-parallel step."""
         cfg = self.cfg
         dev = self.device
         images = torch.as_tensor(images, dtype=torch.float32).to(dev)
@@ -210,7 +214,7 @@ class DetectorTrainer(_Trainer):
         ci = _center_cells(centers, hh, ww)
         sp, op = _gather(size_p, ci), _gather(off_p, ci)
         v = box_valid.float()[..., None]
-        n = torch.clamp(v.sum(), min=1.0)
+        n = batch_normaliser(v.sum())
         l_size = ((sp - sizes).abs() * v).sum() / n
         frac = centers - torch.floor(centers)
         l_off = ((op - frac).abs() * v).sum() / n
@@ -263,6 +267,8 @@ class OBBDetectorTrainer(_Trainer):
         super().__init__(cfg, model, device)
 
     def train_step(self, net, opt, images, obbs, valid):
+        """As :meth:`DetectorTrainer.train_step`, with the angle loss
+        beside the size and offset losses, over the same valid boxes."""
         cfg = self.cfg
         s = cfg.stride
         dev = self.device
@@ -283,7 +289,7 @@ class OBBDetectorTrainer(_Trainer):
         ci = _center_cells(centers, hh, ww)
         sp, op, ap_ = (_gather(t, ci) for t in (size_p, off_p, ang_p))
         v = valid.float()[..., None]
-        n = torch.clamp(v.sum(), min=1.0)
+        n = batch_normaliser(v.sum())
         l_size = ((sp - sizes).abs() * v).sum() / n
         frac = centers - torch.floor(centers)
         l_off = ((op - frac).abs() * v).sum() / n

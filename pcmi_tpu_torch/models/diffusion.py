@@ -84,7 +84,7 @@ class TextEncoder(nn.Module):
     """Hashed word embeddings -> order-aware 1-D convolution (kernel 3,
     "SAME") -> GELU (tanh form, Flax's default) -> masked mean over the
     non-pad tokens -> dense: the (B, dim) conditioning vector of (B, L)
-    token ids."""
+    token ids. The mean is per sample, over each prompt's own tokens."""
 
     def __init__(self, dim: int = 32):
         super().__init__()

@@ -65,7 +65,9 @@ class DIPEngine:
         """The optimisation from given draws: ``net`` (trained in place)
         from its current weights, the (1, H, W, noise_channels) input
         ``z0``, and one standard-normal (1, H, W, noise_channels) draw per
-        step in ``jitter``. Returns (output (H, W, C), losses)."""
+        step in ``jitter``. Returns (output (H, W, C), losses). The loss
+        divides by the known pixels of the one image it fits: a count of
+        one sample, which no data-parallel step splits."""
         cfg = self.cfg
         dev = self.device
         net = net.to(dev).train()

@@ -39,16 +39,19 @@ def draws_to(t: torch.Tensor, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def batch_mean(t: torch.Tensor) -> torch.Tensor:
-    """``t``, a sum over the local batch, averaged over the data-parallel
-    group's ranks (``t`` itself outside a data-parallel step): a
-    normaliser that makes each rank's loss average to the whole batch's."""
+def batch_normaliser(count: torch.Tensor) -> torch.Tensor:
+    """The divisor of a loss summed over the batch: ``count``, the local
+    batch's count, clamped at 1 as the reference clamps it. In a
+    data-parallel step it is the whole batch's count (the group's sum),
+    clamped, divided by the group's size: the ranks' losses then average
+    to exactly the whole batch's loss, also where the whole batch counts
+    fewer than one per rank, or none."""
     group = DATA_GROUP.get()
     if group is None:
-        return t
-    t = t.detach().clone()
-    dist.all_reduce(t, group=group)
-    return t / dist.get_world_size(group)
+        return torch.clamp(count, min=1.0)
+    total = count.detach().clone()
+    dist.all_reduce(total, group=group)
+    return torch.clamp(total, min=1.0) / dist.get_world_size(group)
 
 
 def _grad_xy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,11 +62,11 @@ def _grad_xy(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def masked_l1(pred, target, mask):
     """Mean |pred - target| over mask pixels (mask broadcast over
-    channels). In a data-parallel step the pixel count is the group's
-    mean, so the ranks' losses average to the whole batch's."""
+    channels), over the whole batch's pixels in a data-parallel step
+    (:func:`batch_normaliser`)."""
     num = ((pred - target).abs() * mask).sum()
-    return num / torch.clamp(batch_mean(mask.sum()) * pred.shape[-1]
-                             / mask.shape[-1], min=1.0)
+    return num / batch_normaliser(mask.sum() * pred.shape[-1]
+                                  / mask.shape[-1])
 
 
 def gradient_l1(pred, target):

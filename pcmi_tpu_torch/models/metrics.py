@@ -14,7 +14,9 @@ from pcmi_tpu_torch.ops.filters import box_filter
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, mask=None,
          peak: float = 1.0) -> torch.Tensor:
-    """Peak signal-to-noise ratio in dB; optional pixel mask (e.g. in-hole)."""
+    """Peak signal-to-noise ratio in dB; optional pixel mask (e.g.
+    in-hole). An evaluation metric over the pixels of the call, not a
+    training loss: no data-parallel step runs it."""
     se = (pred.float() - target.float()) ** 2
     if mask is not None:
         m = torch.broadcast_to(mask.float(), se.shape)

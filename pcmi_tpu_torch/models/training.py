@@ -8,8 +8,10 @@
   ``warmup_steps``. D takes a step every time, with zero gradients during
   the warm-up, as the reference's optimiser does (its moments decay and
   its count advances).
-* Checkpoints: ``torch.save`` of both networks' and both optimisers'
-  ``state_dict``s and the step, read back with ``weights_only=True``.
+* Checkpoints of any trainer state (a ``GANState``, a detector's
+  ``(net, opt)``, a bare network, tuples of these): ``torch.save`` of the
+  networks' and optimisers' ``state_dict``s, the schedules' counts and the
+  step, read back with ``weights_only=True`` into a copy of a template.
 
 The optimisers are ``torch.optim.Adam`` (``optax.adam``'s update: ``eps``
 outside the square root, both bias corrections; ``b1 = 0.5`` for the
@@ -26,12 +28,14 @@ draws (initial weights, hole masks) come from CPU ``torch.Generator``s
 and move to the device; :meth:`InpaintGANTrainer._step` takes the hole
 masks from outside.
 
-:func:`data_parallel_step` runs a GAN trainer's step on each rank's
-shard of the batch and averages every gradient over the data group before
-each optimiser step (the reference lets GSPMD insert that all-reduce, for
-any step). It is not
-``DistributedDataParallel``: the GAN steps update two networks and pass
-the generator's output through the discriminator.
+:func:`data_parallel_step` runs any trainer step of the port (the GAN
+trainers' and the detectors') on each rank's shard of the batch, averages
+every gradient over the data group before each optimiser step and divides
+every loss summed over the batch by the whole batch's count, so each rank
+takes exactly the whole batch's step up to the order of the sums (the
+reference lets GSPMD compute every batch-global reduction, for any step).
+It is not ``DistributedDataParallel``: the GAN steps update two networks
+and pass the generator's output through the discriminator.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -342,52 +347,76 @@ class SRGANTrainer:
             return state.g(bicubic_upsample(lr_batch, self.cfg.factor))
 
 
+def _batched(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0
+
+
 def data_parallel_step(step_fn: Callable, mesh, data_axis: str = "data"
                        ) -> Callable:
-    """Run a GAN trainer's step data-parallel over ``mesh``'s
-    ``data_axis``: :meth:`InpaintGANTrainer.train_step` or ``_step``, or
-    :meth:`SRGANTrainer.train_step`; any other step raises ``TypeError``.
-    Each rank takes its equal shard of every argument of three or more
-    dimensions whose leading axis divides by the group's size (images,
-    masks) and the rest whole (generators, scalars); every gradient is
-    averaged over the group before each optimiser step
-    (:func:`apply_gradients`), and the metrics are averaged over the
-    group. The steps it takes are those whose losses are means over the
-    batch, or sums over a normaliser that is averaged over the group
-    (the inpainting loss's hole pixels,
-    :func:`pcmi_tpu_torch.models.losses.batch_mean`), so each rank's
-    networks take the whole batch's step. The detectors' losses divide
-    by counts of their shard and are not taken. The state (networks and
-    optimisers, stepped in place) must start equal on every rank."""
+    """Run a trainer's step data-parallel over ``mesh``'s ``data_axis``,
+    called as the step is: ``wrapped(state, *args)``. It takes the port's
+    trainer steps, :meth:`InpaintGANTrainer.train_step` and ``_step``,
+    :meth:`SRGANTrainer.train_step`, :meth:`DetectorTrainer.train_step`
+    and :meth:`OBBDetectorTrainer.train_step` (a detector step is
+    ``wrapped(net, opt, images, boxes, valid)``); any other callable
+    raises ``TypeError``, since a step that skips
+    :func:`apply_gradients` would not average its gradients.
+
+    The batch size is the leading axis of the first tensor or array after
+    the state (the image batch) and must divide by the group's size. Each
+    rank takes its equal shard of every tensor or array argument whose
+    leading axis has that size (images, masks, boxes and their (B, K)
+    validity); networks, optimisers, generators and scalars go whole to
+    every rank. Every gradient is averaged over the group before each
+    optimiser step (:func:`apply_gradients`), and every loss that sums
+    over the batch divides by the whole batch's count
+    (:func:`pcmi_tpu_torch.models.losses.batch_normaliser`: the hole
+    pixels, the detectors' positive centres and valid boxes), the rest
+    being means over equal shards. So each rank takes the whole batch's
+    step, as GSPMD gives it to the reference's wrapper, up to the order
+    of the sums. The metrics, the last element of what the step returns,
+    are averaged over the group; the other elements are passed through.
+    The state (networks and optimisers, stepped in place) must start
+    equal on every rank."""
+    # detector imports this module
+    from pcmi_tpu_torch.models.detector import (
+        DetectorTrainer, OBBDetectorTrainer)
+
+    steps = ((InpaintGANTrainer, "train_step"), (InpaintGANTrainer, "_step"),
+             (SRGANTrainer, "train_step"), (DetectorTrainer, "train_step"),
+             (OBBDetectorTrainer, "train_step"))
     owner = getattr(step_fn, "__self__", None)
     name = getattr(step_fn, "__name__", None)
-    if not ((isinstance(owner, InpaintGANTrainer)
-             and name in ("train_step", "_step"))
-            or (isinstance(owner, SRGANTrainer) and name == "train_step")):
-        raise TypeError(
-            "data_parallel_step takes InpaintGANTrainer.train_step or _step "
-            f"or SRGANTrainer.train_step, not {step_fn!r}")
+    if not any(isinstance(owner, cls) and name == fn for cls, fn in steps):
+        raise TypeError("data_parallel_step takes " + ", ".join(
+            f"{cls.__name__}.{fn}" for cls, fn in steps)
+            + f", not {step_fn!r}")
     dim = mesh.mesh_dim_names.index(data_axis)
     group = mesh.get_group(dim)
     n, r = mesh.size(dim), mesh.get_local_rank(dim)
 
-    def place(x):
-        if hasattr(x, "ndim") and x.ndim >= 3 and x.shape[0] % n == 0:
-            k = x.shape[0] // n
-            return x[r * k:(r + 1) * k]
-        return x
-
     def wrapped(state, *args):
+        sizes = [a.shape[0] for a in args if _batched(a)]
+        if not sizes or sizes[0] % n:
+            raise ValueError(f"data_parallel_step: the image batch "
+                             f"({sizes[:1]}) does not divide over {n} ranks")
+        b, per = sizes[0], sizes[0] // n
+
+        def place(x):
+            if _batched(x) and x.shape[0] == b:
+                return x[r * per:(r + 1) * per]
+            return x
+
         token = DATA_GROUP.set(group)
         try:
-            state, metrics = step_fn(state, *(place(a) for a in args))
+            *rest, metrics = step_fn(state, *(place(a) for a in args))
         finally:
             DATA_GROUP.reset(token)
         names = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in names])
         dist.all_reduce(vec, group=group)
         vec /= n
-        return state, dict(zip(names, vec.unbind(0)))
+        return (*rest, dict(zip(names, vec.unbind(0))))
 
     return wrapped
 
@@ -404,35 +433,85 @@ def make_sr_pairs(images: torch.Tensor, factor: int = 4
     return lr, hr
 
 
-def save_checkpoint(path: str, state: GANState) -> None:
-    """Both networks' and both optimisers' ``state_dict``s and the step,
-    in one ``torch.save`` file."""
-    torch.save({"g": state.g.state_dict(), "d": state.d.state_dict(),
-                "g_opt": state.g_opt.state_dict(),
-                "d_opt": state.d_opt.state_dict(), "step": int(state.step)},
-               path)
+def _leaves(state) -> list:
+    """The leaves of a trainer state, depth first through its tuples."""
+    if isinstance(state, tuple):
+        return [leaf for part in state for leaf in _leaves(part)]
+    return [state]
 
 
-def restore_checkpoint(path: str, template: GANState) -> GANState:
-    """A new state shaped like ``template`` (copies of its networks, its
-    optimisers' class and settings, its schedules' factors) holding the
-    checkpoint's weights, moments and step; ``template`` is not changed.
-    The file is read with ``weights_only=True``."""
+def _rebuild(template, leaves):
+    """``template``'s tuples around the next leaves of the ``leaves``
+    iterator."""
+    if not isinstance(template, tuple):
+        return next(leaves)
+    parts = [_rebuild(t, leaves) for t in template]
+    if hasattr(template, "_fields"):   # a NamedTuple such as GANState
+        return type(template)(*parts)
+    return tuple(parts)
+
+
+_KINDS = ((nn.Module, "network"), (torch.optim.Optimizer, "optimizer"),
+          (LambdaLR, "schedule"), ((int, type(None)), "value"))
+
+
+def _kind(leaf) -> str:
+    for cls, kind in _KINDS:
+        if isinstance(leaf, cls):
+            return kind
+    raise TypeError(f"a checkpoint holds networks, optimisers, LambdaLR "
+                    f"schedules, ints and None, not {type(leaf).__name__}")
+
+
+def save_checkpoint(path: str, state, step: Optional[int] = None) -> None:
+    """Any state a trainer of the port holds, in one ``torch.save`` file: a
+    :class:`GANState`, a detector trainer's ``(net, opt)``, a bare network
+    (the diffusion engine's, DIP's) or a tuple of these. Networks and
+    optimisers go in as their ``state_dict``s, a ``LambdaLR`` as its
+    count, ints (``GANState.step``) as they are. ``step`` is accepted for
+    the reference's signature, which passes it to Orbax unused."""
+    leaves = _leaves(state)
+    kinds = [_kind(leaf) for leaf in leaves]
+    torch.save({"kinds": kinds, "leaves": [
+        leaf.state_dict() if kind in ("network", "optimizer")
+        else leaf.last_epoch if kind == "schedule" else leaf
+        for leaf, kind in zip(leaves, kinds)]}, path)
+
+
+def restore_checkpoint(path: str, template):
+    """A new state shaped like ``template`` on its device, holding the
+    checkpoint's weights, optimiser moments and counts, schedule counts and
+    ints: copies of its networks, its optimisers' class and settings over
+    the copies' parameters, its schedules' factors over the new
+    optimisers. ``template`` is not changed. The file is read with
+    ``weights_only=True`` and must hold a state of ``template``'s shape."""
     ck = torch.load(path, map_location="cpu", weights_only=True)
-    dev = next(template.g.parameters()).device
-    nets = []
-    for name in ("g", "d"):
-        net = copy.deepcopy(getattr(template, name))
-        net.load_state_dict(ck[name])
-        nets.append(net.to(dev))
-    step = int(ck["step"])
-    opts, scheds = [], []
-    for net, name in zip(nets, ("g_opt", "d_opt")):
-        old = getattr(template, name)
-        opt = type(old)(net.parameters(), **old.defaults)
-        opt.load_state_dict(ck[name])
-        opts.append(opt)
-        sched = getattr(template, name[0] + "_sched")
-        scheds.append(None if sched is None
-                      else _schedule(opt, sched.lr_lambdas[0], step))
-    return GANState(nets[0], nets[1], opts[0], opts[1], step, *scheds)
+    old = _leaves(template)
+    kinds = [_kind(leaf) for leaf in old]
+    if kinds != ck["kinds"]:
+        raise ValueError(f"a checkpoint of {ck['kinds']} for a template of "
+                         f"{kinds}")
+    saved = ck["leaves"]
+    new = list(saved)   # the values as they are
+    params, opts = {}, {}
+    for i, leaf in enumerate(old):
+        if kinds[i] == "network":
+            new[i] = copy.deepcopy(leaf)
+            new[i].load_state_dict(saved[i])
+            params.update(zip(map(id, leaf.parameters()), new[i].parameters()))
+    for i, leaf in enumerate(old):
+        if kinds[i] == "optimizer":
+            try:
+                groups = [{"params": [params[id(p)] for p in g["params"]]}
+                          for g in leaf.param_groups]
+            except KeyError:
+                raise ValueError("an optimiser's parameters must belong to a "
+                                 "network of the state") from None
+            new[i] = type(leaf)(groups, **leaf.defaults)
+            new[i].load_state_dict(saved[i])
+            opts[id(leaf)] = new[i]
+    for i, leaf in enumerate(old):
+        if kinds[i] == "schedule":
+            new[i] = _schedule(opts[id(leaf.optimizer)], leaf.lr_lambdas,
+                               saved[i])
+    return _rebuild(template, iter(new))

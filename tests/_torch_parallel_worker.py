@@ -4,7 +4,8 @@
 
 Imports only the port. Starts the world through
 ``parallel.initialize_multihost`` (a ``file://`` store), builds the 2 x 2
-(data, tile) mesh and runs every case of the layer on the inputs the test
+(data, tile) mesh and the 4 x 1 one (the data-parallel steps with one
+image per rank) and runs every case of the layer on the inputs the test
 wrote (``INPUTS``, an npz), each on the calling rank's blocks; rank 0
 writes the gathered results to ``OUT/results.npz`` and every rank its
 checks to ``OUT/rank<r>.json``.
@@ -27,6 +28,8 @@ def main() -> None:
     from torch.distributed.tensor import Replicate, Shard
 
     from pcmi_tpu_torch.config import StereoConfig
+    from pcmi_tpu_torch.models.detector import (
+        CenterNetHead, DetectorTrainer, OBBDetectorTrainer)
     from pcmi_tpu_torch.models.training import (
         InpaintGANTrainer, InpaintTrainConfig, data_parallel_step)
     from pcmi_tpu_torch.models.unet import InpaintUNet, PatchDiscriminator
@@ -40,6 +43,13 @@ def main() -> None:
     assert initialize_multihost(url, world, rank, device_type="cpu")
     z = {k: torch.from_numpy(v) for k, v in np.load(inputs).items()}
     res = {}
+
+    def same_on_every_rank(params) -> bool:
+        flat = torch.cat([p.detach().reshape(-1) for p in params])
+        every = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(every, flat)
+        return all(torch.equal(e, flat) for e in every)
+
     mesh = make_mesh(2, 2, device_type="cpu")
     checks["mesh"] = [list(mesh.mesh_dim_names), list(mesh.shape)]
     for bad in ((3, None), (3, 2)):
@@ -114,11 +124,39 @@ def main() -> None:
     dp = data_parallel_step(trainer._step, mesh)
     state, metrics = dp(state, z["gan_images"], z["gan_masks"])
     res.update({"dp_" + k: v for k, v in metrics.items()})
-    flat = torch.cat([p.detach().reshape(-1) for p in state.g.parameters()])
-    every = [torch.empty_like(flat) for _ in range(world)]
-    dist.all_gather(every, flat)
-    checks["dp_params_equal"] = all(torch.equal(e, flat) for e in every)
-    res["dp_g_params"] = flat
+    checks["dp_params_equal"] = same_on_every_rank(state.g.parameters())
+    res["dp_g_params"] = torch.cat([p.detach().reshape(-1)
+                                    for p in state.g.parameters()])
+    # a batch of four with one hole pixel, one image per rank of the 4 x 1
+    # mesh: fewer hole values than ranks
+    mesh4 = make_mesh(4, 1, device_type="cpu")
+    state = trainer.init(None, torch.Generator().manual_seed(0))
+    state, metrics = data_parallel_step(trainer._step, mesh4)(
+        state, z["gan_images"][:4], z["tiny_masks"])
+    res.update({"tiny_" + k: v for k, v in metrics.items()})
+    checks["tiny_params_equal"] = same_on_every_rank(state.g.parameters())
+    res["tiny_g_params"] = torch.cat([p.detach().reshape(-1)
+                                      for p in state.g.parameters()])
+    # one data-parallel detector step per case on the 4 x 1 mesh, from the
+    # reference head's weights the test wrote
+    cases = [k[4:-2] for k in sorted(z) if k.startswith("det_")
+             and k.endswith("_x")]
+    for case in cases:
+        kind = case.split("_")[0]
+        pre = f"det_{kind}_w_"
+        net = CenterNetHead((8, 16, 32), with_angle=kind == "obb")
+        net.load_state_dict({k[len(pre):]: v for k, v in z.items()
+                             if k.startswith(pre)})
+        trainer_cls = OBBDetectorTrainer if kind == "obb" else DetectorTrainer
+        det = trainer_cls(model=net, device="cpu")
+        net, _, metrics = data_parallel_step(det.train_step, mesh4)(
+            net, det.optimizer(net),
+            *(z[f"det_{case}_{a}"] for a in "xtv"))
+        res.update({f"det_{case}_m_{k}": v for k, v in metrics.items()})
+        res.update({f"det_{case}_p_{k}": v
+                    for k, v in net.state_dict().items()})
+        checks[f"det_{case}_params_equal"] = same_on_every_rank(
+            net.parameters())
     # train_step draws the hole masks: the whole batch's on every rank
     state = trainer.init(None, torch.Generator().manual_seed(0))
     _, metrics = data_parallel_step(trainer.train_step, mesh)(

@@ -6,11 +6,13 @@ and against the port's single-device results.
 One world runs every multi-rank case (``tests/_torch_parallel_worker.py``,
 which imports only the port; a ``file://`` store in ``tmp_path``): the
 2 x 2 (data, tile) mesh, the halo exchange, ``sharded_rows_map``,
-``sharded_disparity``, ``batched_pair_step``, ``sharded_dsm_update``, a
-data-parallel GAN step and a (dcn, data, tile) mesh of two hosts of two
-ranks. The whole world is joined within one 120 s deadline and every rank
-killed on expiry, so a hang fails these tests instead of stalling the
-suite.
+``sharded_disparity``, ``batched_pair_step``, ``sharded_dsm_update``,
+data-parallel GAN steps, an inpainting step with one hole pixel and one
+step of each detector trainer on a 4 x 1 mesh (one image per rank; the
+full scenes, two valid boxes, none), and a (dcn, data, tile) mesh of two
+hosts of two ranks. The whole world is joined within one 120 s deadline
+and every rank killed on expiry, so a hang fails these tests instead of
+stalling the suite.
 
 Tolerances: halo rows and the rows map equal the slices of the whole
 array; ``sharded_disparity`` within the port's ``compute_disparity``
@@ -23,7 +25,14 @@ sharded DSM within ``tests/test_fusion_sharded.py``'s tolerances of the
 port's sequential loop and within ``tests/test_torch_fusion.py``'s
 port-against-reference criteria of the reference's; the data-parallel
 metrics (``_step`` on given masks, ``train_step`` drawing them) within
-rtol 2e-4, atol 2e-5 of the single-rank step.
+rtol 2e-4, atol 2e-5 of the single-rank step; the data-parallel detector
+steps against the port's single-rank step and the reference's
+single-device ``train_step`` from the same weights within
+``tests/test_torch_detector.py``'s ``TOL`` (1e-5; a loss above 10 within
+1e-6 of its size, that file's focal-loss bound) and its
+``_assert_params`` rule, and the reference's own ``data_parallel_step``
+of a detector step on 8 virtual devices against its single-device step
+by the same rule.
 """
 
 import json
@@ -43,12 +52,17 @@ from pcmi_tpu.parallel import make_mesh as ref_make_mesh
 from pcmi_tpu.parallel import sharded_disparity as ref_sharded_disparity
 from pcmi_tpu.pipelines.streaming import StreamingDSM as RefDSM
 from pcmi_tpu.pipelines.streaming import dsm_update as ref_dsm_update
+from pcmi_tpu.models.training import data_parallel_step as ref_dp_step
+from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.config import StereoConfig
 from pcmi_tpu_torch.ops.stereo.matching import (
     compute_disparity, refine_disparity)
 from pcmi_tpu_torch.pipelines.height_map import pair_core
 from pcmi_tpu_torch.pipelines.streaming import (
     dsm_finalize, dsm_update, empty_dsm)
+
+from test_torch_detector import (
+    SMALL, TOL, _assert_params, _params, _trainers)
 
 torch.set_num_threads(1)
 
@@ -58,6 +72,11 @@ WORLD = 4
 TIMEOUT_S = 120
 CFG = dict(max_disp=16, block_size=5, census_window=5, gf_radius=4,
            speckle_median_size=5)
+# data-parallel detector steps on the 4 x 1 mesh, one 48 px image per
+# rank: the synthetic scenes, and the same cut to two valid boxes (fewer
+# positive centres than ranks) and to none
+DET_CASES = ("plain", "obb", "plain_two", "plain_none", "obb_two",
+             "obb_none")
 
 
 def _stereo_stack(h=128, w=160, b=2):
@@ -82,6 +101,32 @@ def _stereo_stack(h=128, w=160, b=2):
     return np.stack(lefts), np.stack(rights)
 
 
+def _det_batch(case):
+    """The case's batch of four 48 px scenes of its kind (the port's
+    synthetic ones, whose renderers ``test_torch_detector.py`` holds to
+    the reference's); ``_two`` keeps one valid box in images 0 and 2,
+    ``_none`` none."""
+    from pcmi_tpu_torch.models import detector as td
+
+    obb = case.startswith("obb")
+    gen = torch.Generator().manual_seed(40 + obb)
+    batch = (td.synthesize_obb_batch(gen, 4, 48, hard=True, device="cpu")
+             if obb else td.synthesize_detection_batch(gen, 4, 48,
+                                                       device="cpu"))
+    x, t, v = (a.numpy() for a in batch)
+    if case.endswith(("_two", "_none")):
+        v = np.zeros_like(v)
+        v[[0, 2], 0] = case.endswith("_two")
+    return x, t, v
+
+
+def _det_weights(ref, port):
+    """The reference head's starting parameters (seeded draws in its tree)
+    and the port's state dict of them."""
+    params = _params(ref.model, np.zeros((1, 48, 48, 1), np.float32), 7)
+    return params, convert.centernet_state_dict(params, port.model)
+
+
 def _inputs():
     rng = np.random.default_rng(0)
     lefts, rights = _stereo_stack()
@@ -97,6 +142,15 @@ def _inputs():
         y, x = rng.integers(4, 20, 2)
         hh, ww = rng.integers(4, 12, 2)
         masks[i, y:y + hh, x:x + ww] = 1.0
+    tiny = np.zeros((4, 32, 32, 1), np.float32)
+    tiny[1, 16, 16] = 1.0   # one hole pixel: 3 values for 4 ranks
+    det = {}
+    for obb in (False, True):
+        _, sd = _det_weights(*_trainers(obb))
+        kind = "obb" if obb else "plain"
+        det.update({f"det_{kind}_w_{k}": v.numpy() for k, v in sd.items()})
+    for case in DET_CASES:
+        det.update(zip((f"det_{case}_{a}" for a in "xtv"), _det_batch(case)))
     return dict(
         halo_x=np.arange(16 * 16, dtype=np.float32).reshape(16, 16),
         rows_x=rng.normal(size=(2, 24, 10)).astype(np.float32),
@@ -105,7 +159,7 @@ def _inputs():
         tri_b=np.zeros((2, 4), np.float32),
         dsm_xy=xy, dsm_values=values, dsm_weights=weights,
         gan_images=rng.uniform(0, 1, (8, 32, 32, 3)).astype(np.float32),
-        gan_masks=masks)
+        gan_masks=masks, tiny_masks=tiny, **det)
 
 
 @pytest.fixture(scope="module")
@@ -305,45 +359,61 @@ def test_sharded_dsm_matches_both_sequential(world, sigma):
         assert c["blocks_7"] == "ValueError"
 
 
-def test_data_parallel_step_matches_single_rank(world):
+def _inpaint_trainer():
     from pcmi_tpu_torch.models.training import (
         InpaintGANTrainer, InpaintTrainConfig)
     from pcmi_tpu_torch.models.unet import InpaintUNet, PatchDiscriminator
 
-    inputs, res, checks = world
-    trainer = InpaintGANTrainer(
+    return InpaintGANTrainer(
         InpaintTrainConfig(compute_dtype="float32"),
         generator=InpaintUNet(widths=(8, 16, 32)),
         discriminator=PatchDiscriminator(widths=(8, 16, 32, 32)),
         device="cpu")
+
+
+def _assert_inpaint_step(res, prefix, images, masks):
+    """Rank 0's data-parallel ``_step`` (``prefix``) against the
+    single-rank step on the whole batch."""
+    trainer = _inpaint_trainer()
     state = trainer.init(None, torch.Generator().manual_seed(0))
-    state, m = trainer._step(state, torch.from_numpy(inputs["gan_images"]),
-                             torch.from_numpy(inputs["gan_masks"]))
+    state, m = trainer._step(state, torch.from_numpy(images),
+                             torch.from_numpy(masks))
     for k, v in m.items():
-        np.testing.assert_allclose(float(res["dp_" + k]), float(v),
+        np.testing.assert_allclose(float(res[prefix + k]), float(v),
                                    rtol=2e-4, atol=2e-5, err_msg=k)
-    for c in checks:
-        assert c["dp_params_equal"] is True
     flat = torch.cat([p.detach().reshape(-1) for p in state.g.parameters()])
     # Adam moves a weight whose gradient rounding dominates by up to lr
-    gap = np.abs(res["dp_g_params"] - flat.numpy())
+    gap = np.abs(res[prefix + "g_params"] - flat.numpy())
     assert (gap <= 1e-5).mean() >= 0.99 and gap.max() <= 2 * 2e-4
+
+
+def test_data_parallel_step_matches_single_rank(world):
+    inputs, res, checks = world
+    _assert_inpaint_step(res, "dp_", inputs["gan_images"],
+                         inputs["gan_masks"])
+    for c in checks:
+        assert c["dp_params_equal"] is True
+
+
+def test_data_parallel_tiny_hole_matches_whole_batch(world):
+    """One hole pixel in a batch of four over the 4 x 1 mesh: its three
+    values are fewer than the ranks. The whole batch's count, clamped at 1
+    and split over the ranks, gives the whole batch's hole loss; the
+    ranks' mean count clamped at 1 would give 3/4 of it."""
+    inputs, res, checks = world
+    assert inputs["tiny_masks"].sum() * 3 < WORLD
+    _assert_inpaint_step(res, "tiny_", inputs["gan_images"][:4],
+                         inputs["tiny_masks"])
+    for c in checks:
+        assert c["tiny_params_equal"] is True
 
 
 def test_data_parallel_train_step_draws_whole_batch_masks(world):
     """``train_step`` under ``data_parallel_step``: each rank draws the
     whole batch's hole masks from the shared generator and keeps its
     shard's, so the metrics are the single-rank step's."""
-    from pcmi_tpu_torch.models.training import (
-        InpaintGANTrainer, InpaintTrainConfig)
-    from pcmi_tpu_torch.models.unet import InpaintUNet, PatchDiscriminator
-
     inputs, res, _ = world
-    trainer = InpaintGANTrainer(
-        InpaintTrainConfig(compute_dtype="float32"),
-        generator=InpaintUNet(widths=(8, 16, 32)),
-        discriminator=PatchDiscriminator(widths=(8, 16, 32, 32)),
-        device="cpu")
+    trainer = _inpaint_trainer()
     state = trainer.init(None, torch.Generator().manual_seed(0))
     _, m = trainer.train_step(state, inputs["gan_images"],
                               torch.Generator().manual_seed(3))
@@ -352,34 +422,119 @@ def test_data_parallel_train_step_draws_whole_batch_masks(world):
                                    rtol=2e-4, atol=2e-5, err_msg=k)
 
 
-def _detector_step():
-    from pcmi_tpu_torch.models.detector import DetectorTrainer
-
-    return DetectorTrainer(device="cpu").train_step
-
-
-def _obb_step():
-    from pcmi_tpu_torch.models.detector import OBBDetectorTrainer
-
-    return OBBDetectorTrainer(device="cpu").train_step
-
-
 def _init_step():
     from pcmi_tpu_torch.models.training import InpaintGANTrainer
 
     return InpaintGANTrainer(device="cpu").init
 
 
-@pytest.mark.parametrize("make", [_detector_step, _obb_step, _init_step,
+@pytest.mark.parametrize("make", [_init_step,
                                   lambda: (lambda state, x: (state, {}))])
 def test_data_parallel_step_refuses_other_steps(make):
-    """Only the GAN trainers' steps are taken: the detectors' losses divide
-    by counts of the local shard, so averaging their gradients would not
-    give the whole batch's step."""
+    """Only the port's trainer steps are taken: another callable could
+    skip ``apply_gradients`` and not average its gradients."""
     from pcmi_tpu_torch.models.training import data_parallel_step
 
     with pytest.raises(TypeError, match="data_parallel_step takes"):
         data_parallel_step(make(), None)
+
+
+def _dp_detector(inputs, res, case):
+    """The case's port head after rank 0's data-parallel step, its metrics
+    and its batch."""
+    kind = case.split("_")[0]
+    _, port = _trainers(kind == "obb")
+    net = port.model
+    pre = f"det_{kind}_w_"
+    net.load_state_dict({k[len(pre):]: torch.from_numpy(v)
+                         for k, v in inputs.items() if k.startswith(pre)})
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    net.load_state_dict({k: torch.from_numpy(res[f"det_{case}_p_{k}"])
+                         for k in start})
+    metrics = {k[len(f"det_{case}_m_"):]: v for k, v in res.items()
+               if k.startswith(f"det_{case}_m_")}
+    batch = [inputs[f"det_{case}_{a}"] for a in "xtv"]
+    return port, start, net, metrics, batch
+
+
+def _assert_metrics(pm, rm):
+    """Each loss within ``test_torch_detector.py``'s ``TOL``, or within
+    1e-6 of its size where that is larger (that file's bound on the focal
+    loss): a batch with few or no positive centres divides its heat loss,
+    a float32 sum over every cell, by 1, and it reaches ~100."""
+    assert set(pm) == set(rm)
+    for k in rm:
+        want = float(rm[k])
+        assert abs(float(pm[k]) - want) <= max(TOL, 1e-6 * abs(want)), (
+            k, float(pm[k]), want)
+
+
+@pytest.mark.parametrize("case", DET_CASES)
+def test_data_parallel_detector_matches_single_rank(world, case):
+    """``data_parallel_step`` of a detector step on four ranks against the
+    port's step on the whole batch, from the same weights: the metrics
+    within ``TOL`` and the parameters by ``_assert_params``' rule."""
+    inputs, res, checks = world
+    port, start, got, metrics, batch = _dp_detector(inputs, res, case)
+    if case.endswith(("_two", "_none")):
+        assert batch[2].sum() < WORLD
+    net = type(got)(SMALL, with_angle=got.with_angle)
+    net.load_state_dict(start)
+    net, _, m = port.train_step(net, port.optimizer(net), *batch)
+    _assert_metrics(metrics, m)
+    want = net.state_dict()
+    close = total = 0
+    for k, v in got.state_dict().items():
+        d = np.abs(v.numpy() - want[k].numpy())
+        assert d.max() <= 2 * 1e-3 + TOL, (k, float(d.max()))
+        close += int((d <= TOL).sum())
+        total += d.size
+    assert close >= 0.999 * total, (total - close, total)
+    for c in checks:
+        assert c[f"det_{case}_params_equal"] is True
+
+
+@pytest.fixture(scope="module")
+def det_ref():
+    """The reference's trainers and starting parameters per kind, kept
+    for the module so that each jitted step compiles once."""
+    out = {}
+    for kind in ("plain", "obb"):
+        ref, port = _trainers(kind == "obb")
+        out[kind] = ref, _det_weights(ref, port)[0]
+    return out
+
+
+@pytest.mark.parametrize("case", DET_CASES)
+def test_data_parallel_detector_matches_reference(world, det_ref, case):
+    """The same data-parallel step against the reference's single-device
+    ``train_step`` from the same weights (``test_torch_detector.py``'s
+    tolerances)."""
+    inputs, res, _ = world
+    ref, params = det_ref[case.split("_")[0]]
+    _, _, got, metrics, batch = _dp_detector(inputs, res, case)
+    p, _, rm = ref.train_step(params, ref.tx.init(params),
+                              *map(jnp.asarray, batch))
+    _assert_metrics(metrics, rm)
+    _assert_params(p, got, 1, 1e-3)
+
+
+@pytest.mark.parametrize("case", ["plain", "obb_two"])
+def test_reference_data_parallel_detector_step(det_ref, case):
+    """The reference's own ``data_parallel_step`` takes a detector step
+    on a data 4 x tile 2 mesh of its 8 virtual devices and equals its
+    single-device step."""
+    ref, params = det_ref[case.split("_")[0]]
+    batch = [jnp.asarray(a) for a in _det_batch(case)]
+    p1, _, m1 = ref.train_step(params, ref.tx.init(params), *batch)
+    mesh = ref_make_mesh(data=4, tile=2, devices=jax.devices()[:8])
+    p8, _, m8 = ref_dp_step(ref.train_step, mesh)(
+        params, ref.tx.init(params), *batch)
+    _assert_metrics(m8, m1)
+    _, port = _trainers(case.startswith("obb"))
+    net = port.model
+    net.load_state_dict(convert.centernet_state_dict(p8, net))
+    _assert_params(p1, net, 1, 1e-3)
 
 
 def test_multihost_mesh_two_hosts(world):

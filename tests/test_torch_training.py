@@ -316,6 +316,119 @@ def test_checkpoint_roundtrip(tmp_path, rng, total_steps):
     assert np.isfinite(float(m2["g_loss"]))
 
 
+def _net_opt_leaves(net, opt=None) -> list:
+    out = list(net.state_dict().values())
+    if opt is not None:
+        for s in opt.state_dict()["state"].values():
+            out += [s[k] for k in sorted(s)]
+    return out
+
+
+@pytest.mark.parametrize("obb", [False, True])
+def test_checkpoint_roundtrip_detector(tmp_path, obb):
+    """A detector trainer's ``(net, opt)`` after two steps: the weights and
+    Adam's moments and counts bit-equal, on the template's device, the
+    template untouched, and one more step from the restored state
+    bit-equal to one from the saved state."""
+    from pcmi_tpu_torch.models import detector as td
+
+    head = td.CenterNetHead((8, 16, 32), with_angle=obb)
+    trainer = (td.OBBDetectorTrainer if obb else td.DetectorTrainer)(
+        model=head, device="cpu")
+    synth = td.synthesize_obb_batch if obb else td.synthesize_detection_batch
+    batches = [synth(torch.Generator().manual_seed(k), 2, 48, device="cpu")
+               for k in range(3)]
+    net, opt = trainer.init(None, torch.Generator().manual_seed(0))
+    for b in batches[:2]:
+        net, opt, _ = trainer.train_step(net, opt, *b)
+    template = trainer.init(None, torch.Generator().manual_seed(9))
+    before = [t.clone() for t in _net_opt_leaves(*template)]
+    path = str(tmp_path / "det.pt")
+    tt.save_checkpoint(path, (net, opt), step=2)
+    back = tt.restore_checkpoint(path, template)
+    assert type(back) is tuple and len(back) == 2
+    assert back[0] is not template[0] and back[1] is not template[1]
+    assert {float(s["step"]) for s in back[1].state.values()} == {2.0}
+    for a, b in zip(_net_opt_leaves(net, opt), _net_opt_leaves(*back)):
+        assert torch.equal(a, b)
+    for a, b in zip(before, _net_opt_leaves(*template)):
+        assert torch.equal(a, b)
+    n1, _, m1 = trainer.train_step(net, opt, *batches[2])
+    n2, _, m2 = trainer.train_step(*back, *batches[2])
+    for k in m1:
+        assert torch.equal(m1[k], m2[k]), k
+    for a, b in zip(_net_opt_leaves(n1), _net_opt_leaves(n2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("with_opt", [False, True])
+def test_checkpoint_roundtrip_diffusion_network(tmp_path, with_opt):
+    """The diffusion engine's bare network, and a tuple of it and its Adam
+    after one step: restored bit-equal into another draw's network, the
+    template untouched, and one training step from each (a fresh Adam
+    for the bare network) bit-equal."""
+    from pcmi_tpu_torch.models import diffusion as td
+
+    eng = td.TiledDiffusionEngine(
+        td.DiffusionConfig(steps=4, tile=16, stride=12, train_timesteps=50),
+        model=td.CondUNet(widths=(8, 16, 16), in_channels=7), device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    images = torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1
+    masks = torch.zeros((2, 16, 16, 1))
+    masks[:, 4:11, 3:12] = 1.0
+
+    def step(net, opt):
+        opt = opt or tt.adam(net.parameters(), "cpu", lr=1e-3)
+        loss = eng.train_step_loss(net, images, masks,
+                                   torch.Generator().manual_seed(1))
+        tt.apply_gradients(opt, list(net.parameters()), loss)
+        return net, opt, loss.detach()
+
+    net = eng.init_params(torch.Generator().manual_seed(0))
+    opt = None
+    if with_opt:
+        net, opt, _ = step(net, None)
+    tmpl_net = eng.init_params(torch.Generator().manual_seed(9))
+    template = (tmpl_net, tt.adam(tmpl_net.parameters(), "cpu", lr=1e-3)) \
+        if with_opt else tmpl_net
+    before = [t.clone() for t in _net_opt_leaves(tmpl_net)]
+    path = str(tmp_path / "diffusion.pt")
+    state = (net, opt) if with_opt else net
+    tt.save_checkpoint(path, state)
+    back = tt.restore_checkpoint(path, template)
+    back_net, back_opt = back if with_opt else (back, None)
+    assert isinstance(back_net, td.CondUNet) and back_net is not tmpl_net
+    for a, b in zip(_net_opt_leaves(net, opt),
+                    _net_opt_leaves(back_net, back_opt)):
+        assert torch.equal(a, b)
+    for a, b in zip(before, _net_opt_leaves(tmpl_net)):
+        assert torch.equal(a, b)
+    n1, o1, l1 = step(net, opt)
+    n2, o2, l2 = step(back_net, back_opt)
+    assert torch.equal(l1, l2)
+    for a, b in zip(_net_opt_leaves(n1, o1), _net_opt_leaves(n2, o2)):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_refuses_other_states(tmp_path):
+    """A template of another shape, an optimiser over parameters outside
+    the state and a leaf of another kind raise."""
+    net = tu.SRUNet(**G_SMALL)
+    opt = tt.adam(net.parameters(), "cpu", lr=1e-3)
+    path = str(tmp_path / "ck.pt")
+    tt.save_checkpoint(path, (net, opt))
+    with pytest.raises(ValueError, match="template"):
+        tt.restore_checkpoint(path, net)
+    with pytest.raises(ValueError, match="template"):
+        tt.restore_checkpoint(path, (opt, net))
+    other = tu.SRUNet(**G_SMALL)
+    tt.save_checkpoint(path, (other, opt))   # opt is over net's parameters
+    with pytest.raises(ValueError, match="network of the state"):
+        tt.restore_checkpoint(path, (other, opt))
+    with pytest.raises(TypeError, match="checkpoint holds"):
+        tt.save_checkpoint(path, (net, 0.5))
+
+
 def test_make_sr_pairs_matches_reference(rng):
     images = rng.uniform(0, 1, (2, 30, 27, 3)).astype(np.float32)
     lr, hr = tt.make_sr_pairs(torch.from_numpy(images), 4)
