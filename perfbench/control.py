@@ -6,13 +6,14 @@
         --seeds 11,12,13 --modes program,tf32,bfloat16 [--device cuda]
 
 For each seed, the cell's driver makes the scene and the program's
-objects; mode ``program`` runs the driver's requests through the program
-(a whole cycle of the traffic's keys), the other modes put the reference
-in the program's place, computed in a lower precision: ``tf32`` (matrix
-products in TF32; the configurations state float32 with TF32 off) or
-``bfloat16`` (cost volumes stored in bfloat16). Each set of answers is
-compared with the reference in float32 exactly as a run compares, and one
-JSON line per seed and mode gives every number beside its limit.
+objects; mode ``program`` runs one request of each of the driver's keys
+through the program, the other modes put the reference in the program's
+place, computed in a lower precision: ``tf32`` (matrix products in TF32;
+the configurations state float32 with TF32 off) or ``bfloat16`` (cost
+volumes stored in bfloat16, the program's own lower mode). Each set of
+answers is compared with the reference in float32 exactly as a run
+compares, and one JSON line per seed and mode gives every number beside
+its limit.
 """
 
 import argparse
@@ -20,6 +21,34 @@ import json
 import os
 import sys
 import time
+
+
+def readings(root, cell_name: str, seed: int, modes, device: str):
+    """One dict per mode: the compared numbers, their limits, whether they
+    hold, and the scene's truth lines."""
+    from perfbench import harness
+
+    cell = harness.Cell(harness.Path(root), cell_name)
+    limits = cell.traffic["limits"]
+    driver = harness.load_driver(cell).Driver(cell.config, cell.traffic,
+                                              seed, device)
+    refs: dict = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        if mode == "program":
+            driver.warm_up()
+            answers = [driver.to_host(driver.request()["answer"])
+                       for _ in driver.keys()]
+            driver.release()
+        else:
+            answers = [(k, driver.reference(k, mode)) for k in driver.keys()]
+        harness.synchronize(device)
+        checks, notes = harness.check(driver, answers, refs=refs)
+        yield {"workload": cell_name, "seed": seed, "mode": mode,
+               "answers": len(answers), "seconds": time.perf_counter() - t0,
+               "correct": all(v <= limits[k] for k, v in checks.items()),
+               "checks": {k: [v, limits[k]] for k, v in checks.items()},
+               "truth": notes}
 
 
 def main(argv=None) -> int:
@@ -30,35 +59,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
-    from perfbench import harness
-
-    cell = harness.Cell(harness.Path(os.getcwd()), args.workload)
-    limits = cell.traffic["limits"]
     for seed in (int(s) for s in args.seeds.split(",")):
-        driver = harness.load_driver(cell).Driver(cell.config, cell.traffic,
-                                                  seed, args.device)
-        keys = getattr(driver, "pairs", [None])
-        keys = list(range(len(keys))) if keys != [None] else [None]
-        refs: dict = {}
-        for mode in args.modes.split(","):
-            t0 = time.perf_counter()
-            if mode == "program":
-                driver.warm_up()
-                answers = [driver.to_host(driver.request()["answer"])
-                           for _ in keys]
-                driver.release()
-            else:
-                answers = [(k, driver.reference(k, mode)) for k in keys]
-            harness.synchronize(args.device)
-            checks, notes = harness.check(driver, answers, refs=refs)
-            print(json.dumps({
-                "workload": args.workload, "seed": seed, "mode": mode,
-                "answers": len(answers),
-                "seconds": time.perf_counter() - t0,
-                "correct": all(v <= limits[k] for k, v in checks.items()),
-                "checks": {k: [v, limits[k]] for k, v in checks.items()},
-                "truth": notes}), flush=True)
-        del driver, refs
+        for row in readings(os.getcwd(), args.workload, seed,
+                            args.modes.split(","), args.device):
+            print(json.dumps(row), flush=True)
     return 0
 
 

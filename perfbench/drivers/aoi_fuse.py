@@ -11,11 +11,13 @@ centroids, recomputed by the reference from the same inputs.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from perfbench import harness, stack
-from perfbench.scene import cell_truth, make_scene
+from perfbench.scene import dsm_truth, make_scene
 
 
 class Driver:
@@ -26,7 +28,9 @@ class Driver:
         from pcmi_tpu_torch.pipelines.multiday import MultiDayFusion
 
         self.config, self.traffic, self.device = config, traffic, device
+        t0 = time.perf_counter()
         self.scene = make_scene(config["scene"], seed, device)
+        self.scene_s = time.perf_counter() - t0
         self.rpcs, self.metas = stack.side_inputs(self.scene, RPCCamera,
                                                   ImageMeta)
         cfg = stack.pipeline_config(program_config, config["pipeline"])
@@ -39,6 +43,11 @@ class Driver:
             sc.images, self.rpcs, self.metas, sc.lon_range, sc.lat_range,
             points_per_pair=t["points_per_pair"],
             with_kmeans=t["with_kmeans"], grid_cell=t["grid_cell"])
+
+    @staticmethod
+    def keys() -> list:
+        """Every request is the same whole AOI: one key."""
+        return [None]
 
     def warm_up(self) -> None:
         self._run()
@@ -98,14 +107,8 @@ class Driver:
 
     @staticmethod
     def compare(got: dict, ref: dict) -> dict:
-        same_grid = (got["origin"] == ref["origin"]
-                     and got["dsm"].shape == ref["dsm"].shape)
-        fin_g, fin_r = np.isfinite(got["dsm"]), np.isfinite(ref["dsm"])
         return {
-            "dsm_empty_mismatch": (stack.mismatch_share(fin_g, fin_r)
-                                   if same_grid else 1.0),
-            "dsm_gap_m": (stack.max_gap(got["dsm"], ref["dsm"], fin_g & fin_r)
-                          if same_grid else float("inf")),
+            **stack.dsm_numbers(got, ref),
             "weight_mismatch": stack.mismatch_share(got["weights"] > 0,
                                                     ref["weights"] > 0),
             "icp_gap_m": stack.max_gap(got["icp_rmse"], ref["icp_rmse"]),
@@ -114,10 +117,4 @@ class Driver:
         }
 
     def truth(self, key, got: dict) -> str:
-        tt, inb = cell_truth(self.scene, got["origin"], got["cell"],
-                             got["dsm"].shape)
-        filled = np.isfinite(got["dsm"]) & inb
-        rmse = float(np.sqrt(np.mean((got["dsm"][filled] - tt[filled]) ** 2))
-                     ) if filled.any() else float("nan")
-        return (f"truth fused DSM: rmse {rmse!r} m, filled "
-                f"{float(filled.sum() / max(inb.sum(), 1))!r} of the cells")
+        return dsm_truth(self.scene, got, "fused DSM")

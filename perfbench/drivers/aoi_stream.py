@@ -5,17 +5,19 @@ cross-pair median.
 
 Set-up makes the scene from the seed and warms up one whole request. Each
 request is one whole run over the AOI, in a closed loop. The answer kept
-for the check is the DSM, the samples and the pairs per cell, recomputed
+for the check is the DSM and the pairs per cell, recomputed
 by the reference from the same inputs.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from perfbench import harness, stack
-from perfbench.scene import cell_truth, make_scene
+from perfbench.scene import dsm_truth, make_scene
 
 
 class Driver:
@@ -26,7 +28,9 @@ class Driver:
         from pcmi_tpu_torch.pipelines.streaming import StreamingAOIPipeline
 
         self.config, self.traffic, self.device = config, traffic, device
+        t0 = time.perf_counter()
         self.scene = make_scene(config["scene"], seed, device)
+        self.scene_s = time.perf_counter() - t0
         self.rpcs, self.metas = stack.side_inputs(self.scene, RPCCamera,
                                                   ImageMeta)
         cfg = stack.pipeline_config(program_config, config["pipeline"])
@@ -37,6 +41,11 @@ class Driver:
         sc = self.scene
         return self.stream.run(sc.images, self.rpcs, self.metas, sc.lon_range,
                                sc.lat_range, grid_cell=self.traffic["grid_cell"])
+
+    @staticmethod
+    def keys() -> list:
+        """Every request is the same whole AOI: one key."""
+        return [None]
 
     def warm_up(self) -> None:
         self._run()
@@ -54,7 +63,7 @@ class Driver:
 
     @staticmethod
     def _host(out: dict) -> dict:
-        return {"dsm": np.asarray(out["dsm"]), "count": np.asarray(out["count"]),
+        return {"dsm": np.asarray(out["dsm"]),
                 "n_pairs": np.asarray(out["n_pairs_per_cell"]),
                 "origin": tuple(out["origin"]), "cell": float(out["cell"])}
 
@@ -89,23 +98,11 @@ class Driver:
 
     @staticmethod
     def compare(got: dict, ref: dict) -> dict:
-        same_grid = (got["origin"] == ref["origin"]
-                     and got["dsm"].shape == ref["dsm"].shape)
-        fin_g, fin_r = np.isfinite(got["dsm"]), np.isfinite(ref["dsm"])
         return {
-            "dsm_empty_mismatch": (stack.mismatch_share(fin_g, fin_r)
-                                   if same_grid else 1.0),
-            "dsm_gap_m": (stack.max_gap(got["dsm"], ref["dsm"], fin_g & fin_r)
-                          if same_grid else float("inf")),
+            **stack.dsm_numbers(got, ref),
             "pairs_per_cell_mismatch": stack.mismatch_share(got["n_pairs"],
                                                             ref["n_pairs"]),
         }
 
     def truth(self, key, got: dict) -> str:
-        tt, inb = cell_truth(self.scene, got["origin"], got["cell"],
-                             got["dsm"].shape)
-        filled = np.isfinite(got["dsm"]) & inb
-        rmse = float(np.sqrt(np.mean((got["dsm"][filled] - tt[filled]) ** 2))
-                     ) if filled.any() else float("nan")
-        return (f"truth streamed DSM: rmse {rmse!r} m, filled "
-                f"{float(filled.sum() / max(inb.sum(), 1))!r} of the cells")
+        return dsm_truth(self.scene, got, "streamed DSM")

@@ -12,6 +12,8 @@ images and RPCs.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -27,7 +29,9 @@ class Driver:
         from pcmi_tpu_torch.pipelines.height_map import HeightMapPipeline
 
         self.config, self.device = config, device
+        t0 = time.perf_counter()
         self.scene = make_scene(config["scene"], seed, device)
+        self.scene_s = time.perf_counter() - t0
         self.pairs = self.scene.pairs()
         rpcs, _ = stack.side_inputs(self.scene, RPCCamera, ImageMeta)
         cfg = stack.pipeline_config(program_config, config["pipeline"])
@@ -51,8 +55,12 @@ class Driver:
                                       self.scene.images[j], self.geoms[k],
                                       self.stereo_cfg)
 
+    def keys(self) -> list:
+        """The keys of the distinct requests: the pairs' indices."""
+        return list(range(len(self.pairs)))
+
     def warm_up(self) -> None:
-        for k in range(len(self.pairs)):
+        for k in self.keys():
             self._pair(k)
 
     def request(self) -> dict:

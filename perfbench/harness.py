@@ -18,7 +18,6 @@ reports has a reader ``perfbench/metrics/<metric>.py``.
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import gc
 import importlib.util
@@ -85,20 +84,18 @@ class Cell:
 
 
 class Run:
-    """What a run recorded, as the metric readers read it."""
+    """What a run recorded, as the metric readers read it: the cell, the
+    set-up time, each request's host times (``t0``, ``t1``), ``units`` and
+    the driver's ``info``, the window's length and, with a trace, the
+    device operations ``(name, start_us, end_us)`` and the device's busy
+    time."""
 
-    def __init__(self, cell: Cell, seed: int, seconds: float, trace: bool):
+    def __init__(self, cell: Cell):
         self.cell = cell
-        self.config = cell.config
-        self.traffic = cell.traffic
-        self.seed = seed
-        self.seconds = seconds
-        self.trace = trace
         self.setup_s = math.nan
-        self.requests: List[dict] = []   # t0, t1 (host s), units, info
+        self.requests: List[dict] = []
         self.window_s = math.nan
-        self.device_ops: List[tuple] = []  # (name, start_us, end_us)
-        self.host_ops: List[tuple] = []    # (name, start_us, end_us)
+        self.device_ops: List[tuple] = []
         self.busy_s = math.nan
 
     @property
@@ -125,36 +122,40 @@ def _union_us(intervals) -> float:
 
 
 def read_trace(prof, run: Run) -> dict:
-    """Device and host operations of a profiled stretch: the device's busy
-    time (the union of its operations' intervals) and the breakdown: the
-    costliest device operations by name and the idle gaps between device
-    operations, by the innermost host operation running at each gap's
-    middle."""
+    """Device and host operations of a profiled stretch (the profiler's raw
+    events): the device's busy time (the union of its operations'
+    intervals) and the breakdown: the costliest device operations by name
+    and the idle gaps between device operations, by the innermost host
+    operation running at each gap's middle."""
     from torch.autograd import DeviceType
 
     dev, host = [], []
-    for e in prof.events():
-        tr = e.time_range
-        row = (e.name, float(tr.start), float(tr.end))
-        (dev if e.device_type == DeviceType.CUDA else host).append(row)
+    for e in prof.profiler.kineto_results.events():
+        a = e.start_ns() / 1e3
+        row = (e.name(), a, a + e.duration_ns() / 1e3)
+        (dev if e.device_type() == DeviceType.CUDA else host).append(row)
+    dev.sort(key=lambda d: d[1])
+    host.sort(key=lambda h: h[1])
     run.device_ops = dev
-    run.host_ops = host
     run.busy_s = _union_us((a, b) for _, a, b in dev) / 1e6
     by_name: Dict[str, float] = {}
     for name, a, b in dev:
         by_name[name[:96]] = by_name.get(name[:96], 0.0) + (b - a) / 1e6
+    # gaps in the order of their middles; host operations pushed in the
+    # order of their starts; the top of the stack, once every operation
+    # that ended before the middle is popped, is the innermost one running
     gaps: Dict[str, float] = {}
-    host.sort(key=lambda h: h[1])
-    starts = [h[1] for h in host]
-    end = None
-    for _, a, b in sorted(dev, key=lambda d: d[1]):
+    stack: list = []
+    i, end = 0, None
+    for _, a, b in dev:
         if end is not None and a > end:
             mid = 0.5 * (a + end)
-            # the latest-starting host operation still running at mid
-            i = bisect.bisect_right(starts, mid) - 1
-            while i >= 0 and host[i][2] < mid:
-                i -= 1
-            key = host[i][0][:96] if i >= 0 else "(no host operation)"
+            while i < len(host) and host[i][1] <= mid:
+                stack.append(host[i])
+                i += 1
+            while stack and stack[-1][2] < mid:
+                stack.pop()
+            key = stack[-1][0][:96] if stack else "(host between operations)"
             gaps[key] = gaps.get(key, 0.0) + (a - end) / 1e6
         end = b if end is None else max(end, b)
 
@@ -193,11 +194,26 @@ def synchronize(device: str) -> None:
 def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             process_start: float, log: Callable[[str], None]):
     """Set up the cell's driver, run the window and keep the sampled
-    answers. Returns ``(run, driver, kept, attempted, failed, peak)``."""
-    run = Run(cell, seed, seconds, trace)
+    answers. Returns ``(run, driver, kept, attempted, failed, peak,
+    breakdown)``."""
+    run = Run(cell)
+    marks = [("imports", time.perf_counter())]
+    torch.zeros(1, device=device)
+    synchronize(device)
+    marks.append(("device start", time.perf_counter()))
     driver = load_driver(cell).Driver(cell.config, cell.traffic, seed, device)
+    marks.append(("driver set-up (program imports, scene, geometry)",
+                  time.perf_counter()))
     driver.warm_up()
     synchronize(device)
+    marks.append(("warm-up (kernel library load or build, first calls)",
+                  time.perf_counter()))
+    t, split = process_start, []
+    for name, m in marks:
+        split.append(f"{name} {m - t:.3f} s")
+        t = m
+    log("set-up: " + ", ".join(split) + f"; of which scene "
+        f"{getattr(driver, 'scene_s', math.nan):.3f} s")
     k = int(cell.traffic.get("sample", 1))
     pick = random.Random(seed)
     kept: list = []
@@ -209,8 +225,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
         prof_ctx = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
-    t_start = time.perf_counter()
-    run.setup_s = t_start - process_start
+    run.setup_s = time.perf_counter() - process_start
     with prof_ctx as prof:
         t_start = time.perf_counter()
         deadline = t_start + seconds
@@ -245,11 +260,10 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
     return run, driver, kept, attempted, failed, peak, breakdown
 
 
-def check(driver, answers: list, mode: str = "float32",
-          refs: Optional[dict] = None):
+def check(driver, answers: list, refs: Optional[dict] = None):
     """The largest of each number that ``driver.compare`` gives over the
     sampled ``(key, answer)`` pairs, each against the driver's reference
-    in ``mode`` for its key, and the scene's truth lines (reported, not
+    (float32, as the configurations state) for its key, and the scene's truth lines (reported, not
     deciding). ``refs`` caches the reference's answers by key."""
     checks: Dict[str, float] = {}
     notes = []
@@ -257,8 +271,11 @@ def check(driver, answers: list, mode: str = "float32",
     for key, got in answers:
         notes.append(driver.truth(key, got))
         if key not in refs:
-            refs[key] = driver.reference(key, mode)
+            refs[key] = driver.reference(key)
         for name, v in driver.compare(got, refs[key]).items():
+            # a non-finite gap (a misshaped or non-finite answer) prints as
+            # the largest float, which JSON can carry
+            v = v if math.isfinite(v) else sys.float_info.max
             checks[name] = max(checks.get(name, 0.0), v)
     return checks, notes
 

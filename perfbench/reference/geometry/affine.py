@@ -1,4 +1,5 @@
-"""Local metric frames and affine-camera fits of RPC cameras (a frozen copy of the port of ``geometry/affine.py``).
+"""Local metric frames and affine-camera fits of RPC cameras (a frozen copy of the port's
+``geometry/affine.py``).
 
 The fit runs on the host in float64 numpy, as in the reference; the fitted
 camera is stored in float32 like the reference's, so the rectification
@@ -31,14 +32,6 @@ class LocalFrame:
         self.lon0 = float(np.float32(self.lon0))
         self.lat0 = float(np.float32(self.lat0))
 
-    def to_local(self, lon: torch.Tensor, lat: torch.Tensor, h):
-        """(lon, lat, h) -> local metres, float32 as in the reference."""
-        lat0 = torch.tensor(self.lat0, dtype=torch.float32, device=lon.device)
-        x = (lon - self.lon0) * M_PER_DEG_LON_EQ * torch.cos(
-            torch.deg2rad(lat0))
-        y = (lat - self.lat0) * M_PER_DEG_LAT
-        return x, y, h
-
     def to_geodetic(self, x: torch.Tensor, y: torch.Tensor, z):
         """Local metres -> (lon, lat, z), float32 as in the reference."""
         lat0 = torch.tensor(self.lat0, dtype=torch.float32, device=x.device)
@@ -61,17 +54,6 @@ class AffineCamera:
 
     A: torch.Tensor
     b: torch.Tensor
-
-    def project(self, xyz: torch.Tensor) -> torch.Tensor:
-        """(..., 3) local points -> (..., 2) pixels, in full float32."""
-        return xyz @ self.A.to(xyz.device).T + self.b.to(xyz.device)
-
-    def view_direction(self) -> torch.Tensor:
-        """The unit null vector of ``A`` (the parallel viewing ray),
-        oriented upward, towards the satellite."""
-        d = torch.linalg.cross(self.A[0], self.A[1])
-        d = d / torch.linalg.norm(d)
-        return torch.where(d[2] < 0, -d, d)
 
 
 def probe_grid(lon_range, lat_range, h_range, shape=(8, 8, 5)) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Multi-date stereo pair selection (a frozen copy of the port of ``geometry/pairs.py``; host numpy, as in the reference).
+"""Multi-date stereo pair selection (a frozen copy of the port's
+``geometry/pairs.py``; host numpy, as in the reference).
 
 All C(n, 2) pairs are scored by the convergence angle between the views;
 a pair is valid when its convergence lies in

@@ -1,4 +1,5 @@
-"""Affine epipolar rectification and triangulation (a frozen copy of the port of ``geometry/rectify.py``).
+"""Affine epipolar rectification and triangulation (a frozen copy of the port's
+``geometry/rectify.py``).
 
 Geometry solves run on the host in float64 numpy, exactly as in the
 reference; the warps and the per-pixel triangulation are float32 tensor
@@ -128,15 +129,6 @@ def rectify_arrays(img1: torch.Tensor, img2: torch.Tensor, H1: torch.Tensor,
     return r1, r2
 
 
-def rectify_images(geom: RectifiedGeometry, img1: torch.Tensor,
-                   img2: torch.Tensor, fill: float = -1.0):
-    """:func:`rectify_arrays` with the transforms of ``geom``, on the
-    images' device."""
-    H1 = torch.as_tensor(geom.H1, dtype=torch.float32, device=img1.device)
-    H2 = torch.as_tensor(geom.H2, dtype=torch.float32, device=img1.device)
-    return rectify_arrays(img1, img2, H1, H2, geom.out_shape, fill=fill)
-
-
 def triangulate_from_operator(disparity: torch.Tensor, tri_M: torch.Tensor,
                               tri_b: torch.Tensor, row0: float = 0.0):
     """Dense disparity -> (H, W, 3) local-frame points through the constant
@@ -158,18 +150,6 @@ def triangulation_operator(geom: RectifiedGeometry):
     M = np.linalg.pinv(A_stack)
     return (torch.from_numpy(M.astype(np.float32)),
             torch.from_numpy(b_stack.astype(np.float32)))
-
-
-def triangulate_disparity(geom: RectifiedGeometry, disparity: torch.Tensor,
-                          valid: torch.Tensor | None = None):
-    """Dense disparity (convention ``x2 = x1 - d``) -> ``(xyz, height)``:
-    (H, W, 3) local-frame points and their heights, NaN off ``valid``."""
-    M, b = triangulation_operator(geom)
-    xyz = triangulate_from_operator(disparity, M, b)
-    height = xyz[..., 2]
-    if valid is not None:
-        height = torch.where(valid, height, float("nan"))
-    return xyz, height
 
 
 def build_geometry_from_rpcs(rpc1: RPCCamera, rpc2: RPCCamera, lon_range,

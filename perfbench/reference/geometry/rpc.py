@@ -1,4 +1,5 @@
-"""RPC00B rational polynomial camera (a frozen copy of the port of ``geometry/rpc.py``).
+"""RPC00B rational polynomial camera (a frozen copy of the port's
+``geometry/rpc.py``, without the inverse).
 
     row = LINE_OFF + LINE_SCALE * num_row(P, L, H) / den_row(P, L, H)
     col = SAMP_OFF + SAMP_SCALE * num_col(P, L, H) / den_col(P, L, H)
@@ -6,10 +7,7 @@
 with P, L, H the normalised latitude, longitude and height and the RPC00B
 monomial order. Fields are float32 tensors; :meth:`RPCCamera.from_dict`
 also keeps the float64 originals for the host geometry fit
-(:meth:`RPCCamera.project_np`). The inverse (:meth:`RPCCamera.localize`)
-is a float32 Newton iteration whose Jacobian comes from forward-mode
-differentiation (``torch.func.jvp``), as the reference's from
-``jax.jvp``.
+(:meth:`RPCCamera.project_np`).
 """
 
 from __future__ import annotations
@@ -122,30 +120,3 @@ class RPCCamera:
         row = self._host("line_off") + self._host("line_scale") * row_n / row_d
         col = self._host("samp_off") + self._host("samp_scale") * col_n / col_d
         return col, row
-
-
-def make_affine_rpc(a_col, a_row, offsets: dict | None = None) -> RPCCamera:
-    """Exact-RPC wrapper of an affine camera (denominators 1): ``a_col`` /
-    ``a_row`` are [const, dlon, dlat, dh] in normalised coordinates."""
-    offsets = offsets or {}
-    num_col = np.zeros(20, np.float32)
-    num_row = np.zeros(20, np.float32)
-    num_col[[0, 1, 2, 3]] = a_col
-    num_row[[0, 1, 2, 3]] = a_row
-    den = np.zeros(20, np.float32)
-    den[0] = 1.0
-    d = dict(
-        LINE_OFF=offsets.get("LINE_OFF", 512.0),
-        SAMP_OFF=offsets.get("SAMP_OFF", 512.0),
-        LAT_OFF=offsets.get("LAT_OFF", -34.49),
-        LONG_OFF=offsets.get("LONG_OFF", -58.58),
-        HEIGHT_OFF=offsets.get("HEIGHT_OFF", 25.0),
-        LINE_SCALE=offsets.get("LINE_SCALE", 512.0),
-        SAMP_SCALE=offsets.get("SAMP_SCALE", 512.0),
-        LAT_SCALE=offsets.get("LAT_SCALE", 0.01),
-        LONG_SCALE=offsets.get("LONG_SCALE", 0.01),
-        HEIGHT_SCALE=offsets.get("HEIGHT_SCALE", 50.0),
-        LINE_NUM_COEFF=num_row, LINE_DEN_COEFF=den,
-        SAMP_NUM_COEFF=num_col, SAMP_DEN_COEFF=den,
-    )
-    return RPCCamera.from_dict(d)

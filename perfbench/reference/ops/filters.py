@@ -1,4 +1,5 @@
-"""Separable and edge-aware filters (a frozen copy of the port of ``ops/filters.py``).
+"""Separable and edge-aware filters (a frozen copy of the port's
+``ops/filters.py``).
 
 Images are (H, W) float32, or (H, W, C) where the reference takes those
 (filtered over the first two axes). Linear filters are sums of shifted

@@ -1,4 +1,5 @@
-"""Morphology and distance transforms (a frozen copy of the port of ``ops/morphology.py``).
+"""Morphology and distance transforms (a frozen copy of the port's
+``ops/morphology.py``).
 
 Every operation is a ``size x size`` min or max over a window with the
 reference's ``reduce_window(padding="SAME")`` placement (``(size - 1) // 2``

@@ -1,4 +1,5 @@
-"""Radiometric normalisation and grid quantiles (a frozen copy of the port of ``ops/normalize.py``).
+"""Radiometric normalisation and grid quantiles (a frozen copy of the port's
+``ops/normalize.py``).
 
 The grid quantiles feed the matcher's thresholds, so they are ported
 exactly: the same thresholds, the same first-crossing ``argmax`` and the

@@ -1,4 +1,5 @@
-"""Point-cloud ops: plane fit, K-means, kNN filtering, gridding, ICP (a frozen copy of the port of ``ops/pointcloud.py``).
+"""Point-cloud ops: plane fit, K-means, kNN filtering, gridding, ICP (a frozen copy of the port's
+``ops/pointcloud.py``).
 
 Invalid points are carried as ``weight=0`` rows, never dropped, as in the
 reference. The kNN is brute force: chunks of query rows against every
@@ -17,9 +18,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-
-from perfbench.reference.ops.segmented import (
-    grid_segment_sums, segment_totals_at_points, sort_by_segment)
 
 
 # ---------------------------------------------------------------------------
@@ -83,14 +81,6 @@ def quantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     lo = torch.clamp(low, 0, n - 1).long()
     hi = torch.clamp(torch.ceil(pos), 0, n - 1).long()
     return s[lo] * (1.0 - high_w) + s[hi] * high_w
-
-
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` along the last axis: the ``k`` largest values and their
-    indices, the lower index first among equal values (a stable descending
-    sort; ``torch.topk`` promises no order on ties)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +225,6 @@ def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-class GridSpec2D(NamedTuple):
-    origin: Tuple[float, float]  # (x0, y0) of cell (0, 0)
-    cell: float                  # cell size
-    shape: Tuple[int, int]       # (rows=ny, cols=nx)
-
-
 def cell_ids(xy: torch.Tensor, weights: torch.Tensor, origin, cell: float,
              shape) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat cell id (``gy * nx + gx``, 0 out of bounds) and weight (0 out
@@ -252,34 +236,6 @@ def cell_ids(xy: torch.Tensor, weights: torch.Tensor, origin, cell: float,
     w = torch.where(inb, weights.float(), 0.0).reshape(-1)
     ids = torch.where(inb, gy * nx + gx, 0).reshape(-1)
     return ids, w
-
-
-def grid_fuse(xy: torch.Tensor, values: torch.Tensor, weights: torch.Tensor,
-              origin: Tuple[float, float], cell: float,
-              shape: Tuple[int, int], robust_sigma: float = 3.0):
-    """Rasterise scattered (x, y, value) samples onto a regular grid.
-
-    Two-pass robust mean per cell: the weighted mean, then the mean of the
-    samples within ``robust_sigma`` cell-stds (+1e-6) of it. Returns
-    ``(dsm, count)`` with NaN where a cell received no samples."""
-    ny, nx = shape
-    ids, w = cell_ids(xy, weights, origin, cell, shape)
-    v = values.reshape(-1).float()
-    v = torch.where(w > 0, v, 0.0)
-    ids, v, w, boundary = sort_by_segment(ids, v, w)
-    ws_p, vs_p, vq_p = segment_totals_at_points(boundary, w, w * v, w * v * v)
-    ws_p = torch.clamp(ws_p, min=1e-12)
-    mean_p = vs_p / ws_p
-    std_p = torch.sqrt(torch.clamp(vq_p / ws_p - mean_p ** 2, min=0.0))
-    keep = w * ((v - mean_p).abs() <= robust_sigma * std_p + 1e-6)
-    packed = grid_segment_sums(ids, boundary, (w, w * v, keep, keep * v),
-                               ny * nx)
-    wsum, vsum, wsum2, vsum2 = packed.unbind(1)
-    mean = vsum / torch.clamp(wsum, min=1e-12)
-    fused = torch.where(wsum2 > 0, vsum2 / torch.clamp(wsum2, min=1e-12),
-                        mean)
-    fused = torch.where(wsum > 0, fused, float("nan"))
-    return fused.reshape(ny, nx), wsum.reshape(ny, nx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Sort-segmented reductions (a frozen copy of the port of ``ops/segmented.py``).
+"""Sort-segmented reductions (a frozen copy of the port's
+``ops/segmented.py``).
 
 The pattern is the reference's: sort the points by cell id once, carrying
 their payloads, compute per-cell statistics, compare each point with its

@@ -1,4 +1,5 @@
-"""Bilinear image warps (a frozen copy of the port of ``ops/warp.py``).
+"""Bilinear image warps (a frozen copy of the port's
+``ops/warp.py``).
 
 One bilinear ``map_coordinates`` gather serves the rectification warps,
 the homography warp and the synthetic renderer. Arithmetic follows the

@@ -238,3 +238,14 @@ def cell_truth(scene: Scene, origin, cell: float, shape):
     tt = terr[np.clip(gym.astype(int), 0, terr.shape[0] - 1),
               np.clip(gxm.astype(int), 0, terr.shape[1] - 1)]
     return tt, inb
+
+
+def dsm_truth(scene: Scene, got: dict, what: str) -> str:
+    """A DSM's height RMSE against the cell-centre truth and its filled
+    share of the truth's cells, as a line of text."""
+    tt, inb = cell_truth(scene, got["origin"], got["cell"], got["dsm"].shape)
+    filled = np.isfinite(got["dsm"]) & inb
+    rmse = float(np.sqrt(np.mean((got["dsm"][filled] - tt[filled]) ** 2))
+                 ) if filled.any() else float("nan")
+    return (f"truth {what}: rmse {rmse!r} m, filled "
+            f"{float(filled.sum() / max(inb.sum(), 1))!r} of the cells")

@@ -58,3 +58,14 @@ def mismatch_share(a, b) -> float:
     if a.shape != b.shape:
         return 1.0
     return float((a != b).mean()) if a.size else 0.0
+
+
+def dsm_numbers(got: dict, ref: dict) -> dict:
+    """Two DSMs compared: the share of cells empty (NaN) in one and not the
+    other, and the largest height gap over the cells both fill; a grid of
+    another origin or shape reads as wholly different."""
+    if got["origin"] != ref["origin"] or got["dsm"].shape != ref["dsm"].shape:
+        return {"dsm_empty_mismatch": 1.0, "dsm_gap_m": float("inf")}
+    fin_g, fin_r = np.isfinite(got["dsm"]), np.isfinite(ref["dsm"])
+    return {"dsm_empty_mismatch": mismatch_share(fin_g, fin_r),
+            "dsm_gap_m": max_gap(got["dsm"], ref["dsm"], fin_g & fin_r)}
