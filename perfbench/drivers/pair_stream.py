@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import harness, stack
+from perfbench import harness, roofline, stack
 from perfbench.scene import make_scene, truth_at
 
 
@@ -45,6 +45,8 @@ class Driver:
         planes = len(range(0, self.stereo_cfg.max_disp,
                            self.stereo_cfg.disp_stride))
         self.shapes = [(planes, *g.out_shape) for g in self.geoms]
+        self.least_s = [roofline.pair_least_seconds(s, self.stereo_cfg)
+                        for s in self.shapes]
         self.order = np.random.default_rng([seed, 1])
         self.queue: list = []
         self._ref = None
@@ -68,7 +70,8 @@ class Driver:
             self.queue = list(self.order.permutation(len(self.pairs)))
         k = int(self.queue.pop(0))
         prod = self._pair(k)
-        return {"units": 1, "info": {"pair": k, "shape": self.shapes[k]},
+        return {"units": 1, "info": {"pair": k, "shape": self.shapes[k],
+                                     "least_s": self.least_s[k]},
                 "answer": (k, prod)}
 
     @staticmethod

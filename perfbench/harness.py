@@ -121,12 +121,9 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def read_trace(prof, run: Run) -> dict:
-    """Device and host operations of a profiled stretch (the profiler's raw
-    events): the device's busy time (the union of its operations'
-    intervals) and the breakdown: the costliest device operations by name
-    and the idle gaps between device operations, by the innermost host
-    operation running at each gap's middle."""
+def _events(prof):
+    """The profiler's raw events as ``(name, start_us, end_us)``, device
+    operations and host operations apart, each sorted by start."""
     from torch.autograd import DeviceType
 
     dev, host = [], []
@@ -136,11 +133,31 @@ def read_trace(prof, run: Run) -> dict:
         (dev if e.device_type() == DeviceType.CUDA else host).append(row)
     dev.sort(key=lambda d: d[1])
     host.sort(key=lambda h: h[1])
+    return dev, host
+
+
+def _top(d: Dict[str, float]) -> list:
+    return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
+
+
+def read_device_trace(prof, run: Run) -> list:
+    """The device operations of a stretch profiled on the device alone:
+    recorded in ``run`` with the device's busy time (the union of their
+    intervals); returns the costliest operations by name."""
+    dev, _ = _events(prof)
     run.device_ops = dev
     run.busy_s = _union_us((a, b) for _, a, b in dev) / 1e6
     by_name: Dict[str, float] = {}
     for name, a, b in dev:
         by_name[name[:96]] = by_name.get(name[:96], 0.0) + (b - a) / 1e6
+    return _top(by_name)
+
+
+def idle_gaps(prof) -> list:
+    """The idle gaps between device operations of a stretch profiled on
+    the host and the device, by the innermost host operation running at
+    each gap's middle."""
+    dev, host = _events(prof)
     # gaps in the order of their middles; host operations pushed in the
     # order of their starts; the top of the stack, once every operation
     # that ended before the middle is popped, is the innermost one running
@@ -158,11 +175,7 @@ def read_trace(prof, run: Run) -> dict:
             key = stack[-1][0][:96] if stack else "(host between operations)"
             gaps[key] = gaps.get(key, 0.0) + (a - end) / 1e6
         end = b if end is None else max(end, b)
-
-    def top(d):
-        return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
-
-    return {"device_ops": top(by_name), "idle_gaps": top(gaps)}
+    return _top(gaps)
 
 
 @contextlib.contextmanager
@@ -191,11 +204,47 @@ def synchronize(device: str) -> None:
         torch.cuda.synchronize()
 
 
+class _Keep:
+    """The answers kept for the check, drawn from the seed: a reservoir of
+    ``sample`` answers, or with ``"every_key"`` one answer of each of the
+    driver's keys (a reservoir of one per key)."""
+
+    def __init__(self, sample, seed: int):
+        self.every_key = sample == "every_key"
+        self.k = 1 if self.every_key else int(sample)
+        self.pick = random.Random(seed)
+        self.seen: Dict[object, int] = {}
+        self.kept: Dict[object, object] = {}
+
+    def offer(self, answer) -> None:
+        slot = answer[0] if self.every_key else None
+        n = self.seen[slot] = self.seen.get(slot, 0) + 1
+        if self.every_key:
+            if self.pick.randrange(n) == 0:
+                self.kept[slot] = answer
+        elif n <= self.k:
+            self.kept[n - 1] = answer
+        else:
+            j = self.pick.randrange(n)
+            if j < self.k:
+                self.kept[j] = answer
+
+    def answers(self) -> list:
+        return list(self.kept.values())
+
+
 def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
             process_start: float, log: Callable[[str], None]):
     """Set up the cell's driver, run the window and keep the sampled
     answers. Returns ``(run, driver, kept, attempted, failed, peak,
-    breakdown)``."""
+    breakdown)``.
+
+    With ``trace``, the window is a fixed stretch of
+    ``trace_requests`` requests profiled on the device alone (the metrics
+    and the costliest operations), then as many again profiled on the host
+    and the device, whose only use is to name what the host did in the
+    idle gaps: recording host operations slows the host, so the idle share
+    is not read from that stretch."""
     run = Run(cell)
     marks = [("imports", time.perf_counter())]
     torch.zeros(1, device=device)
@@ -214,50 +263,64 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         t = m
     log("set-up: " + ", ".join(split) + f"; of which scene "
         f"{getattr(driver, 'scene_s', math.nan):.3f} s")
-    k = int(cell.traffic.get("sample", 1))
-    pick = random.Random(seed)
-    kept: list = []
-    attempted = failed = 0
-    n_max = int(cell.traffic["trace_requests"]) if trace else None
-    prof_ctx = contextlib.nullcontext()
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
+    keep = _Keep(cell.traffic.get("sample", 1), seed)
+    counts = {"attempted": 0, "failed": 0}
 
-        prof_ctx = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-    run.setup_s = time.perf_counter() - process_start
-    with prof_ctx as prof:
-        t_start = time.perf_counter()
-        deadline = t_start + seconds
-        t_end = t_start
-        while (attempted < n_max) if trace else (t_end < deadline):
+    def serve(more: Callable[[float], bool], record: bool) -> float:
+        """Requests in a closed loop while ``more(end of the last one)``;
+        returns the end of the last one."""
+        t_end = time.perf_counter()
+        while more(t_end):
             t0 = time.perf_counter()
-            attempted += 1
+            counts["attempted"] += 1
             try:
                 out = driver.request()
                 synchronize(device)
             except Exception as exc:  # noqa: BLE001 (counted, reported)
-                failed += 1
-                log(f"request {attempted} failed: {exc!r}")
+                counts["failed"] += 1
+                log(f"request {counts['attempted']} failed: {exc!r}")
                 t_end = time.perf_counter()
                 continue
             t_end = time.perf_counter()
-            run.requests.append(dict(t0=t0, t1=t_end, units=out["units"],
-                                     **out.get("info", {})))
-            # reservoir sample of k answers, drawn from the seed
-            n = len(run.requests)
-            if len(kept) < k:
-                kept.append(out["answer"])
-            else:
-                j = pick.randrange(n)
-                if j < k:
-                    kept[j] = out["answer"]
+            if record:
+                run.requests.append(dict(t0=t0, t1=t_end, units=out["units"],
+                                         **out.get("info", {})))
+                keep.offer(out["answer"])
             del out
-    run.window_s = t_end - t_start
+        return t_end
+
+    def first(n: int) -> Callable[[float], bool]:
+        start = counts["attempted"]
+        return lambda _: counts["attempted"] - start < n
+
+    breakdown = None
+    run.setup_s = time.perf_counter() - process_start
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        n = int(cell.traffic["trace_requests"])
+        # the device alone (on a CPU run, which has none, the host)
+        alone = (ProfilerActivity.CUDA if torch.device(device).type == "cuda"
+                 else ProfilerActivity.CPU)
+        with profile(activities=[alone]) as prof:
+            t_start = time.perf_counter()
+            t_end = serve(first(n), record=True)
+        run.window_s = t_end - t_start
+        ops = read_device_trace(prof, run)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve(first(n), record=False)
+        breakdown = {"device_ops": ops, "idle_gaps": idle_gaps(prof)}
+        del prof
+    else:
+        t_start = time.perf_counter()
+        deadline = t_start + seconds
+        t_end = serve(lambda t: t < deadline, record=True)
+        run.window_s = t_end - t_start
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
-    breakdown = read_trace(prof, run) if trace else None
-    return run, driver, kept, attempted, failed, peak, breakdown
+    return (run, driver, keep.answers(), counts["attempted"],
+            counts["failed"], peak, breakdown)
 
 
 def check(driver, answers: list, refs: Optional[dict] = None):
@@ -278,6 +341,11 @@ def check(driver, answers: list, refs: Optional[dict] = None):
             v = v if math.isfinite(v) else sys.float_info.max
             checks[name] = max(checks.get(name, 0.0), v)
     return checks, notes
+
+
+def holds(checks: Dict[str, float], limits: Dict[str, float]) -> bool:
+    """The comparison's rule: every compared number within its limit."""
+    return all(v <= limits[k] for k, v in checks.items())
 
 
 def read_metrics(run: Run, metrics: List[dict]) -> dict:
@@ -306,12 +374,14 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     checks, notes = check(driver, answers)
+    log(f"check: {len(answers)} answers against the reference in "
+        f"{time.perf_counter() - t0:.3f} s")
     for line in notes:
         log(line)
     limits = cell.traffic["limits"]
-    correct = (failed == 0 and len(run.requests) > 0 and all(
-        v <= limits[k] for k, v in checks.items()))
+    correct = failed == 0 and len(run.requests) > 0 and holds(checks, limits)
     metrics = read_metrics(run, cell.per_layer if trace else cell.end_to_end)
     dev = {"platform": "gpu" if device == "cuda" else device,
            "kind": (torch.cuda.get_device_name(0) if device == "cuda"

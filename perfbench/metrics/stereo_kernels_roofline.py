@@ -1,10 +1,8 @@
 """Share of the roofline reached by the matcher's kernels on the traced
 pairs: the least time of each pair's aggregation, WTA and right-view work
-(``perfbench.roofline``, from its (planes, rows, cols) and the main path's
-path counts) over the device time of the kernels named under
-``perfbench/kernels/stereo_kernels``."""
-
-from perfbench.roofline import pair_least_seconds
+(``perfbench.roofline.pair_least_seconds``, from its (planes, rows, cols)
+and the stereo config the run sized, as the driver records it) over the
+device time of the kernels named under ``perfbench/kernels/stereo_kernels``."""
 
 
 def read(run):
@@ -13,5 +11,4 @@ def read(run):
                if any(k in n for k in names)) / 1e6
     if not run.requests or busy <= 0:
         return None
-    least = sum(pair_least_seconds(r["shape"]) for r in run.requests)
-    return 100.0 * least / busy
+    return 100.0 * sum(r["least_s"] for r in run.requests) / busy

@@ -1,47 +1,19 @@
-"""Streaming whole-AOI pipeline: row-band tiles, bounded memory. A frozen
-copy of the port's ``pipelines/streaming.py`` (``StreamingAOIPipeline.run``
-as one function):
-
-  for each selected pair:
-    build the rectification geometry once (host)
-    normalise the whole rectified canvas once
-    for each row band of the canvas:
-      pair_core(band + halo, pre_normalised, row0) -> xyz, valid
-      accumulate the band's valid points into the pair's DSM sums
-  cross-pair median of the pairs' cell means
-"""
+"""The DSM accumulators of the port's ``pipelines/streaming.py``, a frozen
+copy: a pair's weighted cell sums (``dsm_update``) and the cross-pair
+median of the pairs' cell means (``dsm_finalize_multi``), as the
+multi-day fusion uses them."""
 
 from __future__ import annotations
 
 import warnings
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from perfbench.reference.config import PipelineConfig, StereoConfig
-from perfbench.reference.geometry.pairs import ImageMeta, select_pairs, take_pairs
-from perfbench.reference.geometry.rectify import (
-    rectify_arrays, triangulation_operator)
-from perfbench.reference.ops.normalize import normalise_image
 from perfbench.reference.ops.pointcloud import cell_ids
 from perfbench.reference.ops.segmented import (
     grid_segment_sums, robust_sigma_gate, sort_by_segment)
-
-
-def default_halo(cfg: StereoConfig) -> int:
-    """Influence radius of the windowed ops (census window, block
-    aggregation, guided filter, speckle median and the decaying vertical
-    SGM recurrence), rounded up to 8 rows."""
-    r = (cfg.census_window // 2
-         + cfg.block_size
-         + 2 * cfg.gf_radius * cfg.wls_passes
-         + cfg.speckle_median_size
-         + 16)  # vertical SGM decay allowance
-    if cfg.hierarchical:
-        r *= 2
-    return ((r + 7) // 8) * 8
 
 
 class StreamingDSM(NamedTuple):
@@ -123,84 +95,3 @@ def dsm_finalize_multi(accs: Sequence[StreamingDSM], min_pairs: int = 1,
             take2 = (n_pairs == 2) & (rng2 <= accept2_delta)
             dsm = np.where(take2, np.nanmean(stack, axis=0), dsm)
     return dsm, np.sum(counts, axis=0), n_pairs
-
-
-def stream(cfg: PipelineConfig, images: Sequence, rpcs: Sequence,
-           metas: Sequence[ImageMeta], lon_range, lat_range, device,
-           band_rows: int = 256, grid_cell: float = 1.0,
-           n_pairs: Optional[int] = None, min_pairs: int = 1) -> dict:
-    """Every selected pair over one AOI as fixed-shape band tiles on
-    ``device``, fused by the cross-pair median."""
-    from perfbench.reference.pipelines.height_map import (
-        build_geometry, pair_core, stereo_cfg_for)
-
-    pairs = take_pairs(select_pairs(metas, cfg.pairs),
-                       n_pairs or cfg.pairs.n_pairs)
-    if not pairs:
-        raise ValueError("no valid stereo pairs")
-    dev = device
-    geoms = [build_geometry(cfg, rpcs[p.i], rpcs[p.j], lon_range, lat_range,
-                            tuple(images[p.i].shape),
-                            tuple(images[p.j].shape))
-             for p in pairs]
-    cfg_s = stereo_cfg_for(cfg, geoms)
-    halo = default_halo(cfg_s)
-    # the AOI extent in the local frame: every canvas' corners
-    # triangulated at zero disparity (host math)
-    xs, ys = [], []
-    for g in geoms:
-        M, b = (t.numpy() for t in triangulation_operator(g))
-        hh, ww = g.out_shape
-        corners = np.array(
-            [[0, 0, 0, 0], [0, hh, 0, hh], [ww, 0, ww, 0],
-             [ww, hh, ww, hh]], np.float32)
-        xyz = (corners - b) @ M.T
-        xs += list(xyz[:, 0])
-        ys += list(xyz[:, 1])
-    x0, y0 = float(np.floor(min(xs))), float(np.floor(min(ys)))
-    nx = int(np.ceil((max(xs) - x0) / grid_cell)) + 1
-    ny = int(np.ceil((max(ys) - y0) / grid_cell)) + 1
-    grid_origin = (x0, y0)
-    grid_shape = (ny, nx)
-
-    accs: List[StreamingDSM] = []
-    band = band_rows
-    n_tiles = 0
-    for p, geom in zip(pairs, geoms):
-        acc = empty_dsm(grid_shape, dev)
-        H, _ = geom.out_shape
-        r1, r2 = rectify_arrays(
-            torch.as_tensor(images[p.i], dtype=torch.float32).to(dev),
-            torch.as_tensor(images[p.j], dtype=torch.float32).to(dev),
-            torch.as_tensor(geom.H1, dtype=torch.float32),
-            torch.as_tensor(geom.H2, dtype=torch.float32),
-            geom.out_shape)
-        # normalise ONCE over the whole canvas: per-band bounds would
-        # give one pixel different radiometry in adjacent bands
-        ss = cfg_s.norm_subsample
-        m1, m2 = r1 >= 0, r2 >= 0
-        r1 = torch.where(m1, normalise_image(r1, m1, subsample=ss)[0], -1.0)
-        r2 = torch.where(m2, normalise_image(r2, m2, subsample=ss)[0], -1.0)
-        M, b = (t.to(dev) for t in triangulation_operator(geom))
-        pad = (0, 0, halo, halo + (-H) % band)
-        r1p = F.pad(r1, pad, value=-1.0)
-        r2p = F.pad(r2, pad, value=-1.0)
-        for y0 in range(0, H, band):
-            rows = slice(y0, y0 + band + 2 * halo)
-            prod = pair_core(r1p[rows], r2p[rows], M, b, cfg_s,
-                             with_plane=False, row0=float(y0 - halo),
-                             pre_normalised=True)
-            core = slice(halo, halo + band)
-            xyz = prod.xyz[core]
-            acc = dsm_update(acc, xyz[..., :2], xyz[..., 2],
-                             prod.valid[core].float(), grid_origin,
-                             grid_cell, grid_shape,
-                             robust_sigma=cfg.fusion.knn_sigma)
-            n_tiles += 1
-        accs.append(acc)
-
-    dsm, count, n_pairs_per_cell = dsm_finalize_multi(
-        accs, min_pairs=min_pairs)
-    return {"dsm": dsm, "count": count,
-            "n_pairs_per_cell": n_pairs_per_cell, "origin": grid_origin,
-            "cell": grid_cell, "pairs": len(pairs), "tiles": n_tiles}

@@ -34,20 +34,34 @@ def least_seconds(unit: str, shape, esize: int = 4) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops * D * H * W / FP32_OPS_PER_S)
 
 
-def pair_units(sgm_paths: int = 4, right_paths: int = 2,
-               checker: bool = True) -> dict:
-    """Units of work of one pair on the matcher's main path: the left
-    view's SGM directions (each axis one forward and one accumulating
-    direction), the right view's derive, directions and argmin, the left
-    WTA and the cross-checker's WTA."""
-    units = {"sgm_forward": (sgm_paths + right_paths) // 2,
-             "sgm_accumulate": (sgm_paths + right_paths) // 2,
+def pair_units(cfg) -> dict:
+    """Units of work of one pair on the matcher's main path under the
+    stereo config ``cfg`` (the program's ``StereoConfig`` as a run sizes
+    it): the left view's SGM directions (each axis one forward and one
+    accumulating direction), the right view's derive, directions and
+    argmin, the left WTA and, with band recovery's census cross-checker,
+    its WTA. A config whose matcher takes another path raises."""
+    other = [k for k, v in (("hierarchical", cfg.hierarchical),
+                            ("adapt_band_rows", cfg.adapt_band_rows),
+                            ("right_subpixel", cfg.right_subpixel)) if v]
+    if cfg.right_sgm not in ("horizontal", "full") or other:
+        raise ValueError(f"no count of the matcher's work for right_sgm="
+                         f"{cfg.right_sgm!r} with {other}")
+    right_paths = 2 if cfg.right_sgm == "horizontal" else cfg.sgm_paths
+    paths = cfg.sgm_paths + right_paths
+    units = {"sgm_forward": paths // 2, "sgm_accumulate": paths // 2,
              "wta_left": 1, "wta_right": 1, "derive_right": 1}
-    if checker:
+    if cfg.band_recover and cfg.band_check_mode == "census":
         units["wta_checker"] = 1
     return units
 
 
-def pair_least_seconds(shape, esize: int = 4, **kw) -> float:
-    return sum(n * least_seconds(u, shape, esize)
-               for u, n in pair_units(**kw).items())
+def element_size(cfg) -> int:
+    """Bytes of a stored volume element under ``cfg.cost_dtype``."""
+    return 2 if cfg.cost_dtype == "bfloat16" else 4
+
+
+def pair_least_seconds(shape, cfg) -> float:
+    """The least time of one pair's matcher work on a (D, H, W) volume."""
+    return sum(n * least_seconds(u, shape, element_size(cfg))
+               for u, n in pair_units(cfg).items())

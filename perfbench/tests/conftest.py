@@ -23,7 +23,9 @@ def pytest_configure(config):
 def tiny_root(dest: Path, copy_perfbench: bool = False) -> Path:
     """``dest`` as a checkout root: ``BENCHMARK.json`` with every
     configuration cut to a 64 px crop of a 64 px ground at 0.5 m and heights
-    0-6 m (a few tens of planes on canvases of ~100 px), and, with
+    0-6 m (a few tens of planes on canvases of ~100 px), matched with
+    windows and margins to suit (block 9, census 5, margin 8, stride 2),
+    and, with
     ``copy_perfbench``, a copy of the benchmark's folder beside it."""
     dest.mkdir(parents=True, exist_ok=True)
     if copy_perfbench:
@@ -40,6 +42,8 @@ def tiny_root(dest: Path, copy_perfbench: bool = False) -> Path:
                                    "building_h_m": [1.0, 3.0],
                                    "n_buildings": 3}
         cfg["pipeline"]["rectify"]["height_range"] = [0.0, 6.0]
+        cfg["pipeline"]["stereo"] = {"block_size": 9, "census_window": 5,
+                                     "margin_undefined": 8, "disp_stride": 2}
         c["file"] = f"tiny/{c['name']}.json"
         (dest / c["file"]).write_text(json.dumps(cfg))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))

@@ -3,12 +3,13 @@ each fault a cell can have.
 
 The control is the reference put in the program's place and computed in
 a lower precision: bfloat16 cost volumes here (TF32 does not exist on the
-CPU; the card test runs both at the cells' own sizes). The faults are
-planted in the program underneath a whole run, with the harness's look for
-a card skipped: an answer altered where it is produced (a pair's
-disparities), half of the batch left out (the fusion's pairs) and a step
-that returns its state unchanged (the streamed DSM's update). No cell
-spans chips, so no exchange between chips can be left out."""
+CPU; the card test runs TF32, the configurations' nearest lower precision,
+at the cells' own sizes). The faults are planted in the program underneath
+a whole run, with the harness's look for a card skipped: an answer altered
+where it is produced (a pair's disparities), half of the batch left out
+(the fusion's pairs) and a step that returns its state unchanged (the
+fusion's per-pair DSM update). No cell spans chips, so no exchange between
+chips can be left out."""
 
 import json
 
@@ -24,8 +25,7 @@ def _control(root, cell: str, mode: str, seed: int = 5, device="cpu"):
     return {k: tuple(v) for k, v in row["checks"].items()}
 
 
-@pytest.mark.parametrize("cell", ["d288_pair.strict", "d288_aoi.fuse",
-                                  "d288_aoi.stream"])
+@pytest.mark.parametrize("cell", ["d288_pair.strict", "d288_aoi.fuse"])
 def test_bfloat16_control_is_not_correct(tiny, cell):
     torch.set_num_threads(4)
     got = _control(tiny, cell, "bfloat16")
@@ -65,15 +65,15 @@ def _half_the_pairs(monkeypatch):
 
 
 def _state_unchanged(monkeypatch):
-    from pcmi_tpu_torch.pipelines import streaming
+    from pcmi_tpu_torch.pipelines import multiday
 
-    monkeypatch.setattr(streaming, "dsm_update", lambda acc, *a, **kw: acc)
+    monkeypatch.setattr(multiday, "dsm_update", lambda acc, *a, **kw: acc)
 
 
 @pytest.mark.parametrize("cell,plant", [
     ("d288_pair.strict", _altered_pair_core),
     ("d288_aoi.fuse", _half_the_pairs),
-    ("d288_aoi.stream", _state_unchanged),
+    ("d288_aoi.fuse", _state_unchanged),
 ])
 def test_a_planted_fault_makes_the_run_incorrect(tiny, monkeypatch, cell,
                                                  plant):
@@ -84,15 +84,9 @@ def test_a_planted_fault_makes_the_run_incorrect(tiny, monkeypatch, cell,
     assert r["correct"] is False, json.dumps(r["checks"])
 
 
-# TF32 does not reach the stream path (no matrix product there runs in
-# TF32), so its control is the program's own bfloat16 mode alone
 @pytest.mark.card
-@pytest.mark.parametrize("cell,mode", [
-    ("d288_pair.strict", "tf32"), ("d288_pair.strict", "bfloat16"),
-    ("d288_aoi.fuse", "tf32"), ("d288_aoi.fuse", "bfloat16"),
-    ("d288_aoi.stream", "bfloat16"),
-])
-def test_controls_at_the_cells_own_size_are_not_correct(card, cell, mode):
-    got = _control(harness.PERFBENCH.parent, cell, mode, seed=17,
+@pytest.mark.parametrize("cell", ["d288_pair.strict", "d288_aoi.fuse"])
+def test_controls_at_the_cells_own_size_are_not_correct(card, cell):
+    got = _control(harness.PERFBENCH.parent, cell, "tf32", seed=17,
                    device="cuda")
     assert any(v > lim for v, lim in got.values()), got
