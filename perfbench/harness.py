@@ -2,8 +2,8 @@
 
 A run sets up the cell's driver (scene, program objects, warm-up of the
 shapes the traffic uses), sends requests in a closed loop with one caller
-for the measured window, keeps a sample of the answers drawn from the
-seed, and then, with the window closed and the program's state freed,
+for the measured window, keeps one answer of each distinct request drawn
+from the seed, and then, with the window closed and the program's state freed,
 recomputes the sampled answers with the plain reference and compares.
 The metrics are read by small readers, one file each under
 ``perfbench/metrics``, from what the run recorded: request times on the
@@ -205,29 +205,20 @@ def synchronize(device: str) -> None:
 
 
 class _Keep:
-    """The answers kept for the check, drawn from the seed: a reservoir of
-    ``sample`` answers, or with ``"every_key"`` one answer of each of the
-    driver's keys (a reservoir of one per key)."""
+    """The answers kept for the check: one answer of each of the driver's
+    keys (the key is an answer's first item), drawn from the seed among
+    that key's answers (a reservoir of one per key)."""
 
-    def __init__(self, sample, seed: int):
-        self.every_key = sample == "every_key"
-        self.k = 1 if self.every_key else int(sample)
+    def __init__(self, seed: int):
         self.pick = random.Random(seed)
         self.seen: Dict[object, int] = {}
         self.kept: Dict[object, object] = {}
 
     def offer(self, answer) -> None:
-        slot = answer[0] if self.every_key else None
-        n = self.seen[slot] = self.seen.get(slot, 0) + 1
-        if self.every_key:
-            if self.pick.randrange(n) == 0:
-                self.kept[slot] = answer
-        elif n <= self.k:
-            self.kept[n - 1] = answer
-        else:
-            j = self.pick.randrange(n)
-            if j < self.k:
-                self.kept[j] = answer
+        key = answer[0]
+        n = self.seen[key] = self.seen.get(key, 0) + 1
+        if self.pick.randrange(n) == 0:
+            self.kept[key] = answer
 
     def answers(self) -> list:
         return list(self.kept.values())
@@ -263,7 +254,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         t = m
     log("set-up: " + ", ".join(split) + f"; of which scene "
         f"{getattr(driver, 'scene_s', math.nan):.3f} s")
-    keep = _Keep(cell.traffic.get("sample", 1), seed)
+    keep = _Keep(seed)
     counts = {"attempted": 0, "failed": 0}
 
     def serve(more: Callable[[float], bool], record: bool) -> float:

@@ -48,18 +48,16 @@ def test_same_seed_same_inputs():
     assert [x.shape for x in a.images] == [x.shape for x in c.images]
 
 
-@pytest.mark.parametrize("sample,want", [("every_key", 4), (3, 3)])
-def test_kept_answers_are_drawn_from_the_seed(sample, want):
+def test_one_answer_of_each_key_drawn_from_the_seed():
     answers = [(k % 4, i) for i, k in enumerate(range(40))]
 
     def keep(seed):
-        kept = harness._Keep(sample, seed)
+        kept = harness._Keep(seed)
         for a in answers:
             kept.offer(a)
         return kept.answers()
 
     got = keep(11)
-    assert len(got) == want and got == keep(11)
-    if sample == "every_key":
-        assert sorted(k for k, _ in got) == [0, 1, 2, 3]
+    assert got == keep(11)
+    assert sorted(k for k, _ in got) == [0, 1, 2, 3]
     assert any(keep(s) != got for s in range(12, 20))

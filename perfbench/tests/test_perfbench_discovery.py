@@ -25,8 +25,8 @@ def test_new_cell_and_metric_need_new_files_only(tmp_path):
     before = _digests(pb)
     (pb / "traffic" / "pair_trio.json").write_text(json.dumps({
         "driver": "pair_stream",
-        "why": "three pairs traced, one answer sampled",
-        "sample": 1, "trace_requests": 3,
+        "why": "three pairs traced",
+        "trace_requests": 3,
         "limits": {"valid_mismatch": 0.0, "disp_gap_px": 0.0,
                    "xyz_gap_m": 0.0}}))
     (pb / "metrics" / "host.traced_pairs.pair.py").write_text(textwrap.dedent(
