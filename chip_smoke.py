@@ -1804,6 +1804,7 @@ def phase_from_disk(dctx: D288) -> dict:
     from pcmi_tpu_torch.pipelines.ingest import (
         discover_acquisitions, prepare_aoi_stack)
     from pcmi_tpu_torch.pipelines.sweep import AOISpec, MultiAOISweep
+    from pcmi_tpu_torch.utils.profiling import recording
     from pcmi_tpu_torch.viewer import PluginRunner
 
     t_phase = time.perf_counter()
@@ -1898,7 +1899,7 @@ def phase_from_disk(dctx: D288) -> dict:
         # fuse on the default device
         fuse_dir = os.path.join(tmp, "fuse")
         K.reset_launches()
-        with _fusions() as made:
+        with _fusions() as made, recording():
             rc, fu, out["fuse_ms"] = _cli(
                 ["fuse", "--images", d, "--kml", kml, "--output", fuse_dir]
                 + [a for kv in FROM_DISK_SET for a in ("--set", kv)])

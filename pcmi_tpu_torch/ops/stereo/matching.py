@@ -54,6 +54,7 @@ from pcmi_tpu_torch.config import StereoConfig
 from pcmi_tpu_torch.ops.fused import mul_add
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
+from pcmi_tpu_torch.utils.profiling import span
 
 
 class DisparityResult(NamedTuple):
@@ -258,42 +259,46 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
     cost is the full search's cost at the composed disparity."""
     h, w = left.shape
     dev = left.device
-    n_census = cfg.census_window ** 2 - 1
-    cl0, cl1 = census_transform(left, cfg.census_window)
-    cr0, cr1 = census_transform(right, cfg.census_window)
-    if row_shift is not None:
-        sp, ck = row_shift_pad, row_shift_chunk
-        right = shift_rows(right, row_shift, sp, 0.0, chunk=ck)
-        valid_r = shift_rows(valid_r.bool(), row_shift, sp, False, chunk=ck)
-        cr0 = shift_rows(cr0, row_shift, sp, 0, chunk=ck)
-        cr1 = shift_rows(cr1, row_shift, sp, 0, chunk=ck)
-    pad = cfg.max_disp // 2 + 1
+    planes = len(range(0, cfg.max_disp, cfg.disp_stride))
+    with span("stereo.cost_volume", dev, planes=planes, rows=h, cols=w,
+              census_window=cfg.census_window):
+        n_census = cfg.census_window ** 2 - 1
+        cl0, cl1 = census_transform(left, cfg.census_window)
+        cr0, cr1 = census_transform(right, cfg.census_window)
+        if row_shift is not None:
+            sp, ck = row_shift_pad, row_shift_chunk
+            right = shift_rows(right, row_shift, sp, 0.0, chunk=ck)
+            valid_r = shift_rows(valid_r.bool(), row_shift, sp, False,
+                                 chunk=ck)
+            cr0 = shift_rows(cr0, row_shift, sp, 0, chunk=ck)
+            cr1 = shift_rows(cr1, row_shift, sp, 0, chunk=ck)
+        pad = cfg.max_disp // 2 + 1
 
-    def windows(plane):
-        """(H, 2*pad+1, W) view: window j is plane shifted by pad - j."""
-        return F.pad(plane, (pad, pad)).unfold(1, w, 1)
+        def windows(plane):
+            """(H, 2*pad+1, W) view: window j is plane shifted by pad - j."""
+            return F.pad(plane, (pad, pad)).unfold(1, w, 1)
 
-    rp, vp = windows(right), windows(valid_r.to(torch.uint8))
-    c0p, c1p = windows(cr0), windows(cr1)
-    valid_l = valid_l.bool()
-    ds = torch.arange(0, cfg.max_disp, cfg.disp_stride,
-                      device=dev) + cfg.min_disparity
-    vol = torch.empty((len(ds), h, w), dtype=cost_dtype(cfg), device=dev)
-    for i0 in range(0, len(ds), _COST_CHUNK):
-        starts = pad - ds[i0:i0 + _COST_CHUNK]
+        rp, vp = windows(right), windows(valid_r.to(torch.uint8))
+        c0p, c1p = windows(cr0), windows(cr1)
+        valid_l = valid_l.bool()
+        ds = torch.arange(0, cfg.max_disp, cfg.disp_stride,
+                          device=dev) + cfg.min_disparity
+        vol = torch.empty((len(ds), h, w), dtype=cost_dtype(cfg), device=dev)
+        for i0 in range(0, len(ds), _COST_CHUNK):
+            starts = pad - ds[i0:i0 + _COST_CHUNK]
 
-        def take(p):
-            return p[:, starts].transpose(0, 1)   # (k, H, W)
+            def take(p):
+                return p[:, starts].transpose(0, 1)   # (k, H, W)
 
-        ham = (_popcount24(cl0 ^ take(c0p))
-               + _popcount24(cl1 ^ take(c1p))).float()
-        census_cost = ham / n_census
-        ad = torch.clamp((left - take(rp)).abs(), max=0.5) / 0.5
-        cost = (1.0 - cfg.ad_weight) * census_cost + cfg.ad_weight * ad
-        cost = torch.where(valid_l & take(vp).bool(), cost,
-                           torch.ones_like(cost))
-        vol[i0:i0 + len(starts)] = _box_edge(cost, cfg.block_size)
-    return vol
+            ham = (_popcount24(cl0 ^ take(c0p))
+                   + _popcount24(cl1 ^ take(c1p))).float()
+            census_cost = ham / n_census
+            ad = torch.clamp((left - take(rp)).abs(), max=0.5) / 0.5
+            cost = (1.0 - cfg.ad_weight) * census_cost + cfg.ad_weight * ad
+            cost = torch.where(valid_l & take(vp).bool(), cost,
+                               torch.ones_like(cost))
+            vol[i0:i0 + len(starts)] = _box_edge(cost, cfg.block_size)
+        return vol
 
 
 def sgm_aggregate(vol: torch.Tensor, cfg: StereoConfig,
@@ -450,38 +455,40 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
 
     check = check_margin = None
     if cfg.band_recover:
-        # independent cross-matcher; its inputs blend toward a sigma=1
-        # Gaussian smooth as the scene's noise ratio rises
-        cl, cr = left, right
-        if cfg.noise_adapt > 0:
-            from pcmi_tpu_torch.ops.filters import gaussian_filter
-            from pcmi_tpu_torch.ops.normalize import snr_ratio
+        with span("stereo.checker", left.device):
+            # independent cross-matcher; its inputs blend toward a sigma=1
+            # Gaussian smooth as the scene's noise ratio rises
+            cl, cr = left, right
+            if cfg.noise_adapt > 0:
+                from pcmi_tpu_torch.ops.filters import gaussian_filter
+                from pcmi_tpu_torch.ops.normalize import snr_ratio
 
-            if noise_ratio is None:
-                noise_ratio = snr_ratio(left, valid_l)
-            t = cfg.noise_adapt * torch.clamp((noise_ratio - 0.5) / 0.5,
-                                              0.0, 1.0)
-            cl = (1.0 - t) * left + t * gaussian_filter(left, sigma=1.0)
-            cr = (1.0 - t) * right + t * gaussian_filter(right, sigma=1.0)
-        if cfg.band_check_mode == "vertical":
-            # census 3, a vertical-only box and the 2 vertical SGM
-            # directions: ~1 px of horizontal fattening
-            cfg_s = dataclasses.replace(cfg, block_size=1,
-                                        census_window=cfg.band_check_census)
-            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
-                                      **shift)
-            vol_s = _vertical_box(vol_s, cfg.band_check_vbox)
-            vert = K.sgm_pair(vol_s, p1, p2, horizontal=False)
-            del vol_s
-            check, _, check_margin = K.wta(vert, None, 0.5, d_min, stride)
-            del vert
-        else:
-            # small-window, no-SGM cross-matcher
-            cfg_s = dataclasses.replace(cfg, block_size=cfg.band_check_block,
-                                        census_window=cfg.band_check_census)
-            vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
-                                      **shift)
-            check, _ = wta_disparity(vol_s, d_min, stride=stride)
+                if noise_ratio is None:
+                    noise_ratio = snr_ratio(left, valid_l)
+                t = cfg.noise_adapt * torch.clamp((noise_ratio - 0.5) / 0.5,
+                                                  0.0, 1.0)
+                cl = (1.0 - t) * left + t * gaussian_filter(left, sigma=1.0)
+                cr = (1.0 - t) * right + t * gaussian_filter(right, sigma=1.0)
+            if cfg.band_check_mode == "vertical":
+                # census 3, a vertical-only box and the 2 vertical SGM
+                # directions: ~1 px of horizontal fattening
+                cfg_s = dataclasses.replace(
+                    cfg, block_size=1, census_window=cfg.band_check_census)
+                vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
+                                          **shift)
+                vol_s = _vertical_box(vol_s, cfg.band_check_vbox)
+                vert = K.sgm_pair(vol_s, p1, p2, horizontal=False)
+                del vol_s
+                check, _, check_margin = K.wta(vert, None, 0.5, d_min, stride)
+                del vert
+            else:
+                # small-window, no-SGM cross-matcher
+                cfg_s = dataclasses.replace(
+                    cfg, block_size=cfg.band_check_block,
+                    census_window=cfg.band_check_census)
+                vol_s = build_cost_volume(cl, cr, valid_l, valid_r, cfg_s,
+                                          **shift)
+                check, _ = wta_disparity(vol_s, d_min, stride=stride)
 
     return DisparityResult(disparity=disp_l, valid=ok & valid_l, cost=cost_l,
                            disparity_right=disp_r, margin=margin,

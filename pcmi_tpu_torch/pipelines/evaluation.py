@@ -17,6 +17,7 @@ from pcmi_tpu_torch.geometry.synthetic import SyntheticScene, aoi_lonlat_ranges
 from pcmi_tpu_torch.geometry.pairs import ImageMeta
 from pcmi_tpu_torch.pipelines.height_map import HeightMapPipeline
 from pcmi_tpu_torch.pipelines.multiday import MultiDayFusion
+from pcmi_tpu_torch.utils.profiling import recording
 
 
 def _np(a) -> np.ndarray:
@@ -122,16 +123,18 @@ def evaluate_fused_dsm(scene: SyntheticScene, cfg: PipelineConfig, views,
       ``flat_grad_m`` per cell).
 
     Besides the reference's keys it returns the number of pairs selected,
-    the largest ICP residual and the fusion's ``stage_ms``."""
+    the largest ICP residual and the fusion's ``stage_ms`` (the run is
+    recorded for it)."""
     metas = [ImageMeta(i, inc, az, date=20.0 * i)
              for i, (inc, az) in enumerate(views)]
     fusion = MultiDayFusion(
         cfg.replace(pairs=dataclasses.replace(cfg.pairs, n_pairs=n_pairs)),
         device=device)
-    fused = fusion.run(
-        scene.images, scene.rpcs, metas, *aoi_lonlat_ranges(scene),
-        points_per_pair=points_per_pair, grid_cell=grid_cell,
-        with_kmeans=with_kmeans)
+    with recording():
+        fused = fusion.run(
+            scene.images, scene.rpcs, metas, *aoi_lonlat_ranges(scene),
+            points_per_pair=points_per_pair, grid_cell=grid_cell,
+            with_kmeans=with_kmeans)
     dsm = _np(fused.dsm)
     ny, nx = dsm.shape
     x0, y0 = fused.grid_origin

@@ -44,6 +44,7 @@ from pcmi_tpu_torch.ops.stereo.hierarchical import (
     compute_disparity_hierarchical)
 from pcmi_tpu_torch.ops.stereo.matching import (
     compute_disparity, refine_disparity, triangle_sum)
+from pcmi_tpu_torch.utils.profiling import span
 
 
 class PairProduct(NamedTuple):
@@ -122,37 +123,49 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
     ``valid``). ``pre_normalised=True`` takes inputs normalised over the
     whole canvas (see :func:`matcher_inputs`); band tiles need it so
     every band shares one radiometry."""
-    n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg,
-                                                  pre_normalised)
-    noise_ratio = None
-    if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
-        noise_ratio = snr_ratio(n1, mask1)
+    dev = rect1.device
+    with span("pair.normalise", dev):
+        n1, n2, v1, v2, mask1, mask2 = matcher_inputs(rect1, rect2, cfg,
+                                                      pre_normalised)
+        noise_ratio = None
+        if cfg.noise_adapt > 0 and cfg.gate_profile != "lr":
+            noise_ratio = snr_ratio(n1, mask1)
 
     if cfg.adapt_band_rows > 0:
         # coarse pass -> tile offsets -> narrow search; disparities come
         # back in global coordinates, photo from the (equivalent) warped
-        # frame
-        res0, res, photo, _ = banded_disparity(n1, n2, v1, v2, cfg,
-                                               noise_ratio=noise_ratio)
+        # frame (refinement runs inside the banded matcher)
+        with span("pair.match", dev):
+            res0, res, photo, _ = banded_disparity(n1, n2, v1, v2, cfg,
+                                                   noise_ratio=noise_ratio)
     else:
-        if cfg.hierarchical:
-            res0 = compute_disparity_hierarchical(
-                n1, n2, v1, v2, cfg, local_disp=cfg.hierarchical_local_disp)
-        else:
-            res0 = compute_disparity(n1, n2, v1, v2, cfg, aggregation="sgm",
-                                     noise_ratio=noise_ratio)
-        res = refine_disparity(res0, n1, cfg)
-        photo = photoconsistency(n1, n2, res.disparity,
-                                 d_min=cfg.min_disparity,
-                                 d_max=cfg.min_disparity + cfg.max_disp - 1,
-                                 stride=cfg.disp_stride)
-    if cfg.gate_profile == "lr":
+        with span("pair.match", dev):
+            if cfg.hierarchical:
+                res0 = compute_disparity_hierarchical(
+                    n1, n2, v1, v2, cfg,
+                    local_disp=cfg.hierarchical_local_disp)
+            else:
+                res0 = compute_disparity(n1, n2, v1, v2, cfg,
+                                         aggregation="sgm",
+                                         noise_ratio=noise_ratio)
+        with span("pair.refine", dev):
+            res = refine_disparity(res0, n1, cfg)
+            photo = photoconsistency(
+                n1, n2, res.disparity, d_min=cfg.min_disparity,
+                d_max=cfg.min_disparity + cfg.max_disp - 1,
+                stride=cfg.disp_stride)
+    with span("pair.finalise", dev):
+        if cfg.gate_profile != "lr":
+            res = _blunder_gates(res0, res, v1, photo, noise_ratio, cfg)
         return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
                                  tri_b, row0, with_plane, ground_percentile,
                                  cap_percentile)
 
-    # blunder gates: speckle, discontinuity band, photoconsistency,
-    # uniqueness
+
+def _blunder_gates(res0, res, v1, photo, noise_ratio, cfg):
+    """The strict profile's blunder gates (speckle, discontinuity band,
+    photoconsistency, uniqueness) and band recovery: ``res`` with its
+    validity gated."""
     med = separable_median_filter(res.disparity, cfg.speckle_median_size)
     speckle_ok = (res.disparity - med).abs() <= cfg.speckle_threshold
     gy, gx = torch.gradient(med)
@@ -193,10 +206,7 @@ def pair_core(rect1: torch.Tensor, rect2: torch.Tensor, tri_M: torch.Tensor,
             band_keep = band_keep & ~binary_dilation(
                 edge, iterations=cfg.band_core_excl)
         gated_valid = gated_valid | band_keep
-    res = res._replace(valid=gated_valid)
-    return _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M,
-                             tri_b, row0, with_plane, ground_percentile,
-                             cap_percentile)
+    return res._replace(valid=gated_valid)
 
 
 def _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M, tri_b,
@@ -277,30 +287,31 @@ class HeightMapPipeline:
         config instead of recomputing it."""
         cfg = stereo_cfg or self.stereo_cfg_for([geom])
         dev = self.device
-        img1 = torch.as_tensor(img1, dtype=torch.float32).to(dev)
-        img2 = torch.as_tensor(img2, dtype=torch.float32).to(dev)
-        H1 = torch.as_tensor(geom.H1, dtype=torch.float32)
-        H2 = torch.as_tensor(geom.H2, dtype=torch.float32)
-        r1, r2 = rectify_arrays(img1, img2, H1, H2, geom.out_shape)
-        M, b = triangulation_operator(geom)
-        M, b = M.to(dev), b.to(dev)
-        kwargs = dict(ground_percentile=self.cfg.height_percentiles[0],
-                      cap_percentile=self.cfg.height_percentiles[1],
-                      with_plane=with_plane)
-        if cache is None:
-            return pair_core(r1, r2, M, b, cfg, **kwargs)
+        with span("pair", dev):
+            with span("pair.rectify", dev):
+                img1 = torch.as_tensor(img1, dtype=torch.float32).to(dev)
+                img2 = torch.as_tensor(img2, dtype=torch.float32).to(dev)
+                H1 = torch.as_tensor(geom.H1, dtype=torch.float32)
+                H2 = torch.as_tensor(geom.H2, dtype=torch.float32)
+                r1, r2 = rectify_arrays(img1, img2, H1, H2, geom.out_shape)
+                M, b = triangulation_operator(geom)
+                M, b = M.to(dev), b.to(dev)
+            kwargs = dict(ground_percentile=self.cfg.height_percentiles[0],
+                          cap_percentile=self.cfg.height_percentiles[1],
+                          with_plane=with_plane)
+            if cache is None:
+                return pair_core(r1, r2, M, b, cfg, **kwargs)
 
-        def compute():
-            out = pair_core(r1, r2, M, b, cfg, **kwargs)
-            return {k: v.cpu().numpy() for k, v in out._asdict().items()}
+            def compute():
+                out = pair_core(r1, r2, M, b, cfg, **kwargs)
+                return {k: v.cpu().numpy() for k, v in out._asdict().items()}
 
-        got = cache.get_or_compute(
-            "pair_core", (repr(cfg), repr(sorted(kwargs.items())),
-                          *(t.cpu().numpy() for t in (r1, r2, M, b))),
-            compute)
-        return PairProduct(**{k: torch.from_numpy(v).to(dev)
-                              for k, v in got.items()})
-
+            got = cache.get_or_compute(
+                "pair_core", (repr(cfg), repr(sorted(kwargs.items())),
+                              *(t.cpu().numpy() for t in (r1, r2, M, b))),
+                compute)
+            return PairProduct(**{k: torch.from_numpy(v).to(dev)
+                                  for k, v in got.items()})
 
 def _gumbel_top_k(product: PairProduct, max_points: int,
                   noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

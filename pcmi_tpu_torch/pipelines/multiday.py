@@ -20,7 +20,6 @@ same seeds, a different draw.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +33,7 @@ from pcmi_tpu_torch.pipelines.height_map import (
     HeightMapPipeline, product_point_cloud)
 from pcmi_tpu_torch.pipelines.streaming import (
     dsm_finalize_multi, dsm_update, empty_dsm)
+from pcmi_tpu_torch.utils.profiling import span
 
 log = logging.getLogger("pcmi_tpu_torch")
 
@@ -113,113 +113,136 @@ def _grid_extent(pts: torch.Tensor, keep: torch.Tensor, cell: float):
 
 class MultiDayFusion:
     """Run the flagship pipeline over the selected pairs on ``device`` and
-    fuse the clouds. After :meth:`run`, :attr:`stage_ms` holds the host
-    time of each stage (the device synchronised at each stage's end)."""
+    fuse the clouds. A run is one span ``aoi`` with a child span per stage
+    (``aoi.geometry``, ``aoi.stereo``, ``aoi.icp``, ``aoi.knn_mask``,
+    ``aoi.dsm``, ``aoi.kmeans``); after a recorded :meth:`run`,
+    :attr:`stage_ms` holds the device time of each stage but geometry."""
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.pipeline = HeightMapPipeline(cfg, device=device)
-        self.stage_ms: Dict[str, float] = {}
+        self._run_span = None
 
     @property
     def device(self) -> torch.device:
         return self.pipeline.device
 
+    @property
+    def stage_ms(self) -> Dict[str, float]:
+        """Device ms of the ``stereo``, ``icp``, ``knn_mask``, ``dsm`` and
+        (with K-means) ``kmeans`` stages of the last recorded run; empty
+        when the last run was not recorded
+        (:func:`pcmi_tpu_torch.utils.profiling.recording`)."""
+        if self._run_span is None:
+            return {}
+        return {s.name[len("aoi."):]: s.device_ms
+                for s in self._run_span.children
+                if s.name in _TIMED_STAGES}
+
     def select(self, metas: Sequence[ImageMeta]):
         return take_pairs(select_pairs(metas, self.cfg.pairs),
                           self.cfg.pairs.n_pairs)
-
-    def _stage(self, name: str, t0: float) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.stage_ms[name] = self.stage_ms.get(name, 0.0) + (t1 - t0) * 1e3
-        return t1
 
     def run(self, images: Sequence, rpcs: Sequence,
             metas: Sequence[ImageMeta], lon_range, lat_range,
             points_per_pair: int = 1 << 17, with_kmeans: bool = False,
             grid_cell: Optional[float] = None, cache=None) -> FusedCloud:
-        self.stage_ms = {}
-        t = time.perf_counter()
-        chosen = self.select(metas)
-        if not chosen:
-            raise ValueError("no valid stereo pairs under the selection config")
-        chosen, geoms = _geometries(self.pipeline, chosen, images, rpcs,
-                                    lon_range, lat_range)
-        if not chosen:
-            raise ValueError("every selected pair failed geometry construction")
-        stereo_cfg = self.pipeline.stereo_cfg_for(geoms)
         dev = self.device
+        with span("aoi", dev) as run_span:
+            self._run_span = run_span
+            with span("aoi.geometry", dev):
+                chosen = self.select(metas)
+                if not chosen:
+                    raise ValueError(
+                        "no valid stereo pairs under the selection config")
+                chosen, geoms = _geometries(self.pipeline, chosen, images,
+                                            rpcs, lon_range, lat_range)
+                if not chosen:
+                    raise ValueError(
+                        "every selected pair failed geometry construction")
+                stereo_cfg = self.pipeline.stereo_cfg_for(geoms)
 
-        # Per-pair failures degrade to a skipped pair, the reference's
-        # semantics; a kernel or build failure is never a per-pair fault
-        # and propagates.
-        clouds, weights = [], []
-        for k, (p, geom) in enumerate(zip(chosen, geoms)):
-            try:
-                product = self.pipeline.process_pair(
-                    images[p.i], images[p.j], geom, stereo_cfg, cache=cache,
-                    with_plane=False)
-            except KernelError:
-                raise
-            except Exception as exc:  # noqa: BLE001 (skipped, logged)
-                log.warning("pair (%d, %d): stereo failed: %s", p.i, p.j, exc)
-                continue
-            pts, w = product_point_cloud(product, max_points=points_per_pair,
-                                         generator=_generator(k, dev))
-            clouds.append(pts)
-            weights.append(w)
-        if not clouds:
-            raise ValueError("every selected pair failed stereo processing")
-        t = self._stage("stereo", t)
+            # Per-pair failures degrade to a skipped pair, the reference's
+            # semantics; a kernel or build failure is never a per-pair
+            # fault and propagates.
+            with span("aoi.stereo", dev, asked=len(chosen)) as stereo:
+                clouds, weights = [], []
+                for k, (p, geom) in enumerate(zip(chosen, geoms)):
+                    try:
+                        product = self.pipeline.process_pair(
+                            images[p.i], images[p.j], geom, stereo_cfg,
+                            cache=cache, with_plane=False)
+                    except KernelError:
+                        raise
+                    except Exception as exc:  # noqa: BLE001 (skipped, logged)
+                        log.warning("pair (%d, %d): stereo failed: %s",
+                                    p.i, p.j, exc)
+                        continue
+                    pts, w = product_point_cloud(
+                        product, max_points=points_per_pair,
+                        generator=_generator(k, dev))
+                    clouds.append(pts)
+                    weights.append(w)
+                stereo.count(fused=len(clouds),
+                             skipped=len(chosen) - len(clouds))
+            if not clouds:
+                raise ValueError(
+                    "every selected pair failed stereo processing")
 
-        fus = self.cfg.fusion
-        subsets = []
-        for k, pts in enumerate(clouds):
-            n = pts.shape[0]
-            seed = 101 if k == 0 else 102 + (k - 1)
-            subsets.append(None if n <= fus.icp_subsample else torch.randperm(
-                n, generator=_generator(seed, dev),
-                device=dev)[:fus.icp_subsample])
-        registered, rmses = register_clouds(clouds, weights, fus, subsets)
-        allpts = torch.cat(registered)
-        allw = torch.cat(weights)
-        t = self._stage("icp", t)
+            fus = self.cfg.fusion
+            with span("aoi.icp", dev):
+                subsets = []
+                for k, pts in enumerate(clouds):
+                    n = pts.shape[0]
+                    seed = 101 if k == 0 else 102 + (k - 1)
+                    subsets.append(
+                        None if n <= fus.icp_subsample else torch.randperm(
+                            n, generator=_generator(seed, dev),
+                            device=dev)[:fus.icp_subsample])
+                registered, rmses = register_clouds(clouds, weights, fus,
+                                                    subsets)
+                allpts = torch.cat(registered)
+                allw = torch.cat(weights)
 
-        keep = pc.knn_outlier_mask(allpts, allw > 0, k=fus.knn_k,
-                                   sigma=fus.knn_sigma, chunk=2048)
-        w_final = (allw > 0) & keep
-        t = self._stage("knn_mask", t)
+            with span("aoi.knn_mask", dev):
+                keep = pc.knn_outlier_mask(allpts, allw > 0, k=fus.knn_k,
+                                           sigma=fus.knn_sigma, chunk=2048)
+                w_final = (allw > 0) & keep
 
-        cell = float(grid_cell if grid_cell is not None else fus.grid_cell)
-        origin, shape = _grid_extent(allpts, w_final, cell)
-        accs, offset = [], 0
-        for pts in registered:
-            n = pts.shape[0]
-            accs.append(dsm_update(
-                empty_dsm(shape, dev), pts[:, :2], pts[:, 2],
-                w_final[offset:offset + n].float(), origin, cell, shape,
-                robust_sigma=fus.knn_sigma))
-            offset += n
-        dsm, cnt, n_pairs_cell = dsm_finalize_multi(accs)
-        t = self._stage("dsm", t)
+            with span("aoi.dsm", dev):
+                cell = float(grid_cell if grid_cell is not None
+                             else fus.grid_cell)
+                origin, shape = _grid_extent(allpts, w_final, cell)
+                accs, offset = [], 0
+                for pts in registered:
+                    n = pts.shape[0]
+                    accs.append(dsm_update(
+                        empty_dsm(shape, dev), pts[:, :2], pts[:, 2],
+                        w_final[offset:offset + n].float(), origin, cell,
+                        shape, robust_sigma=fus.knn_sigma))
+                    offset += n
+                dsm, cnt, n_pairs_cell = dsm_finalize_multi(accs)
 
-        centroids = None
-        if with_kmeans:
-            centroids = pc.kmeans(allpts, w_final.float(),
-                                  k=fus.kmeans_clusters,
-                                  iters=fus.kmeans_iters,
-                                  generator=_generator(0, dev)).centroids
-            self._stage("kmeans", t)
+            centroids = None
+            if with_kmeans:
+                with span("aoi.kmeans", dev):
+                    centroids = pc.kmeans(allpts, w_final.float(),
+                                          k=fus.kmeans_clusters,
+                                          iters=fus.kmeans_iters,
+                                          generator=_generator(0, dev)
+                                          ).centroids
 
-        return FusedCloud(
-            points=allpts, weights=w_final.float(),
-            dsm=torch.from_numpy(dsm), dsm_count=torch.from_numpy(cnt),
-            grid_origin=origin, grid_cell=cell, icp_rmse=torch.stack(rmses),
-            kmeans_centroids=centroids,
-            n_pairs_per_cell=torch.from_numpy(n_pairs_cell))
+            return FusedCloud(
+                points=allpts, weights=w_final.float(),
+                dsm=torch.from_numpy(dsm), dsm_count=torch.from_numpy(cnt),
+                grid_origin=origin, grid_cell=cell,
+                icp_rmse=torch.stack(rmses), kmeans_centroids=centroids,
+                n_pairs_per_cell=torch.from_numpy(n_pairs_cell))
+
+
+_TIMED_STAGES = ("aoi.stereo", "aoi.icp", "aoi.knn_mask", "aoi.dsm",
+                 "aoi.kmeans")
 
 
 def fused_consistency_dsm(images: Sequence, rpcs: Sequence,

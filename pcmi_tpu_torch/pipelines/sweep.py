@@ -1,7 +1,8 @@
 """Multi-AOI sweep (port of ``pcmi_tpu/pipelines/sweep.py``).
 
-Runs the multi-day fusion over a list of AOIs, each under a profiling
-scope ``aoi:<name>``, with an optional content-addressed stage cache, so
+Runs the multi-day fusion over a list of AOIs, each under a span
+``sweep.aoi`` counting the AOI's name, with an optional content-addressed
+stage cache, so
 an interrupted sweep resumes: a pair whose rectified inputs and config
 are cached is not recomputed. AOIs are independent.
 """
@@ -17,7 +18,7 @@ from pcmi_tpu_torch.config import PipelineConfig
 from pcmi_tpu_torch.geometry.pairs import ImageMeta
 from pcmi_tpu_torch.pipelines.multiday import FusedCloud, MultiDayFusion
 from pcmi_tpu_torch.utils.cache import StageCache
-from pcmi_tpu_torch.utils.profiling import scope
+from pcmi_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -52,7 +53,7 @@ class MultiAOISweep:
             with_kmeans: bool = True) -> SweepResult:
         out = SweepResult()
         for aoi in aois:
-            with scope(f"aoi:{aoi.name}"):
+            with span("sweep.aoi", self.fusion.device, aoi=aoi.name):
                 fused = self.fusion.run(
                     aoi.images, aoi.rpcs, aoi.metas,
                     aoi.lon_range, aoi.lat_range,

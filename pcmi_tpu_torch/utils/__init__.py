@@ -1,13 +1,12 @@
-"""Profiling, logging and debug-image helpers of the port
-(``pcmi_tpu/utils/__init__.py``'s exports)."""
+"""Tracing, logging and debug-image helpers of the port."""
 
 from pcmi_tpu_torch.utils.profiling import (
     device_trace,
-    dump_stats,
-    reset_stats,
-    scope,
+    profiler_offset_ns,
+    recording,
     setup_logging,
-    stats,
+    span,
+    spans,
 )
 from pcmi_tpu_torch.utils.visualize import (
     normalise_for_display,
@@ -24,9 +23,9 @@ __all__ = [
     "save_image",
     "turbo_colormap",
     "device_trace",
-    "dump_stats",
-    "reset_stats",
-    "scope",
+    "profiler_offset_ns",
+    "recording",
     "setup_logging",
-    "stats",
+    "span",
+    "spans",
 ]

@@ -9,6 +9,7 @@ reference's writer (``tests/_torch_ntf.py``).
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -207,21 +208,23 @@ def test_c8_acquisitions_through_ingest(tmp_path, ntf_dir):
 def test_sweep_resumes_from_the_stage_cache(ntf_dir, tmp_path):
     """``MultiAOISweep`` over the ingested stack as two AOIs with a
     ``StageCache``: the second AOI and the whole second run hit the cache
-    (no pair is recomputed), the DSM is identical, each AOI is timed
-    under an ``aoi:`` scope, and the DSM meets ``tests/test_ingest.py``'s
-    gates against the terrain."""
+    (no pair is recomputed), the DSM is identical, each AOI of a recorded
+    run is one ``sweep.aoi`` span counting the AOI's name, and the DSM
+    meets ``tests/test_ingest.py``'s gates against the terrain."""
     d, scene, _ = ntf_dir
     acqs = ting.discover_acquisitions(str(d))
     images, rpcs, metas, lon_r, lat_r = ting.prepare_aoi_stack(
         acqs, kml_path=str(d / "aoi.kml"), pad=4, align=16)
     aois = [AOISpec(name, images, rpcs, metas, lon_r, lat_r)
             for name in ("site_a", "site_b")]
-    profiling.reset_stats()
     sweep = MultiAOISweep(CFG, cache_dir=str(tmp_path / "stage"),
                           device="cpu")
     assert sweep.fusion.device == torch.device("cpu")
-    first = sweep.run(aois, points_per_pair=1 << 14, grid_cell=2.0,
-                      with_kmeans=False)
+    t0 = time.perf_counter()
+    with profiling.recording():
+        first = sweep.run(aois, points_per_pair=1 << 14, grid_cell=2.0,
+                          with_kmeans=False)
+    t1 = time.perf_counter()
     assert (sweep.cache.misses, sweep.cache.hits) == (1, 1)
     again = sweep.run(aois[:1], points_per_pair=1 << 14, grid_cell=2.0,
                       with_kmeans=False)
@@ -230,7 +233,10 @@ def test_sweep_resumes_from_the_stage_cache(ntf_dir, tmp_path):
     np.testing.assert_array_equal(a.dsm.numpy(), b.dsm.numpy())
     np.testing.assert_array_equal(a.dsm.numpy(),
                                   first.fused["site_b"].dsm.numpy())
-    assert {"aoi:site_a", "aoi:site_b"} <= set(profiling.stats())
+    swept = [s for s in profiling.spans(t0, t1) if s.name == "sweep.aoi"]
+    assert [s.counts["aoi"] for s in swept] == ["site_a", "site_b"]
+    assert all(s.parent is None and [c.name for c in s.children] == ["aoi"]
+               for s in swept)
     st = first.stats["site_a"]
     assert st["points"] > 1000 and st["dsm_filled"] > 0.05
     assert st["icp_rmse_max"] == 0.0  # one pair: nothing to register

@@ -39,6 +39,7 @@ from pcmi_tpu_torch.pipelines import multiday as tmd
 from pcmi_tpu_torch.pipelines import streaming as tst
 from pcmi_tpu_torch.pipelines.evaluation import pair_observability
 from pcmi_tpu_torch.utils.cache import StageCache
+from pcmi_tpu_torch.utils.profiling import recording
 
 torch.set_num_threads(1)
 
@@ -358,9 +359,10 @@ def test_multiday_fusion_statistical(scenes):
                                       *aoi_lonlat_ranges(scene), **run)
     fusion = tmd.MultiDayFusion(convert.config_from_reference(cfg),
                                 device="cpu")
-    got = fusion.run(tscene.images, tscene.rpcs,
-                     convert.metas_from_reference(metas), *port_aoi(tscene),
-                     **run)
+    with recording():
+        got = fusion.run(tscene.images, tscene.rpcs,
+                         convert.metas_from_reference(metas),
+                         *port_aoi(tscene), **run)
     assert got.icp_rmse.shape == (3,) and float(got.icp_rmse[0]) == 0.0
     assert float(got.icp_rmse.max()) < 2.0
     assert got.kmeans_centroids.shape == (64, 3)
