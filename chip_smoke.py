@@ -7,8 +7,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch,
    CUDA and nvcc versions;
-2. build: the six CUDA kernels from ``pcmi_tpu_torch/csrc`` (one nvcc per
+2. build: the CUDA kernels from ``pcmi_tpu_torch/csrc`` (one nvcc per
    source, all started together, then one link);
+2b. the cost volume: the census kernel and K7 ``cost_volume`` bit-identical
+   to their plain versions on the card (``phase_cost_volume``): census
+   windows 3/5/7; ``build_cost_volume`` for every census window 3/5/7,
+   block 1/3/15 and stride 1/2/4 (the box form) and blocks 4 and 17 (the
+   generic form), float32 and bfloat16, on an awkward (37, 141) pair at a
+   signed search from -24, one K7 and two census launches each; the
+   banded matcher's three ``row_shift`` forms (per row, per pixel, 47-px
+   chunks); D = 288 at 896x896 and 1280x1280 for census 7, block 15 (the
+   main volume) and census 3, block 3 (the checker's), each K7's ms beside
+   its bound (``cost_volume_bound``) and the plain version's ms, and the
+   census kernel's beside the plain census's;
 3. kernel parity: K1 ``sgm_dir`` and K4 ``sgm_hwd`` (all four directions,
    forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
    (both directions, with and without ``prev``) bit-exact against their
@@ -211,7 +222,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     step; a checkpoint round trip of the stepped detector's ``(net,
     opt)`` (bit-equal, the template untouched, a step from it finite).
 
-The last lines are a summary of phases 7b-15 (under 1500 characters;
+The last lines are a summary of phases 2b and 7b-15 (under 1500 characters;
 each phase prints its full line above), a JSON object with each kernel's
 numbers (``{"kernels": [...]}``; under ``bf16`` the bfloat16 form's
 launches on the bfloat16 headline pair or layouts run, and its error,
@@ -249,7 +260,9 @@ KERNELS = {  # name: (source, the TPU kernels it replaces)
     "derive_right_wdh": ("pcmi_tpu_torch/csrc/derive_right_wdh.cu",
                          f"{_PK}:829"),
 }
-NONE = dict.fromkeys(KERNELS, 0)
+# K7 and the census kernel (csrc/cost_volume.cu) replace no TPU kernel:
+# the reference builds the volume in XLA
+NONE = dict.fromkeys((*KERNELS, "cost_volume", "census"), 0)
 # The card's published peaks (H100 SXM): HBM bytes/s and float32 operations/s
 # outside the tensor cores. A kernel's bound is the larger of its bytes
 # (each input read once, each output written once) and its operations over
@@ -299,14 +312,19 @@ RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
 # 600 and 1024 planes (8 bands: blocks of 16 lanes, or 8 with `prev`)
 RAGGED_BLOCKED = ((1, 3, 8), (3, 13, 40), (2, 21, 300), (1, 37, 37),
                   (1, 9, 600), (8, 3, 1024))
-PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1}
+# two volumes a pair (the main one and the census cross-checker's), each
+# of two census launches and one of K7
+PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1,
+            "cost_volume": 2, "census": 4}
 # the vertical cross-checker adds its 2 vertical directions
 PER_DENSE_PAIR = {**PER_PAIR, "sgm_dir": 8}
 # the banded matcher: the coarse pass (derived right view, no checker:
-# 4 sgm_dir, 2 wta, 1 derive_right) and the narrow main path; the
-# hierarchical one: two main paths
-PER_BANDED_PAIR = {**PER_PAIR, "sgm_dir": 10, "wta": 5, "derive_right": 2}
-PER_HIER_PAIR = {**PER_PAIR, "sgm_dir": 12, "wta": 6, "derive_right": 2}
+# 4 sgm_dir, 2 wta, 1 derive_right, one volume) and the narrow main path;
+# the hierarchical one: two main paths
+PER_BANDED_PAIR = {**PER_PAIR, "sgm_dir": 10, "wta": 5, "derive_right": 2,
+                   "cost_volume": 3, "census": 6}
+PER_HIER_PAIR = {**PER_PAIR, "sgm_dir": 12, "wta": 6, "derive_right": 2,
+                 "cost_volume": 4, "census": 8}
 
 
 def _run(cmd: list[str]) -> str:
@@ -578,6 +596,150 @@ def phase_parity(shape, stride: int, seed: int,
     if not ok:
         raise SystemExit(f"kernel parity failed at {shape} in {_name(dtype)}")
     return res
+
+
+# K7 against its plain version: every (census window, block, stride) of
+# 3/5/7 x 1/3/15 x 1/2/4 on an awkward (37, 141) pair at D = 48 / stride
+# (a ragged last tile and disparity group), and blocks 4 and 17 (the
+# generic form), in float32 and bfloat16; the
+# three row_shift forms of the banded matcher; then the cells' D = 288
+# volumes (census 7, block 15 and the checker's census 3, block 3) at 896
+# and 1280 px, timed beside their bound and the plain version
+CV_SMALL = (37, 141)
+CV_CELLS = ((288, 896, 896), (288, 1280, 1280))
+CV_FORMS = ((7, 15), (3, 3))
+
+
+def cost_volume_bound(shape, block: int, esize: int = 4) -> tuple[float, str]:
+    """K7's least time in ms for a (D, H, W) volume: its one write (and
+    eight (H, W) input planes read once) over the card's bytes per second,
+    or ~12 operations per raw cost and 2 * (block - 1) + 2 per box mean
+    over its float32 rate, whichever is larger."""
+    D, H, W = shape
+    t_bytes = (D * H * W * esize + 8 * H * W * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (12 + 2 * block) * D * H * W / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cv_pair(gen, h: int, w: int):
+    """A quantised left image (many equal census neighbours), the right
+    one a noisy shift of it, and masks with holes."""
+    left = torch.floor(torch.rand((h, w), generator=gen, device="cuda")
+                       * 8) / 8
+    right = torch.roll(left, 5, 1) + 0.02 * torch.randn(
+        (h, w), generator=gen, device="cuda")
+    vl = torch.rand((h, w), generator=gen, device="cuda") > 0.1
+    vr = torch.rand((h, w), generator=gen, device="cuda") > 0.1
+    return left, right, vl, vr
+
+
+def _cv_plain(left, right, vl, vr, cfg, row_shift=None, pad=0, chunk=1):
+    """The plain version of ``build_cost_volume`` on the card: the plain
+    census, ``shift_rows`` and the plain volume."""
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo.matching import cost_dtype, shift_rows
+
+    cw = cfg.census_window
+    cl, cr = K.census_plain(left, cw), K.census_plain(right, cw)
+    if row_shift is not None:
+        right = shift_rows(right, row_shift, pad, 0.0, chunk=chunk)
+        vr = shift_rows(vr.bool(), row_shift, pad, False, chunk=chunk)
+        cr = tuple(shift_rows(c, row_shift, pad, 0, chunk=chunk) for c in cr)
+    return K.cost_volume_plain(
+        left, cl, vl, right, cr, vr, cfg.min_disparity,
+        cfg.max_disp // cfg.disp_stride, cfg.disp_stride, cfg.block_size, cw,
+        cfg.ad_weight, cost_dtype(cfg))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(iv), b.view(iv))
+
+
+def phase_cost_volume() -> dict:
+    """K7 ``cost_volume`` and the census kernel bit-identical to their
+    plain versions on the card (:data:`CV_SMALL`, :data:`CV_CELLS`), each
+    ``build_cost_volume`` one K7 and two census launches; at the cells'
+    shapes each kernel's ms beside its bound and the plain version's."""
+    from pcmi_tpu_torch.config import StereoConfig
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+    from pcmi_tpu_torch.ops.stereo.matching import build_cost_volume
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bad, cases = [], 0
+    left, right, vl, vr = _cv_pair(gen, *CV_SMALL)
+    for window in (3, 5, 7):
+        cases += 1
+        got, ref = K.census(left, window), K.census_plain(left, window)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            bad.append(f"census {window}")
+    forms = list(itertools.product((3, 5, 7), (1, 3, 15), (1, 2, 4),
+                                   ("float32", "bfloat16")))
+    # the generic form: an even block and one past the box form's 15
+    forms += itertools.product((5,), (4, 17), (1, 2), ("float32", "bfloat16"))
+    for cw, block, stride, dt in forms:
+        cfg = StereoConfig(max_disp=48, block_size=block, census_window=cw,
+                           disp_stride=stride, cost_dtype=dt)
+        K.reset_launches()
+        got = build_cost_volume(left, right, vl, vr, cfg)
+        cases += 1
+        if (K.LAUNCHES["cost_volume"], K.LAUNCHES["census"]) != (1, 2):
+            bad.append(f"launches {cw}/{block}/{stride}/{dt}")
+        if not _bits_equal(got, _cv_plain(left, right, vl, vr, cfg)):
+            bad.append(f"volume {cw}/{block}/{stride}/{dt}")
+    h, w = CV_SMALL
+    shifts = {"row": (torch.randint(-6, 7, (h,), generator=gen,
+                                    device="cuda"), 1),
+              "pixel": (torch.randint(-6, 7, (h, w), generator=gen,
+                                      device="cuda"), 1),
+              "chunk": (torch.randint(-6, 7, (h, w // 47), generator=gen,
+                                      device="cuda"), 47)}
+    for form, (sh, chunk) in shifts.items():
+        for dt in ("float32", "bfloat16"):
+            cfg = StereoConfig(max_disp=32, block_size=15, census_window=7,
+                               cost_dtype=dt)
+            got = build_cost_volume(left, right, vl, vr, cfg, row_shift=sh,
+                                    row_shift_pad=6, row_shift_chunk=chunk)
+            cases += 1
+            if not _bits_equal(got, _cv_plain(left, right, vl, vr, cfg, sh,
+                                              6, chunk)):
+                bad.append(f"row_shift {form}/{dt}")
+    timed = {}
+    for (D, H, W), (cw, block) in itertools.product(CV_CELLS, CV_FORMS):
+        left, right, vl, vr = _cv_pair(gen, H, W)
+        cfg = StereoConfig(max_disp=D, block_size=block, census_window=cw)
+        got = build_cost_volume(left, right, vl, vr, cfg)
+        ref = _cv_plain(left, right, vl, vr, cfg)
+        cases += 1
+        if not _bits_equal(got, ref):
+            bad.append(f"cell {H}/{cw}/{block}: "
+                       f"{int((got != ref).sum())} elements differ")
+        del got, ref
+        cl, cr = K.census(left, cw), K.census(right, cw)
+        kw = dict(d_min=cfg.min_disparity, planes=D, stride=1, block=block,
+                  census_window=cw, ad_weight=cfg.ad_weight)
+        b_ms, b_by = cost_volume_bound((D, H, W), block)
+        timed[f"{H}/{cw}/{block}"] = dict(
+            ms=_median_ms(lambda: K.cost_volume(left, cl, vl, right, cr, vr,
+                                                **kw), 10),
+            bound_ms=b_ms, bound_by=b_by,
+            plain_ms=_median_ms(lambda: K.cost_volume_plain(
+                left, cl, vl, right, cr, vr, kw["d_min"], D, 1, block, cw,
+                cfg.ad_weight, torch.float32), 3),
+            census_ms=_median_ms(lambda: K.census(left, cw), 10),
+            census_plain_ms=_median_ms(lambda: K.census_plain(left, cw), 3))
+        timed[f"{H}/{cw}/{block}"]["share"] = (
+            b_ms / timed[f"{H}/{cw}/{block}"]["ms"])
+        del cl, cr
+        torch.cuda.empty_cache()
+    out = dict(cases=cases, bad=bad, timed=timed)
+    print("cost_volume:", json.dumps(out))
+    if bad:
+        raise SystemExit(f"cost_volume: {len(bad)} of {cases} cases differ "
+                         f"from the plain versions: {bad[:8]}")
+    return out
 
 
 def _wta_all_forms(a, b, d_min: int, stride: int) -> list:
@@ -1075,8 +1237,8 @@ def phase_variants(ctx) -> dict:
     # diagonal: K2 writes the aggregate, so no combine pass, no derive and
     # no second WTA
     der, dia = (report[k]["launches"] for k in ("derived", "diagonal"))
-    if dia != {"sgm_dir": 4, "wta": der["wta"] - 1} or der.get(
-            "derive_right") != 1:
+    if dia != {"sgm_dir": 4, "wta": der["wta"] - 1, "cost_volume": 2,
+               "census": 4} or der.get("derive_right") != 1:
         raise SystemExit(f"variants: launches derived {der}, diagonal {dia}")
     return report
 
@@ -3681,6 +3843,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     phase_ragged()
+    cv = phase_cost_volume()
     par = [phase_parity(shape, stride, seed=i)
            for i, (shape, stride) in enumerate(SHAPES)]
     par16 = [phase_parity(shape, stride, seed=i, dtype=torch.bfloat16)
@@ -3722,6 +3885,8 @@ def main() -> int:
     # the phases' own lines above carry every field and digit; these lines
     # stay short for readers of the output's tail
     summary = {
+        # K7's ms and bound per (size, census, block); plain ms in 2b's line
+        "cv": [[v["ms"], v["bound_ms"]] for v in cv["timed"].values()],
         "fused_d288": {
             "rmse_m": fused["rmse_m"], "comp": fused["completeness"],
             "obs2": fused["completeness_obs2"],

@@ -4,7 +4,8 @@ with the headers ``*.cuh`` they share).
 Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
 started together, and the objects are linked into one shared library with
 a plain C interface, bound with :mod:`ctypes`; the entry points of K1, K2,
-K3, K5 and K6 take the element type (float32 or bfloat16) as an argument. The build runs at first use,
+K3, K5, K6 and K7 take the element type (float32 or bfloat16) as an
+argument. The build runs at first use,
 from the sources in the checkout only, into ``build/pcmi_tpu_torch/``
 beside the package; the file name carries a hash of the sources, headers
 and flags, so an edited source or header rebuilds and an unchanged tree
@@ -146,5 +147,10 @@ def load() -> ctypes.CDLL:
     lib.pcmi_sgm_blocked_max_disp.restype = i
     lib.pcmi_derive_right_wdh.argtypes = [p, p, i, i, i, i, i, i, i, f, i, p]
     lib.pcmi_derive_right_wdh.restype = i
+    lib.pcmi_census.argtypes = [p, p, p, i, i, i, p]
+    lib.pcmi_census.restype = i
+    lib.pcmi_cost_volume.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     i, i, f, i, i, i, i, p]
+    lib.pcmi_cost_volume.restype = i
     _LIB = lib
     return lib

@@ -20,9 +20,14 @@ their wrappers.
 * K6 ``derive_right_wdh``: right-view volume in the padded (Wp, Dp, Hp)
   layout; replaces ``derive_right_wdh_pallas`` /
   ``_make_derive_wdh_kernel``. Source ``csrc/derive_right_wdh.cu``.
+* K7 ``cost_volume``: the box-aggregated census+AD cost volume, written
+  once; and ``census``, the census transform of one image. No TPU kernel:
+  the reference builds both in XLA (``matching.build_cost_volume``).
+  Source ``csrc/cost_volume.cu``.
 
-Each wrapper takes contiguous float32 or bfloat16 tensors (all tensors of
-one call the same; K4 float32 only, as its TPU kernel), on any device, and
+Each wrapper of K1-K6 takes contiguous float32 or bfloat16 tensors (all
+tensors of one call the same; K4 float32 only, as its TPU kernel), on any
+device, and
 raises (``TypeError`` for another dtype, ``ValueError`` for a wrong shape or
 layout) before it runs anything. A tensor on the CPU then goes through the
 kernel's plain PyTorch version; a CUDA tensor launches the kernel on the
@@ -40,12 +45,13 @@ operands already rounded, the sum rounded again). ``BIG`` and ``fill``
 take the stored dtype's value where they are stored (998244352 and, for
 ``fill=1e4``, 9984 in bfloat16). Each source file
 notes what bounds its kernel on the card and what its design does about it.
-K1-K3 run on the matcher's main path; K4-K6 behind the alternative-layout
-entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`. K1 and K5 are one
+K1-K3, K7 and the census run on the matcher's main path; K4-K6 behind the
+alternative-layout entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`. K1 and K5 are one
 tile kernel (``csrc/sgm_tile.cuh``) under two sets of strides, and K4 uses
 its scan step; each has a launch plan here (:func:`sgm_dir_plan`,
-:func:`sgm_blocked_plan`, :func:`sgm_hwd_plan`) that the CPU tests check
-against the card's shared memory.
+:func:`sgm_blocked_plan`, :func:`sgm_hwd_plan`, and K7's
+:func:`cost_volume_plan`) that the CPU tests check against the card's
+shared memory.
 """
 
 from __future__ import annotations
@@ -53,13 +59,15 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from pcmi_tpu_torch.ops.stereo._build import KernelError
 
 BIG = 1e9  # the reference's "no neighbour" / "never wins" value
 
 LAUNCHES = {"sgm_dir": 0, "wta": 0, "derive_right": 0, "sgm_hwd": 0,
-            "sgm_blocked": 0, "derive_right_wdh": 0}
+            "sgm_blocked": 0, "derive_right_wdh": 0, "cost_volume": 0,
+            "census": 0}
 
 
 def reset_launches() -> None:
@@ -568,3 +576,302 @@ def derive_right_wdh(vol: torch.Tensor, d_real: int, w: int, d_min: int,
     _check("derive_right_wdh", rc)
     LAUNCHES["derive_right_wdh"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7 cost_volume and the census transform
+# ---------------------------------------------------------------------------
+
+
+def _popcount24(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int32 values below 2**24 (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x + (x >> 8) + (x >> 16)) & 0xFF
+
+
+def _edge_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
+    """Edge-replicate ``r`` elements on both ends of ``axis`` (-1 or -2) of
+    an (..., H, W) tensor."""
+    shape = x.shape
+    x3 = x.reshape(-1, shape[-2], shape[-1])
+    widths = (r, r, 0, 0) if axis == -1 else (0, 0, r, r)
+    out = F.pad(x3, widths, mode="replicate")
+    return out.reshape(*shape[:-2], *out.shape[-2:])
+
+
+def census_plain(img: torch.Tensor, window: int = 7):
+    """Census transform into two int32 planes of 24 neighbour bits each
+    (the reference's uint32 planes, same bit order): bit ``idx`` is
+    ``neighbour < centre`` for the window's neighbours in row-major order
+    without the centre, at edge-replicated coordinates; bits 0-23 in the
+    first plane, the rest in the second."""
+    h, w = img.shape
+    r = window // 2
+    padded = _edge_pad(_edge_pad(img, r, -1), r, -2)
+    bits0 = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+    bits1 = torch.zeros_like(bits0)
+    idx = 0
+    for dy in range(window):
+        for dx in range(window):
+            if dy == r and dx == r:
+                continue
+            bit = (padded[dy:dy + h, dx:dx + w] < img).to(torch.int32)
+            if idx < 24:
+                bits0 = bits0 | (bit << idx)
+            else:
+                bits1 = bits1 | (bit << (idx - 24))
+            idx += 1
+    return bits0, bits1
+
+
+def _sliding_sum(padded: torch.Tensor, k: int, axis: int,
+                 out_len: int) -> torch.Tensor:
+    """Length-``k`` sliding sum along ``axis`` by log-doubling, with the
+    reference's add order: ``out[i] = sum_{j<k} padded[i+j]``."""
+    sums = {1: padded}
+    w = 1
+    while 2 * w <= k:
+        a = sums[w]
+        n = a.shape[axis]
+        sums[2 * w] = a.narrow(axis, 0, n - w) + a.narrow(axis, w, n - w)
+        w *= 2
+    acc = None
+    off = 0
+    for w in sorted(sums, reverse=True):
+        while off + w <= k:
+            sl = sums[w].narrow(axis, off, out_len)
+            acc = sl if acc is None else acc + sl
+            off += w
+    return acc
+
+
+def _check_census_window(window: int) -> None:
+    if window > 7 or window < 3 or window % 2 == 0:
+        raise ValueError(
+            f"census_window must be an odd value in [3, 7] (got {window}): "
+            f"two 24-bit planes hold at most 48 neighbour bits")
+
+
+def census(img: torch.Tensor, window: int = 7):
+    """Census wrapper: see :func:`census_plain` for the semantics. On the
+    card ``img`` must be float32: one launch of ``census_kernel``."""
+    _check_census_window(window)
+    if img.dim() != 2:
+        raise ValueError(f"census: expected (H, W), got {tuple(img.shape)}")
+    if img.device.type == "cpu":
+        return census_plain(img, window)
+    img = img.contiguous()
+    _on_cuda("census", img, dtypes=(torch.float32,))
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    h, w = img.shape
+    bits0 = torch.empty((h, w), dtype=torch.int32, device=img.device)
+    bits1 = torch.empty_like(bits0)
+    rc = lib.pcmi_census(img.data_ptr(), bits0.data_ptr(), bits1.data_ptr(),
+                         h, w, int(window), _stream())
+    _check("census", rc)
+    LAUNCHES["census"] += 1
+    return bits0, bits1
+
+
+def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
+    """Edge-padded mean filter over the last two axes (rows, then
+    columns)."""
+    r = block // 2
+    out = img
+    for axis in (-2, -1):
+        padded = _edge_pad(out, r, axis)
+        out = _sliding_sum(padded, block, axis, out.shape[axis]) / block
+    return out
+
+
+_COST_CHUNK = 16
+
+
+def cost_volume_plain(left: torch.Tensor, census_l, valid_l: torch.Tensor,
+                      right: torch.Tensor, census_r, valid_r: torch.Tensor,
+                      d_min: int, planes: int, stride: int, block: int,
+                      census_window: int, ad_weight: float,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """(D, H, W) box-aggregated census+AD matching cost of ``planes``
+    disparities ``d_min + i * stride``, computed in float32 and stored in
+    ``dtype`` (one rounding per chunk): the ``block`` x ``block``
+    edge-padded mean (:func:`_box_edge`) of
+    ``(1 - ad_weight) * hamming / n_census + ad_weight * min(|l - r|, 0.5)
+    / 0.5``, 1.0 where ``valid_l`` or the right pixel's ``valid_r`` is
+    false or the right pixel ``x - d`` lies outside the image.
+    ``census_l`` and ``census_r`` are :func:`census` planes. Disparities
+    are processed ``_COST_CHUNK`` at a time into a preallocated volume,
+    which bounds the temporaries to a few chunk-sized tensors."""
+    h, w = left.shape
+    dev = left.device
+    n_census = census_window ** 2 - 1
+    cl0, cl1 = census_l
+    cr0, cr1 = census_r
+    # the matcher's signed range [-D*s/2, D*s/2): max_disp // 2 + 1
+    pad = max(abs(d_min), abs(d_min + (planes - 1) * stride)) + 1
+
+    def windows(plane):
+        """(H, 2*pad+1, W) view: window j is plane shifted by pad - j."""
+        return F.pad(plane, (pad, pad)).unfold(1, w, 1)
+
+    rp, vp = windows(right), windows(valid_r.to(torch.uint8))
+    c0p, c1p = windows(cr0), windows(cr1)
+    valid_l = valid_l.bool()
+    ds = torch.arange(0, planes * stride, stride, device=dev) + d_min
+    vol = torch.empty((len(ds), h, w), dtype=dtype, device=dev)
+    for i0 in range(0, len(ds), _COST_CHUNK):
+        starts = pad - ds[i0:i0 + _COST_CHUNK]
+
+        def take(p):
+            return p[:, starts].transpose(0, 1)   # (k, H, W)
+
+        ham = (_popcount24(cl0 ^ take(c0p))
+               + _popcount24(cl1 ^ take(c1p))).float()
+        census_cost = ham / n_census
+        ad = torch.clamp((left - take(rp)).abs(), max=0.5) / 0.5
+        cost = (1.0 - ad_weight) * census_cost + ad_weight * ad
+        cost = torch.where(valid_l & take(vp).bool(), cost,
+                           torch.ones_like(cost))
+        vol[i0:i0 + len(starts)] = _box_edge(cost, block)
+    return vol
+
+
+_CV_THREADS_X = 32             # csrc/cost_volume.cu: kTx
+_CV_TABLE_PAD = 64             # csrc/cost_volume.cu: kTablePad
+_CV_GROUP = 16                 # disparities per block
+_CV_TWO_BLOCKS = SMEM_BLOCK_MAX // 2 - 1024   # two blocks on one SM
+# csrc/cost_volume.cu: the block sizes of the box form and its tile
+CV_BOX_SIZES = (1, 3, 5, 7, 9, 11, 13, 15)
+CV_BOX_TILE = (32, 128)
+_CV_BOX_PLANES = 2             # csrc/cost_volume.cu: kNB
+
+
+class CostVolumePlan(NamedTuple):
+    """K7's launch plan: tiles of ``tile_h`` x ``tile_w`` output pixels,
+    ``group`` disparities per block, ``smem`` bytes of shared memory per
+    block, a grid of ``grid`` (x, y, z) blocks; ``box`` for the form of
+    the odd block sizes up to 15 (means in registers), else the generic
+    form (levels in shared memory)."""
+    box: bool
+    tile_h: int
+    tile_w: int
+    group: int
+    smem: int
+    grid: tuple
+
+
+def cost_volume_smem(block: int, tile_h: int, tile_w: int,
+                     box: bool = False) -> int:
+    """Shared memory of one K7 block (``pcmi_cost_volume``): the census
+    table, then in the box form the haloed tile's raw costs of two
+    disparities (each (tile_h + block - 1) x (tile_w + block - 1) floats)
+    and the rows' means (tile_h rows of an odd pitch); in the generic form ``floor(log2(block)) + 1``
+    levels of the haloed tile and the rows' means (tile_h x (tile_w +
+    block - 1))."""
+    ew = tile_w + block - 1
+    if box:
+        return 4 * (_CV_TABLE_PAD + _CV_BOX_PLANES * (tile_h + block - 1) * ew
+                    + tile_h * (ew | 1))
+    return 4 * (_CV_TABLE_PAD + block.bit_length() * (tile_h + block - 1) * ew
+                + tile_h * ew)
+
+
+def cost_volume_plan(D: int, H: int, W: int, block: int) -> CostVolumePlan:
+    """K7's launch plan for a (D, H, W) volume and a ``block`` x ``block``
+    box. The box form (:data:`CV_BOX_SIZES`) takes tiles of 32 x 128. The
+    generic form takes haloed tiles whose rows are whole warps
+    (``tile_w + block - 1`` the least multiple of 32 that leaves at least 64
+    output columns), and the most rows (32, 16, ... 1) whose shared memory
+    lets two blocks share an SM, else the most that fit one block."""
+    if D < 1 or H < 1 or W < 1 or block < 1:
+        raise ValueError(f"cost_volume: no plan for D={D}, H={H}, W={W}, "
+                         f"block={block}")
+
+    def plan(box, th, tw, smem):
+        return CostVolumePlan(box, th, tw, _CV_GROUP, smem,
+                              (-(-W // tw), -(-H // th), -(-D // _CV_GROUP)))
+
+    if block in CV_BOX_SIZES:
+        th, tw = CV_BOX_TILE
+        return plan(True, th, tw, cost_volume_smem(block, th, tw, box=True))
+    ew = -(-(64 + block - 1) // _CV_THREADS_X) * _CV_THREADS_X
+    tw = ew - (block - 1)
+    for limit in (_CV_TWO_BLOCKS, SMEM_BLOCK_MAX):
+        for th in (32, 16, 8, 4, 2, 1):
+            smem = cost_volume_smem(block, th, tw)
+            if smem <= limit:
+                return plan(False, th, tw, smem)
+    raise ValueError(f"cost_volume: no launch plan fits block={block}")
+
+
+_CENSUS_TABLES: dict = {}
+
+
+def _census_table(device: torch.device, census_window: int,
+                  ad_weight: float) -> torch.Tensor:
+    """``(1 - ad_weight) * (h / n_census)`` for h = 0..48, made on
+    ``device`` with :func:`cost_volume_plain`'s own two operations (so
+    with that device's rounding), once per device and weights."""
+    key = (device, census_window, float(ad_weight))
+    table = _CENSUS_TABLES.get(key)
+    if table is None:
+        n_census = census_window ** 2 - 1
+        ham = torch.arange(49, dtype=torch.float32, device=device)
+        table = (1.0 - ad_weight) * (ham / n_census)
+        _CENSUS_TABLES[key] = table
+    return table
+
+
+def cost_volume(left: torch.Tensor, census_l, valid_l: torch.Tensor,
+                right: torch.Tensor, census_r, valid_r: torch.Tensor, *,
+                d_min: int, planes: int, stride: int, block: int,
+                census_window: int, ad_weight: float,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K7 wrapper: see :func:`cost_volume_plain` for the semantics. On the
+    card the images are float32 and the census planes int32 (``dtype``
+    float32 or bfloat16): one launch, which writes the volume once."""
+    _check_census_window(census_window)
+    if left.dim() != 2 or any(t.shape != left.shape for t in (
+            right, valid_l, valid_r, *census_l, *census_r)):
+        raise ValueError("cost_volume: expected (H, W) images, census planes "
+                         "and masks of one shape")
+    if planes < 1:
+        raise ValueError(f"cost_volume: planes={planes}")
+    ts = (left, right, valid_l, valid_r, *census_l, *census_r)
+    if all(t.device.type == "cpu" for t in ts):
+        return cost_volume_plain(left, census_l, valid_l, right, census_r,
+                                 valid_r, d_min, planes, stride, block,
+                                 census_window, ad_weight, dtype)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("cost_volume: tensors on several devices")
+    left, right = left.contiguous(), right.contiguous()
+    census_l = tuple(t.contiguous() for t in census_l)
+    census_r = tuple(t.contiguous() for t in census_r)
+    _on_cuda("cost_volume", left, right, dtypes=(torch.float32,))
+    _on_cuda("cost_volume", *census_l, *census_r, dtypes=(torch.int32,))
+    if dtype not in VOLUME_DTYPES:
+        raise TypeError(f"cost_volume: cannot store a volume in {dtype}")
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    h, w = left.shape
+    plan = cost_volume_plan(planes, h, w, block)
+    vl = valid_l.bool().contiguous().view(torch.uint8)
+    vr = (valid_r if valid_r.dtype == torch.bool
+          else valid_r.to(torch.uint8)).contiguous().view(torch.uint8)
+    table = _census_table(left.device, census_window, ad_weight)
+    vol = torch.empty((planes, h, w), dtype=dtype, device=left.device)
+    (l0, l1), (r0, r1) = census_l, census_r
+    rc = lib.pcmi_cost_volume(
+        left.data_ptr(), l0.data_ptr(), l1.data_ptr(), vl.data_ptr(),
+        right.data_ptr(), r0.data_ptr(), r1.data_ptr(), vr.data_ptr(),
+        table.data_ptr(), vol.data_ptr(), planes, h, w, int(d_min),
+        int(stride), int(block), float(ad_weight), plan.tile_h, plan.tile_w,
+        plan.group, int(dtype == torch.bfloat16), _stream())
+    _check("cost_volume", rc)
+    LAUNCHES["cost_volume"] += 1
+    return vol

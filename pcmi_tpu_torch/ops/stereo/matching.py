@@ -4,13 +4,15 @@
 :func:`compute_disparity` follows the reference's structure. The default
 (``aggregation="sgm"``, ``right_sgm="horizontal"``) runs its TPU branch:
 
+* the census+AD cost volume (two census launches and K7 ``cost_volume``,
+  one launch that writes the box-aggregated volume);
 * left view: 4 SGM directions (K1 ``sgm_dir``; lr+rl and tb+bt each
   accumulated into one volume) -> combine ``(h + v) * 0.25`` + WTA with
   parabola and margin (K2 ``wta``);
 * right view: derive the right volume (K3 ``derive_right``) -> the 2
   horizontal directions -> integer argmin (K2), in
   :func:`pcmi_tpu_torch.ops.stereo.layouts.right_disparity_fused`;
-* the census cross-checker's WTA (K2).
+* the census cross-checker's own volume (K7 again) and WTA (K2).
 
 The variants follow the reference's other branches, on the same kernels:
 ``right_sgm="derived"`` (the materialised left aggregate, shifted into the
@@ -32,8 +34,9 @@ it is stored; the kernels keep their recurrence state and the (H, W)
 planes in float32 and round each volume they store; sums and means of
 stored volumes are bfloat16 operations). It is a mode with results of its
 own, not only a smaller volume. ``"auto"`` is float32 on every device. The
-cost volume is plain PyTorch on every device, as the reference builds it
-outside any Pallas kernel.
+reference builds the cost volume outside any Pallas kernel; here the card
+builds it with the census kernel and K7 ``cost_volume``
+(:func:`build_cost_volume`), bit for bit as their plain versions.
 
 Where the reference scans a static disparity range or takes contiguous
 row slices to avoid gathers on its chip (the L/R check, :func:`shift_rows`,
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 from pcmi_tpu_torch.config import StereoConfig
 from pcmi_tpu_torch.ops.fused import mul_add
 from pcmi_tpu_torch.ops.stereo import kernels as K
+from pcmi_tpu_torch.ops.stereo.kernels import _edge_pad, _sliding_sum
 from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
 from pcmi_tpu_torch.utils.profiling import span
 
@@ -70,69 +74,12 @@ class DisparityResult(NamedTuple):
     check_margin: torch.Tensor | None = None
 
 
-def _popcount24(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of int32 values below 2**24 (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (x + (x >> 8) + (x >> 16)) & 0xFF
-
-
-def _edge_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
-    """Edge-replicate ``r`` elements on both ends of ``axis`` (-1 or -2) of
-    an (..., H, W) tensor."""
-    shape = x.shape
-    x3 = x.reshape(-1, shape[-2], shape[-1])
-    widths = (r, r, 0, 0) if axis == -1 else (0, 0, r, r)
-    out = F.pad(x3, widths, mode="replicate")
-    return out.reshape(*shape[:-2], *out.shape[-2:])
-
-
 def census_transform(img: torch.Tensor, window: int = 7):
     """Census transform into two int32 planes of 24 neighbour bits each
-    (the reference's uint32 planes, same bit order)."""
-    if window > 7 or window < 3 or window % 2 == 0:
-        raise ValueError(
-            f"census_window must be an odd value in [3, 7] (got {window}): "
-            f"two 24-bit planes hold at most 48 neighbour bits")
-    h, w = img.shape
-    r = window // 2
-    padded = _edge_pad(_edge_pad(img, r, -1), r, -2)
-    bits0 = torch.zeros((h, w), dtype=torch.int32, device=img.device)
-    bits1 = torch.zeros_like(bits0)
-    idx = 0
-    for dy in range(window):
-        for dx in range(window):
-            if dy == r and dx == r:
-                continue
-            bit = (padded[dy:dy + h, dx:dx + w] < img).to(torch.int32)
-            if idx < 24:
-                bits0 = bits0 | (bit << idx)
-            else:
-                bits1 = bits1 | (bit << (idx - 24))
-            idx += 1
-    return bits0, bits1
-
-
-def _sliding_sum(padded: torch.Tensor, k: int, axis: int,
-                 out_len: int) -> torch.Tensor:
-    """Length-``k`` sliding sum along ``axis`` by log-doubling, with the
-    reference's add order: ``out[i] = sum_{j<k} padded[i+j]``."""
-    sums = {1: padded}
-    w = 1
-    while 2 * w <= k:
-        a = sums[w]
-        n = a.shape[axis]
-        sums[2 * w] = a.narrow(axis, 0, n - w) + a.narrow(axis, w, n - w)
-        w *= 2
-    acc = None
-    off = 0
-    for w in sorted(sums, reverse=True):
-        while off + w <= k:
-            sl = sums[w].narrow(axis, off, out_len)
-            acc = sl if acc is None else acc + sl
-            off += w
-    return acc
+    (the reference's uint32 planes, same bit order): the census kernel on
+    the card, :func:`~pcmi_tpu_torch.ops.stereo.kernels.census_plain` on
+    the CPU."""
+    return K.census(img, window)
 
 
 def _vertical_box(vol: torch.Tensor, k: int) -> torch.Tensor:
@@ -147,17 +94,6 @@ def _vertical_box(vol: torch.Tensor, k: int) -> torch.Tensor:
         return acc / torch.full((), float(k), dtype=acc.dtype,
                                 device=acc.device)
     return acc / k
-
-
-def _box_edge(img: torch.Tensor, block: int) -> torch.Tensor:
-    """Edge-padded mean filter over the last two axes (rows, then
-    columns)."""
-    r = block // 2
-    out = img
-    for axis in (-2, -1):
-        padded = _edge_pad(out, r, axis)
-        out = _sliding_sum(padded, block, axis, out.shape[axis]) / block
-    return out
 
 
 def shift_rows(img: torch.Tensor, shifts: torch.Tensor, pad: int, fill,
@@ -231,9 +167,6 @@ def triangle_sum(plane: torch.Tensor, shift: torch.Tensor, d_min: int,
     return acc
 
 
-_COST_CHUNK = 16
-
-
 def cost_dtype(cfg: StereoConfig) -> torch.dtype:
     """The stored type of the matcher's volumes (``StereoConfig.cost_dtype``;
     ``"auto"`` is float32 on every device)."""
@@ -247,10 +180,11 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
                       row_shift_pad: int = 0,
                       row_shift_chunk: int = 1) -> torch.Tensor:
     """(D, H, W) box-aggregated census+AD matching cost, computed in
-    float32 and stored as :func:`cost_dtype` says (one rounding per chunk);
-    slice i holds disparity ``min_disparity + i * disp_stride``.
-    Disparities are processed ``_COST_CHUNK`` at a time into a preallocated
-    volume, which bounds the temporaries to a few chunk-sized tensors.
+    float32 and stored as :func:`cost_dtype` says (one rounding); slice i
+    holds disparity ``min_disparity + i * disp_stride``. On the card: two
+    census launches and one of K7 (:func:`kernels.cost_volume
+    <pcmi_tpu_torch.ops.stereo.kernels.cost_volume>`), which writes the
+    volume once; on the CPU their plain versions.
 
     ``row_shift`` (the banded matcher) searches the global disparity
     ``row_shift[...] + d`` at slice d: the census planes are computed on
@@ -261,8 +195,8 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
     dev = left.device
     planes = len(range(0, cfg.max_disp, cfg.disp_stride))
     with span("stereo.cost_volume", dev, planes=planes, rows=h, cols=w,
-              census_window=cfg.census_window):
-        n_census = cfg.census_window ** 2 - 1
+              census_window=cfg.census_window) as rec:
+        launched = K.LAUNCHES["cost_volume"], K.LAUNCHES["census"]
         cl0, cl1 = census_transform(left, cfg.census_window)
         cr0, cr1 = census_transform(right, cfg.census_window)
         if row_shift is not None:
@@ -272,32 +206,13 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
                                  chunk=ck)
             cr0 = shift_rows(cr0, row_shift, sp, 0, chunk=ck)
             cr1 = shift_rows(cr1, row_shift, sp, 0, chunk=ck)
-        pad = cfg.max_disp // 2 + 1
-
-        def windows(plane):
-            """(H, 2*pad+1, W) view: window j is plane shifted by pad - j."""
-            return F.pad(plane, (pad, pad)).unfold(1, w, 1)
-
-        rp, vp = windows(right), windows(valid_r.to(torch.uint8))
-        c0p, c1p = windows(cr0), windows(cr1)
-        valid_l = valid_l.bool()
-        ds = torch.arange(0, cfg.max_disp, cfg.disp_stride,
-                          device=dev) + cfg.min_disparity
-        vol = torch.empty((len(ds), h, w), dtype=cost_dtype(cfg), device=dev)
-        for i0 in range(0, len(ds), _COST_CHUNK):
-            starts = pad - ds[i0:i0 + _COST_CHUNK]
-
-            def take(p):
-                return p[:, starts].transpose(0, 1)   # (k, H, W)
-
-            ham = (_popcount24(cl0 ^ take(c0p))
-                   + _popcount24(cl1 ^ take(c1p))).float()
-            census_cost = ham / n_census
-            ad = torch.clamp((left - take(rp)).abs(), max=0.5) / 0.5
-            cost = (1.0 - cfg.ad_weight) * census_cost + cfg.ad_weight * ad
-            cost = torch.where(valid_l & take(vp).bool(), cost,
-                               torch.ones_like(cost))
-            vol[i0:i0 + len(starts)] = _box_edge(cost, cfg.block_size)
+        vol = K.cost_volume(left, (cl0, cl1), valid_l, right, (cr0, cr1),
+                            valid_r, d_min=cfg.min_disparity, planes=planes,
+                            stride=cfg.disp_stride, block=cfg.block_size,
+                            census_window=cfg.census_window,
+                            ad_weight=cfg.ad_weight, dtype=cost_dtype(cfg))
+        rec.count(kernel_launches=K.LAUNCHES["cost_volume"] - launched[0],
+                 census_launches=K.LAUNCHES["census"] - launched[1])
         return vol
 
 

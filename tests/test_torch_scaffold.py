@@ -217,8 +217,8 @@ def test_no_file_imports_jax():
 
 def test_nvcc_command_names_sm90a_and_every_source():
     srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert srcs == ["derive_right.cu", "derive_right_wdh.cu", "sgm_blocked.cu",
-                    "sgm_dir.cu", "sgm_hwd.cu", "wta.cu"]
+    assert srcs == ["cost_volume.cu", "derive_right.cu", "derive_right_wdh.cu",
+                    "sgm_blocked.cu", "sgm_dir.cu", "sgm_hwd.cu", "wta.cu"]
     compiles, link = _build.nvcc_commands(_build.library_path(), "nvcc")
     for cmd in compiles:  # one nvcc per source, each for sm_90a
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -267,9 +267,15 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     blocked = torch.rand(1, 5, 8, 128, generator=torch.Generator().manual_seed(1))
     K.sgm_blocked(blocked, 0.03, 0.48, True, prev=blocked)
     K.derive_right_wdh(hwd, 3, 4, -2, 1, 1.0)
+    img = vol[0]
+    cen = K.census(img, 3)
+    K.cost_volume(img, cen, img > 0.1, img.flip(1).contiguous(), cen,
+                  img > 0.2, d_min=-2, planes=4, stride=1, block=3,
+                  census_window=3, ad_weight=0.3)
     assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0,
                           "sgm_hwd": 0, "sgm_blocked": 0,
-                          "derive_right_wdh": 0}
+                          "derive_right_wdh": 0, "cost_volume": 0,
+                          "census": 0}
 
 
 def _pow2(n: int) -> bool:
@@ -424,3 +430,142 @@ def test_sgm_kernels_take_1024_planes():
     assert K.sgm_hwd_plan(1024, True) == (1, 32_768)
     assert K.sgm_hwd_plan(512, True).tile == 1
     assert K.sgm_blocked_plan(1024, 8, True) == (8, 1, 196_608)
+
+
+@pytest.mark.parametrize("block", [1, 3, 9, 15])
+@pytest.mark.parametrize("stride", [1, 2, 4])
+def test_cost_volume_plan_fits_and_covers(block, stride):
+    """K7's launch plan fits one block's shared memory and its grid covers
+    the volume, for census 3/5/7, D from 16 to 1024 planes of the search
+    and the cells' canvases; the box form's constants are the source's."""
+    src = (PKG / "csrc" / "cost_volume.cu").read_text()
+    th, tw = K.CV_BOX_TILE
+    assert (f"constexpr int kBoxTH = {th}, kBoxTW = {tw}, kRV = 8, kRH = 8, "
+            f"kNB = {K._CV_BOX_PLANES};") in src
+    assert f"constexpr int kTablePad = {K._CV_TABLE_PAD};" in src
+    assert f"constexpr int kSmemMax = {K.SMEM_BLOCK_MAX};" in src
+    for case in "1, 3, 5, 7, 9, 11, 13, 15".split(", "):
+        assert f"case {case}: return launch_box<{case}>" in src
+    assert K.CV_BOX_SIZES == (1, 3, 5, 7, 9, 11, 13, 15)
+    for census_window in (3, 5, 7):
+        for max_disp in range(16, 1025, 16):
+            D = max_disp // stride
+            for H, W in ((37, 141), (896, 896), (1152, 1280), (1280, 1280)):
+                p = K.cost_volume_plan(D, H, W, block)
+                assert p.box == (block in K.CV_BOX_SIZES)
+                assert p.smem == K.cost_volume_smem(block, p.tile_h,
+                                                    p.tile_w, p.box) \
+                    <= K.SMEM_BLOCK_MAX
+                gx, gy, gz = p.grid
+                assert gx * p.tile_w >= W > (gx - 1) * p.tile_w
+                assert gy * p.tile_h >= H > (gy - 1) * p.tile_h
+                assert gz * p.group >= D > (gz - 1) * p.group
+                assert gy <= 65535 and gz <= 65535
+            K._check_census_window(census_window)
+
+
+def test_cost_volume_generic_plan():
+    """Block sizes outside the box form take the generic form: haloed rows
+    of whole warps, two blocks to an SM where that fits, and a refusal
+    before anything runs where even one row does not fit."""
+    for block in (2, 4, 16, 17, 31, 33, 64):
+        p = K.cost_volume_plan(288, 1280, 1280, block)
+        assert not p.box
+        assert (p.tile_w + block - 1) % 32 == 0 and p.tile_w >= 64
+        assert p.smem <= K.SMEM_BLOCK_MAX
+        if block <= 17:
+            assert p.tile_h == 32 and p.smem <= K._CV_TWO_BLOCKS
+    with pytest.raises(ValueError):
+        K.cost_volume_plan(288, 1280, 1280, 101)
+    for bad in ((0, 8, 8, 3), (8, 0, 8, 3), (8, 8, 8, 0)):
+        with pytest.raises(ValueError):
+            K.cost_volume_plan(*bad)
+
+
+def _global_kernels(path: Path) -> list:
+    """The names of the ``__global__`` functions defined in a CUDA source."""
+    import re
+
+    text = path.read_text()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                      r"(\w+)\s*\(", text)
+
+
+def test_kernel_names_outside_the_stereo_roofline():
+    """The roofline of K1-K3 (``stereo_kernels_roofline``) counts every
+    device operation whose name holds a fragment under
+    ``perfbench/kernels/stereo_kernels/``: no other kernel of the package
+    may carry one, or its time would join the roofline's without its work."""
+    frags = [p.read_text().strip() for p in sorted(
+        (PKG.parent / "perfbench" / "kernels" / "stereo_kernels").glob("*.txt"))]
+    assert frags
+    names = {src.name: _global_kernels(src)
+             for src in sorted((PKG / "csrc").glob("*.cu"))}
+    assert names["cost_volume.cu"] == ["census_kernel", "cost_volume_kernel",
+                                       "cost_volume_box_kernel"]
+    for src, kernels in names.items():
+        if src in ("sgm_dir.cu", "wta.cu", "derive_right.cu"):   # K1-K3
+            continue
+        for kernel in kernels:
+            assert not any(f in kernel for f in frags), (src, kernel)
+
+
+def test_entry_points_declared_as_the_sources_define_them():
+    """Every ``extern "C"`` entry point of ``csrc/*.cu`` has its argument
+    types declared in ``_build.load``: as many, a pointer for each pointer,
+    a float for each float and an int for each int (ctypes would pass an
+    undeclared pointer as a 32-bit int)."""
+    import re
+
+    declared = dict(re.findall(
+        r"lib\.(pcmi_\w+)\.argtypes = (\[[^\]]*\])",
+        Path(_build.__file__).read_text()))
+    defined = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (pcmi_\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            kinds = []
+            for arg in (a.strip() for a in args.split(",") if a.strip()):
+                kinds.append("p" if "*" in arg else
+                             "f" if arg.startswith("float") else "i")
+            defined[name] = kinds
+    assert {"pcmi_census", "pcmi_cost_volume", "pcmi_sgm_dir",
+            "pcmi_wta"} <= set(defined)
+    assert set(defined) <= set(declared)
+    for name, kinds in defined.items():
+        got = [a for a in re.sub(r"\s", "", declared[name]).strip(
+            "[]").split(",") if a]
+        assert got == kinds, name
+
+
+def test_cost_volume_wrappers_refuse_before_running():
+    """K7 and the census wrapper: a tensor on neither the CPU nor a card,
+    mixed devices, a census window outside [3, 7] or mismatched planes
+    raise before anything runs; on the CPU they are the plain versions."""
+    img = torch.rand(6, 9, generator=torch.Generator().manual_seed(2))
+    cen = K.census(img, 5)
+    kw = dict(d_min=-8, planes=16, stride=1, block=3, census_window=5,
+              ad_weight=0.3)
+    K.reset_launches()
+    with pytest.raises(ValueError):
+        K.census(img.to("meta"), 5)
+    with pytest.raises(ValueError):
+        K.census(img, 9)
+    with pytest.raises(ValueError):
+        K.census(img[None], 5)
+    with pytest.raises(ValueError):
+        K.cost_volume(img.to("meta"), cen, img > 0, img, cen, img > 0, **kw)
+    with pytest.raises(ValueError):
+        K.cost_volume(img, cen, img > 0, img[:5], cen, img > 0, **kw)
+    with pytest.raises(ValueError):
+        K.cost_volume(img, cen, img > 0, img, cen, img > 0,
+                      **{**kw, "census_window": 4})
+    for got, ref in zip(cen, K.census_plain(img, 5)):
+        assert torch.equal(got, ref)
+    vol = K.cost_volume(img, cen, img > 0.2, img.flip(1).contiguous(), cen,
+                        img > 0.1, **kw)
+    ref = K.cost_volume_plain(img, cen, img > 0.2, img.flip(1).contiguous(),
+                              cen, img > 0.1, -8, 16, 1, 3, 5, 0.3,
+                              torch.float32)
+    assert torch.equal(vol, ref) and vol.shape == (16, 6, 9)
+    assert not any(K.LAUNCHES.values())

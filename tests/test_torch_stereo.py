@@ -50,10 +50,10 @@ def test_sliding_sum_and_box_edge(rng, k):
     img = rng.uniform(0, 1, (21, 34)).astype(np.float32)
     padded = rng.uniform(0, 1, (21 + k - 1, 34)).astype(np.float32)
     np.testing.assert_allclose(
-        _np(tm._sliding_sum(_t(padded), k, 0, 21)),
+        _np(K._sliding_sum(_t(padded), k, 0, 21)),
         np.asarray(jm._sliding_sum(jnp.asarray(padded), k, 0, 21)),
         atol=1e-6, rtol=0)
-    np.testing.assert_allclose(_np(tm._box_edge(_t(img), k)),
+    np.testing.assert_allclose(_np(K._box_edge(_t(img), k)),
                                np.asarray(jm._box_edge(jnp.asarray(img), k)),
                                atol=1e-6, rtol=0)
 
@@ -74,6 +74,35 @@ def test_build_cost_volume(rng, stride):
     got = tm.build_cost_volume(_t(left), _t(right), _t(vl), _t(vr), _c(cfg))
     assert got.shape == ref.shape
     np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("cost_dtype", ["float32", "bfloat16"])
+def test_build_cost_volume_cell_widths(rng, cost_dtype):
+    """The benchmark cells' widths (census 7, block 15, D = 288 at stride 1,
+    the signed search from -144) on a small canvas: the CPU volume, K7's
+    plain version, against the reference's. float32 within 1e-6; bfloat16
+    within one step, at most 0.1% of the elements a step away (see
+    test_bf16_build_cost_volume)."""
+    left = rng.uniform(0, 1, (22, 64)).astype(np.float32)
+    right = (np.roll(left, -9, axis=1)
+             + rng.normal(0, 0.02, left.shape)).astype(np.float32)
+    vl = rng.uniform(0, 1, left.shape) > 0.1
+    vr = rng.uniform(0, 1, left.shape) > 0.1
+    cfg = StereoConfig(max_disp=288, block_size=15, census_window=7,
+                       disp_stride=1, cost_dtype=cost_dtype)
+    assert _c(cfg).min_disparity == -144
+    ref = jm.build_cost_volume(*[jnp.asarray(a) for a in
+                                 (left, right, vl, vr)], cfg)
+    got = tm.build_cost_volume(*[_t(a) for a in (left, right, vl, vr)],
+                               _c(cfg))
+    assert tuple(got.shape) == ref.shape == (288, 22, 64)
+    if cost_dtype == "float32":
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=1e-6,
+                                   rtol=0)
+    else:
+        r, g = _f32(ref), _f32(got)
+        assert (r != g).mean() <= 1e-3
+        assert (np.abs(r - g) <= _bf16_step(r)).all()
 
 
 @pytest.mark.parametrize("dirs", ["4", "h", "v"])
