@@ -222,6 +222,18 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
     raise ValueError(f"sgm_dir: no launch plan fits D={D}")
 
 
+def sgm_pair_plan_text(shape, horizontal: bool, esize: int = 4) -> str:
+    """K1's plans for :func:`sgm_pair` on a (D, H, W) volume, as a span's
+    count: the axis (``h`` or ``v``), then paths x tile steps of the
+    forward launch and of the accumulating one, e.g. ``"h 4x4+4x2"``."""
+    D, H, W = shape
+    span = H if horizontal else W
+    fwd, acc = (sgm_dir_plan(D, span, horizontal, a, esize)
+                for a in (False, True))
+    return (f"{'h' if horizontal else 'v'} {fwd.paths}x{fwd.tile}"
+            f"+{acc.paths}x{acc.tile}")
+
+
 def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
             reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: see :func:`sgm_dir_plain` for the semantics."""

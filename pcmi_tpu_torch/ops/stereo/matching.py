@@ -58,7 +58,10 @@ from pcmi_tpu_torch.ops.fused import mul_add
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo.kernels import _edge_pad, _sliding_sum
 from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
-from pcmi_tpu_torch.utils.profiling import span
+from pcmi_tpu_torch.utils.profiling import active, span
+
+# the kernels of the spans stereo.sgm and stereo.right: K1, K2, K3
+_VIEW_KERNELS = ("sgm_dir", "wta", "derive_right")
 
 
 class DisparityResult(NamedTuple):
@@ -291,6 +294,35 @@ def diag_right_disparity(s_dhw: torch.Tensor, d_min: int,
     return d_min + stride * shifted.argmin(0).float()
 
 
+def _view_launches() -> int:
+    return sum(K.LAUNCHES[k] for k in _VIEW_KERNELS)
+
+
+def _nbytes(*vols: torch.Tensor) -> int:
+    return sum(v.numel() * v.element_size() for v in vols)
+
+
+def _count_view(rec, vol: torch.Tensor, axes: str, launched: int,
+                held: int) -> None:
+    """The counts of a view's span (``stereo.sgm``, ``stereo.right``) over
+    a volume shaped and stored as ``vol``: the planes, K1's plans along
+    ``axes`` (``"plain"`` off the card, ``"none"`` without a K1 launch),
+    the launches of K1-K3 since ``launched`` and ``volume_bytes``: ``held``,
+    the bytes of the (D, H, W) volumes the view held at once at its peak;
+    nothing when spans do not record."""
+    if not active():
+        return
+    if vol.device.type != "cuda":
+        plan = "plain"
+    else:
+        esize = vol.element_size()
+        plan = ", ".join(K.sgm_pair_plan_text(tuple(vol.shape), a == "h",
+                                              esize) for a in axes) or "none"
+    rec.count(planes=vol.shape[0], plan=plan,
+              launches=_view_launches() - launched,
+              volume_bytes=held)
+
+
 def compute_disparity(left: torch.Tensor, right: torch.Tensor,
                       valid_l: torch.Tensor, valid_r: torch.Tensor,
                       cfg: StereoConfig = StereoConfig(),
@@ -342,28 +374,41 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
         # margin; for the diagonal right view K2 also writes the combined
         # aggregate (no combine pass, no derive, no second WTA)
         diagonal = cfg.right_sgm == "diagonal"
-        horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
-        vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
-        disp_l, cost_l, margin, *agg_l = K.wta(
-            horiz, vert, 0.25, d_min, stride, subpixel=True,
-            with_margin=True, with_aggregate=diagonal)
-        del horiz, vert
-        if diagonal:
-            del vol_l
-            disp_r = diag_right_disparity(agg_l.pop(), d_min, stride)
-        elif cfg.right_sgm == "full":
-            vol_r = derive_right_volume(vol_l, d_min, stride=stride)
-            del vol_l
-            horiz = K.sgm_pair(vol_r, p1, p2, horizontal=True)
-            vert = K.sgm_pair(vol_r, p1, p2, horizontal=False)
-            del vol_r
-            disp_r, _, _ = K.wta(horiz, vert, 0.25, d_min, stride,
-                                 subpixel=sub_r, with_margin=False)
+        dev = left.device
+        with span("stereo.sgm", dev) as rec:
+            launched = _view_launches()
+            horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
+            vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
+            disp_l, cost_l, margin, *agg_l = K.wta(
+                horiz, vert, 0.25, d_min, stride, subpixel=True,
+                with_margin=True, with_aggregate=diagonal)
+            _count_view(rec, vol_l, "hv", launched,
+                        _nbytes(vol_l, horiz, vert, *agg_l))
             del horiz, vert
-        else:
-            disp_r = right_disparity_fused(vol_l, p1, p2, d_min,
-                                           stride=stride, subpixel=sub_r)
-            del vol_l
+        with span("stereo.right", dev) as rec:
+            launched = _view_launches()
+            if diagonal:
+                _count_view(rec, vol_l, "", launched, _nbytes(vol_l, *agg_l))
+                del vol_l
+                disp_r = diag_right_disparity(agg_l.pop(), d_min, stride)
+            elif cfg.right_sgm == "full":
+                vol_r = derive_right_volume(vol_l, d_min, stride=stride)
+                del vol_l
+                horiz = K.sgm_pair(vol_r, p1, p2, horizontal=True)
+                vert = K.sgm_pair(vol_r, p1, p2, horizontal=False)
+                held = _nbytes(vol_r, horiz, vert)
+                del vol_r
+                disp_r, _, _ = K.wta(horiz, vert, 0.25, d_min, stride,
+                                     subpixel=sub_r, with_margin=False)
+                _count_view(rec, horiz, "hv", launched, held)
+                del horiz, vert
+            else:
+                disp_r = right_disparity_fused(vol_l, p1, p2, d_min,
+                                               stride=stride, subpixel=sub_r)
+                # at its peak: the left volume, K3's right volume and the
+                # right view's horizontal aggregate
+                _count_view(rec, vol_l, "h", launched, 3 * _nbytes(vol_l))
+                del vol_l
 
     ok = lr_consistency(disp_l, disp_r, cfg.lr_threshold_eff, d_min=d_min,
                         d_max=d_min + cfg.max_disp - 1, stride=stride)

@@ -170,13 +170,18 @@ class _Off:
 _OFF = _Off()
 
 
+def active() -> bool:
+    """Whether spans record now: inside :func:`recording` or while a
+    ``torch.profiler`` session is active."""
+    return bool(_recording or _autograd_profiler._is_profiler_enabled)
+
+
 def span(name: str, device=None, **counts):
     """A context that records the block as span ``name`` with ``counts``
-    when recording is on (:func:`recording` or an active
-    ``torch.profiler`` session), and otherwise does nothing. ``device`` is
-    where the block's tensors live: on a CUDA device the span also times
-    the device's current stream."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    when recording is on (:func:`active`), and otherwise does nothing.
+    ``device`` is where the block's tensors live: on a CUDA device the
+    span also times the device's current stream."""
+    if not active():
         return _OFF
     dev = torch.device(device) if device is not None else None
     return Span(name, dev if dev is not None and dev.type == "cuda"

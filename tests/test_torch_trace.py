@@ -105,7 +105,8 @@ def test_tracing_off_records_nothing(pair, scene, monkeypatch):
 def test_pair_is_five_stages(pair):
     """A recorded pair: one root ``pair`` span whose five stage spans
     follow one another and cover it; the matcher's cost volumes (the main
-    one and the checker's) are nested spans with their counts."""
+    one and the checker's), its two views and its checker are nested spans
+    with their counts."""
     _, rec = _recorded(pair)
     roots = [s for s in rec if s.parent is None]
     assert [s.name for s in roots] == ["pair"]
@@ -113,10 +114,10 @@ def test_pair_is_five_stages(pair):
     assert top.root == top.id
     _assert_partition(top, PAIR_STAGES)
     match = top.children[2]
-    assert [k.name for k in match.children] == ["stereo.cost_volume",
-                                                "stereo.checker"]
+    assert [k.name for k in match.children] == [
+        "stereo.cost_volume", "stereo.sgm", "stereo.right", "stereo.checker"]
     volumes = [s for s in rec if s.name == "stereo.cost_volume"]
-    assert len(volumes) == 2 and volumes[1].parent == match.children[1].id
+    assert len(volumes) == 2 and volumes[1].parent == match.children[3].id
     # on the CPU the plain versions run: no kernel launch is counted
     assert volumes[0].counts == {"planes": 24, "rows": 128, "cols": 128,
                                  "census_window": 5, "kernel_launches": 0,
