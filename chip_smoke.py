@@ -20,6 +20,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    main volume) and census 3, block 3 (the checker's), each K7's ms beside
    its bound (``cost_volume_bound``) and the plain version's ms, and the
    census kernel's beside the plain census's;
+2c. the kNN selection: K8 ``knn_select`` bit-identical to its plain
+   version on the card (``phase_knn``), its distance products on cuBLAS's
+   tiled GEMM (chunks with no one-row tail, clouds under 2,048 points
+   padded for the product), for k = 1, 8, 12, 31 on clouds of
+   N = k + 1, 1,000, 65,537 and 327,680 points (the fuse cell's count)
+   with planted outliers, duplicate points and invalid rows (half of them
+   with NaN coordinates), and on clouds where no query has k + 1 valid
+   candidates; N = 1 and N = k, and k + 1 = 33, must raise
+   ``ValueError``; at 327,680 points and k = 8 ``knn_outlier_mask``'s
+   mask and distances equal the plain selection's (means per 2,048-row
+   chunk, as the plain path took them), and K8's ms by CUDA events on a
+   uniform cloud and on five raster-ordered height fields beside its
+   bound (``knn_bound``) and the plain selection's ms;
 3. kernel parity: K1 ``sgm_dir`` and K4 ``sgm_hwd`` (all four directions,
    forward and accumulate), K3 ``derive_right`` and K5 ``sgm_blocked``
    (both directions, with and without ``prev``) bit-exact against their
@@ -110,7 +123,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    per stage; then ``StreamingAOIPipeline(band_rows=256)`` on pair (0, 1)
    against the monolithic pair on its 2 m grid: median |diff| < 0.05 m
    and > 90% within 0.5 m (``tests/test_streaming.py``'s bounds). Launch
-   counts: 6/3/1 per pair and per band tile;
+   counts: 6/3/1 per pair (and one K8 for the fusion) and per band tile;
 10. the low-texture fused recipe (``bench.py``'s lowtex_fused, uncut):
     8 views of 448x448, 16 "lr"-profile pairs, ``min_pairs=7``,
     ``mad_max=0.7``, 2 m cells, seeds 11-13: RMSE <= 1.0 m and
@@ -127,13 +140,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     north-up DSM against the terrain at median |error| < 1.0 m and RMSE
     < 2.5 m as ``tests/test_ingest.py`` computes them, the pair's valid
     fraction beside an in-memory run of the same pair),
-    ``cli.main(["fuse", ...])`` (6/3/1 per processed pair, the same DSM
-    gates, ``MultiDayFusion.stage_ms``), ``MultiAOISweep`` twice over the
-    ingested stack with a stage cache (the second run all cache hits, no
-    launch, the DSM identical) and ``HeightMapExtractor`` through
-    ``PluginRunner`` on the CLI's pair (no error, its disparity and point
-    cloud layers, 6/3/1); host ms of discovery, cropping and each
-    command, the crop windows, peak memory;
+    ``cli.main(["fuse", ...])`` (6/3/1 per processed pair and one K8, the
+    same DSM gates, ``MultiDayFusion.stage_ms``), ``MultiAOISweep`` twice
+    over the ingested stack with a stage cache (the second run all cache
+    hits, no stereo launch and one K8, the DSM identical) and
+    ``HeightMapExtractor`` through ``PluginRunner`` on the CLI's pair (no
+    error, its disparity and point cloud layers, 6/3/1); host ms of
+    discovery, cropping and each command, the crop windows, peak memory;
 12. the component plugins through ``registry.create(name, device="cuda")``
     at the sizes users run them: saliency on a 2048x2048 pan with a 32x32
     object in each of its 16 tiles (tile 512, pad 64), detection on a
@@ -261,8 +274,9 @@ KERNELS = {  # name: (source, the TPU kernels it replaces)
                          f"{_PK}:829"),
 }
 # K7 and the census kernel (csrc/cost_volume.cu) replace no TPU kernel:
-# the reference builds the volume in XLA
-NONE = dict.fromkeys((*KERNELS, "cost_volume", "census"), 0)
+# the reference builds the volume in XLA; nor does K8 (csrc/knn_select.cu):
+# the reference selects the kNN with XLA
+NONE = dict.fromkeys((*KERNELS, "cost_volume", "census", "knn_select"), 0)
 # The card's published peaks (H100 SXM): HBM bytes/s and float32 operations/s
 # outside the tensor cores. A kernel's bound is the larger of its bytes
 # (each input read once, each output written once) and its operations over
@@ -316,6 +330,7 @@ RAGGED_BLOCKED = ((1, 3, 8), (3, 13, 40), (2, 21, 300), (1, 37, 37),
 # of two census launches and one of K7
 PER_PAIR = {**NONE, "sgm_dir": 6, "wta": 3, "derive_right": 1,
             "cost_volume": 2, "census": 4}
+
 # the vertical cross-checker adds its 2 vertical directions
 PER_DENSE_PAIR = {**PER_PAIR, "sgm_dir": 8}
 # the banded matcher: the coarse pass (derived right view, no checker:
@@ -325,6 +340,12 @@ PER_BANDED_PAIR = {**PER_PAIR, "sgm_dir": 10, "wta": 5, "derive_right": 2,
                    "cost_volume": 3, "census": 6}
 PER_HIER_PAIR = {**PER_PAIR, "sgm_dir": 12, "wta": 6, "derive_right": 2,
                  "cost_volume": 4, "census": 8}
+
+
+def per_aoi(pairs: int) -> dict:
+    """Launches of one ``MultiDayFusion.run`` over ``pairs`` processed
+    pairs: theirs and one K8 for the outlier mask."""
+    return {**{k: pairs * c for k, c in PER_PAIR.items()}, "knn_select": 1}
 
 
 def _run(cmd: list[str]) -> str:
@@ -739,6 +760,196 @@ def phase_cost_volume() -> dict:
     if bad:
         raise SystemExit(f"cost_volume: {len(bad)} of {cases} cases differ "
                          f"from the plain versions: {bad[:8]}")
+    return out
+
+
+# K8 against its plain version: k of 1 (a list of 2), the fuse default 8,
+# 12 and 31 (the longest list), on ragged clouds and on the fuse cell's
+# 327,680 points; the timing cloud's shape
+KNN_KS = (1, 8, 12, 31)
+KNN_SIZES = (1000, 65537)
+KNN_CELL = 327680
+# the least work per (query, candidate) evaluation: the dot product's
+# three instructions (-2 folded into the candidate), two adds, a compare
+KNN_INSTR = 6
+
+
+def knn_bound(n: int) -> float:
+    """K8's least time in ms for ``n`` points: ``n``^2 evaluations of
+    :data:`KNN_INSTR` float32 instructions at half :data:`FP32_OPS_PER_S`
+    (an FMA counts two operations there)."""
+    return n * n * KNN_INSTR / (FP32_OPS_PER_S / 2) * 1e3
+
+
+def _knn_cloud(gen, n: int, form: str, k: int = 8):
+    """(points, valid) on the card. ``mixed``: uniform over 170 x 170 x 48
+    m, 1 % planted outliers 200 m up, 1 % duplicates of other points, 10 %
+    invalid (half of them NaN); ``sparse``: ``mixed`` with only ``k // 2``
+    valid points, so no query has k + 1 valid candidates; ``raster``: five
+    256 x 256 height fields at 0.66 m in raster order, 5 % invalid (the
+    fuse request's clouds come in random order, as ``mixed``)."""
+    dev = "cuda"
+    if form == "raster":
+        side = 256
+        yy, xx = torch.meshgrid(torch.arange(side, device=dev) * 0.66,
+                                torch.arange(side, device=dev) * 0.66,
+                                indexing="ij")
+        z = 24 + 20 * torch.sin(xx / 9) * torch.cos(yy / 7)
+        one = torch.stack([xx, yy, z], -1).reshape(-1, 3)
+        clouds = [one + 0.1 * torch.randn(one.shape, generator=gen,
+                                          device=dev)
+                  for _ in range(-(-n // one.shape[0]))]
+        pts = torch.cat(clouds)[:n].contiguous()
+        return pts, torch.rand(n, generator=gen, device=dev) > 0.05
+    pts = torch.rand((n, 3), generator=gen, device=dev) * torch.tensor(
+        [170.0, 170.0, 48.0], device=dev)
+    m = max(1, n // 100)
+    pts[:m, 2] += 200.0
+    if n >= 2:
+        pts[n - m:] = pts[n // 2 - m:n // 2]
+    valid = torch.rand(n, generator=gen, device=dev) > 0.1
+    nan = ~valid & (torch.rand(n, generator=gen, device=dev) > 0.5)
+    pts[nan] = float("nan")
+    if form == "sparse":
+        valid = torch.zeros_like(valid)
+        valid[torch.randperm(n, generator=gen, device=dev)[:k // 2]] = True
+        valid &= ~nan
+    return pts, valid
+
+
+def _knn_plain_gemm(points, valid, k: int):
+    """:func:`knn_select_plain`'s values with every distance product on
+    cuBLAS's tiled GEMM, whose order K8 takes: chunks of at most 2,048 rows
+    balanced so that none is one row (cuBLAS gives a one-row product to a
+    gemv), and a cloud under 2,048 points padded to 2,048 for the product
+    alone (cuBLAS gives tiny products to other kernels). Those other
+    kernels round the three-term dot product in another order."""
+    from pcmi_tpu_torch.ops import pointcloud as pc
+
+    n = points.shape[0]
+    if n >= 2048:
+        chunk = -(-n // -(-n // 2048))
+        return pc.knn_select_plain(points, valid, k, chunk=chunk)
+    pad = torch.zeros((2048, 3), device=points.device)
+    pad[:n] = points
+    d2 = pc._pairwise_sqdist(pad, pad)[:n, :n] + pc._cand_mask(valid)
+    return torch.topk(d2, k + 1, dim=1, largest=False).values
+
+
+def _knn_mean_parent(points, valid, k: int = 8, chunk: int = 1024):
+    """``knn_mean_distance`` as the plain path took it: the plain
+    selection, its mean distances a ``chunk`` of rows at a time."""
+    from pcmi_tpu_torch.ops import pointcloud as pc
+
+    near = pc.knn_select_plain(points, valid, k, chunk)
+    out = torch.empty(near.shape[0], device=near.device)
+    for s in range(0, near.shape[0], chunk):
+        out[s:s + chunk] = torch.sqrt(near[s:s + chunk, 1:]).mean(1)
+    return torch.where(valid, out, float("inf"))
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Median ms of ``fn`` on the current stream by CUDA events, after one
+    run."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ts.append(t0.elapsed_time(t1))
+    return statistics.median(ts)
+
+
+def phase_knn() -> dict:
+    """K8 ``knn_select`` bit-identical to :func:`knn_select_plain` on the
+    card where cuBLAS takes its tiled GEMM (:func:`_knn_plain_gemm`;
+    :data:`KNN_KS` x ragged sizes, the fuse cell's 327,680 points), one
+    launch a call; sizes below k + 1 and k + 1 > 32 raise; at the cell's
+    size the outlier mask equal to the plain path's and K8's ms beside its
+    bound and the plain selection's. The rows where the plain version's
+    2,048-row chunks differ (a one-row last chunk) are reported."""
+    from pcmi_tpu_torch.ops import pointcloud as pc
+    from pcmi_tpu_torch.ops.stereo import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bad, cases, other = [], 0, {}
+    for k in KNN_KS:
+        for n in (1, k):
+            pts, valid = _knn_cloud(gen, max(n, 1), "mixed", k)
+            for fn in (pc.knn_select, pc.knn_select_plain):
+                cases += 1
+                try:
+                    fn(pts, valid, k)
+                    bad.append(f"{fn.__name__} n={n} k={k}: no error")
+                except ValueError:
+                    pass
+        for n, form in [(k + 1, "mixed"), *((m, "mixed")
+                                            for m in KNN_SIZES),
+                        (1000, "sparse"), (KNN_CELL, "mixed")]:
+            pts, valid = _knn_cloud(gen, n, form, k)
+            K.reset_launches()
+            got = pc.knn_select(pts, valid, k)
+            launches = K.LAUNCHES["knn_select"]
+            ref = _knn_plain_gemm(pts, valid, k)
+            cases += 1
+            if launches != 1:
+                bad.append(f"n={n} k={k} {form}: {launches} launches")
+            if not _bits_equal(got, ref):
+                diff = (got.view(torch.int32) != ref.view(torch.int32))
+                bad.append(f"n={n} k={k} {form}: {int(diff.any(1).sum())} "
+                           f"rows differ")
+            # beside it, rows where the 2,048-row chunks' products (a
+            # one-row or tiny one off cuBLAS's tiled GEMM) round otherwise
+            chunked = pc.knn_select_plain(pts, valid, k, chunk=2048)
+            other[f"{n}/{k}/{form}"] = int((got.view(torch.int32) != chunked
+                                            .view(torch.int32)).any(1).sum())
+            del got, ref, chunked
+    pts, valid = _knn_cloud(gen, 100, "mixed")
+    cases += 1
+    try:
+        pc.knn_select(pts, valid, K.KNN_MAX_K1)
+        bad.append(f"k + 1 = {K.KNN_MAX_K1 + 1}: no error on the card")
+    except ValueError:
+        pass
+
+    out = {}
+    for form in ("mixed", "raster"):
+        pts, valid = _knn_cloud(gen, KNN_CELL, form)
+        if form == "mixed":
+            d = pc.knn_mean_distance(pts, valid, k=8, chunk=2048)
+            d_ref = _knn_mean_parent(pts, valid, k=8, chunk=2048)
+            keep = pc.knn_outlier_mask(pts, valid, k=8, sigma=3.0,
+                                       chunk=2048)
+            kernel_mean, pc.knn_mean_distance = (pc.knn_mean_distance,
+                                                 _knn_mean_parent)
+            try:
+                keep_ref = pc.knn_outlier_mask(pts, valid, k=8, sigma=3.0,
+                                               chunk=2048)
+            finally:
+                pc.knn_mean_distance = kernel_mean
+            cases += 2
+            if not _bits_equal(d, d_ref):
+                bad.append("mean distances differ at the cell's size")
+            if not torch.equal(keep, keep_ref):
+                bad.append(f"masks differ at the cell's size: "
+                           f"{int((keep != keep_ref).sum())} points")
+            out["kept"] = float(keep.float().mean())
+        out[form] = dict(
+            ms=_event_ms(lambda: pc.knn_select(pts, valid, 8), 10),
+            plain_ms=_event_ms(
+                lambda: pc.knn_select_plain(pts, valid, 8, chunk=2048), 2))
+        out[form]["share"] = knn_bound(KNN_CELL) / out[form]["ms"]
+    out.update(cases=cases, bad=bad, bound_ms=knn_bound(KNN_CELL),
+               chunk_rows_differ={n: d for n, d in other.items() if d},
+               plan=K.knn_select_plan(KNN_CELL, KNN_CELL, 8)._asdict())
+    print("knn:", json.dumps(out))
+    if bad:
+        raise SystemExit(f"knn: {len(bad)} of {cases} cases differ from "
+                         f"the plain version: {bad[:8]}")
     return out
 
 
@@ -1737,7 +1948,7 @@ def phase_multiday(ctx: D288) -> dict:
         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
         launches={k: c for k, c in launches.items() if c})
     print("multiday:", json.dumps(md))
-    _launched("multiday", launches, {k: n * c for k, c in PER_PAIR.items()})
+    _launched("multiday", launches, per_aoi(n))
     if n != res["selected"]:
         raise SystemExit(f"multiday: {n} pairs processed of "
                          f"{res['selected']} selected")
@@ -2070,8 +2281,7 @@ def phase_from_disk(dctx: D288) -> dict:
         if rc != 0:
             raise SystemExit(f"from_disk: fuse exit code {rc}")
         n = len(fu["icp_rmse"])
-        _launched("from_disk fuse", launches,
-                  {k: n * c for k, c in PER_PAIR.items()})
+        _launched("from_disk fuse", launches, per_aoi(n))
         dsm_path = os.path.join(fuse_dir, "dsm.tif")
         geo = read_geo(dsm_path)
         out["fuse"] = dict(
@@ -2098,8 +2308,9 @@ def phase_from_disk(dctx: D288) -> dict:
                              misses=sweep.cache.misses))
         pairs = runs[0]["misses"]
         _launched("from_disk sweep, first run", runs[0]["launches"],
-                  {k: pairs * c for k, c in PER_PAIR.items()})
-        _launched("from_disk sweep, second run", runs[1]["launches"], NONE)
+                  per_aoi(pairs))
+        _launched("from_disk sweep, second run", runs[1]["launches"],
+                  per_aoi(0))
         same = np.array_equal(runs[0]["dsm"], runs[1]["dsm"], equal_nan=True)
         if not (runs[0]["hits"] == 0 and runs[1]["hits"] == pairs
                 and runs[1]["misses"] == pairs and same):
@@ -3844,6 +4055,7 @@ def main() -> int:
     phase_build()
     phase_ragged()
     cv = phase_cost_volume()
+    phase_knn()
     par = [phase_parity(shape, stride, seed=i)
            for i, (shape, stride) in enumerate(SHAPES)]
     par16 = [phase_parity(shape, stride, seed=i, dtype=torch.bfloat16)

@@ -2,14 +2,19 @@
 of ``pcmi_tpu/ops/pointcloud.py``).
 
 Invalid points are carried as ``weight=0`` rows, never dropped, as in the
-reference. The kNN is brute force: chunks of query rows against every
-point, one distance product (``|a|^2 - 2ab + |b|^2``, in full float32:
-TF32 is off in this package) and ``torch.topk`` per chunk, so peak memory
-is ``chunk x N`` floats. Medians and quantiles follow ``jnp.nanmedian``
-(mean of the two middle values) and ``jnp.quantile`` (linear
-interpolation, infinities kept) exactly, where ``torch.nanmedian`` and
-``torch.quantile`` give other values. The random draw of K-means' first
-seed comes from a ``torch.Generator``.
+reference. The kNN is brute force. The outlier mask's selection (each
+point's k + 1 nearest) is K8 ``knn_select`` on the card, one launch that
+keeps each point's list in registers and holds ~12 MB (N x (k + 1)
+floats) at the fuse request's 327,680 points; on the CPU, and in ICP's
+``nearest_neighbor``, chunks of query rows go against every point, one
+distance product (``|a|^2 - 2ab + |b|^2``, in full float32: TF32 is off
+in this package) and ``torch.topk`` or ``argmin`` per chunk, so peak
+memory is ``chunk x N`` floats (2.68 GB a 2,048-row chunk there).
+Medians and quantiles follow ``jnp.nanmedian`` (mean of the two middle
+values) and ``jnp.quantile`` (linear interpolation, infinities kept)
+exactly, where ``torch.nanmedian`` and ``torch.quantile`` give other
+values. The random draw of K-means' first seed comes from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 
 from pcmi_tpu_torch.ops.segmented import (
     grid_segment_sums, segment_totals_at_points, sort_by_segment)
+from pcmi_tpu_torch.ops.stereo import kernels as K
 
 
 # ---------------------------------------------------------------------------
@@ -184,19 +190,66 @@ def _cand_mask(valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, 0.0, float("inf"))
 
 
+def _check_knn(points: torch.Tensor, valid: torch.Tensor, k: int) -> None:
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"knn_select: expected (N, 3) points, got "
+                         f"{tuple(points.shape)}")
+    if valid.shape != points.shape[:1]:
+        raise ValueError(f"knn_select: valid must be (N,), got "
+                         f"{tuple(valid.shape)}")
+    if k < 0 or k + 1 > points.shape[0]:
+        raise ValueError(f"knn_select: k + 1 = {k + 1} nearest of "
+                         f"{points.shape[0]} points")
+
+
+def knn_select_plain(points: torch.Tensor, valid: torch.Tensor, k: int,
+                     chunk: int = 1024) -> torch.Tensor:
+    """(N, k + 1) ascending: for each point the ``k + 1`` smallest squared
+    distances (:func:`_pairwise_sqdist`, +inf or NaN to invalid
+    candidates) to all points, itself included; ties and NaN as
+    ``torch.topk`` orders them (finite, +inf, NaN). Chunked over query rows:
+    peak memory ``chunk x N`` floats."""
+    _check_knn(points, valid, k)
+    pts = points.float()
+    mask = _cand_mask(valid)
+    out = torch.empty((pts.shape[0], k + 1), device=pts.device)
+    for s in range(0, pts.shape[0], chunk):
+        d2 = _pairwise_sqdist(pts[s:s + chunk], pts).add_(mask)
+        out[s:s + chunk] = torch.topk(d2, k + 1, dim=1, largest=False).values
+        del d2
+    return out
+
+
+def knn_select(points: torch.Tensor, valid: torch.Tensor, k: int,
+               chunk: int = 1024) -> torch.Tensor:
+    """:func:`knn_select_plain`'s values: on the CPU that function, on the
+    card K8 (``kernels.knn_select``, one launch; ``chunk`` is the plain
+    version's alone) on the points packed with the same norms and the
+    mask, which gives the plain version's bits wherever cuBLAS computes
+    its products with the tiled GEMM (a chunk of one row goes to a gemv,
+    and tiny products to other kernels, which round the dot product in
+    another order); ``k + 1`` is at most ``kernels.KNN_MAX_K1`` there,
+    else ``ValueError``."""
+    _check_knn(points, valid, k)
+    if points.device.type == "cpu" and valid.device.type == "cpu":
+        return knn_select_plain(points, valid, k, chunk)
+    if points.device != valid.device:
+        raise ValueError("knn_select: tensors on several devices")
+    pts = points.float().contiguous()
+    norms = (pts * pts).sum(1)
+    cands = torch.cat([pts * -2.0, (norms + _cand_mask(valid.bool()))[:, None]],
+                      1)
+    return K.knn_select(pts, norms, cands, k)
+
+
 def knn_mean_distance(points: torch.Tensor, valid: torch.Tensor, k: int = 8,
                       chunk: int = 1024) -> torch.Tensor:
     """Mean distance of each point to its ``k`` nearest valid neighbours
     (the nearest hit, the point itself, excluded); +inf for invalid
-    points. Chunked over query rows: peak memory ``chunk x N``."""
-    pts = points.float()
-    mask = _cand_mask(valid)
-    out = torch.empty(pts.shape[0], device=pts.device)
-    for s in range(0, pts.shape[0], chunk):
-        d2 = _pairwise_sqdist(pts[s:s + chunk], pts).add_(mask)
-        near = torch.topk(d2, k + 1, dim=1, largest=False).values
-        del d2
-        out[s:s + chunk] = torch.sqrt(near[:, 1:]).mean(1)
+    points. The selection is :func:`knn_select`: K8 on the card, its
+    plain version ``chunk`` rows at a time on the CPU."""
+    near = knn_select(points, valid, k, chunk=chunk)
+    out = torch.sqrt(near[:, 1:]).mean(1)
     return torch.where(valid, out, float("inf"))
 
 

@@ -152,5 +152,7 @@ def load() -> ctypes.CDLL:
     lib.pcmi_cost_volume.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
                                      i, i, f, i, i, i, i, p]
     lib.pcmi_cost_volume.restype = i
+    lib.pcmi_knn_select.argtypes = [p, p, i, p, i, i, i, i, p, p]
+    lib.pcmi_knn_select.restype = i
     _LIB = lib
     return lib

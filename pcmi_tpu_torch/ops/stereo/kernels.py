@@ -1,5 +1,5 @@
-"""The matcher's hand-written Hopper kernels, their plain versions and
-their wrappers.
+"""The port's hand-written Hopper kernels (the matcher's, and the point
+cloud's kNN selection), their plain versions and their wrappers.
 
 * K1 ``sgm_dir``: one SGM direction over (D, H, W); replaces
   ``_dir_call_sub`` / ``_make_dir_kernel_sub``
@@ -24,6 +24,11 @@ their wrappers.
   once; and ``census``, the census transform of one image. No TPU kernel:
   the reference builds both in XLA (``matching.build_cost_volume``).
   Source ``csrc/cost_volume.cu``.
+* K8 ``knn_select``: each point's k + 1 smallest squared distances to the
+  valid points, for the kNN outlier mask. No TPU kernel: the reference
+  selects with XLA (a matmul and ``lax.top_k`` in
+  ``pcmi_tpu/ops/pointcloud.py``, ``knn_mean_distance``). Source
+  ``csrc/knn_select.cu``.
 
 Each wrapper of K1-K6 takes contiguous float32 or bfloat16 tensors (all
 tensors of one call the same; K4 float32 only, as its TPU kernel), on any
@@ -45,13 +50,15 @@ operands already rounded, the sum rounded again). ``BIG`` and ``fill``
 take the stored dtype's value where they are stored (998244352 and, for
 ``fill=1e4``, 9984 in bfloat16). Each source file
 notes what bounds its kernel on the card and what its design does about it.
-K1-K3, K7 and the census run on the matcher's main path; K4-K6 behind the
+K1-K3, K7 and the census run on the matcher's main path, K8 in
+``ops/pointcloud.knn_mean_distance`` (which holds its plain version); K4-K6 behind the
 alternative-layout entry points of :mod:`pcmi_tpu_torch.ops.stereo.layouts`. K1 and K5 are one
 tile kernel (``csrc/sgm_tile.cuh``) under two sets of strides, and K4 uses
 its scan step; each has a launch plan here (:func:`sgm_dir_plan`,
-:func:`sgm_blocked_plan`, :func:`sgm_hwd_plan`, and K7's
-:func:`cost_volume_plan`) that the CPU tests check against the card's
-shared memory.
+:func:`sgm_blocked_plan`, :func:`sgm_hwd_plan`, K7's
+:func:`cost_volume_plan` and K8's :func:`knn_select_plan`) that the CPU
+tests check against the card's shared memory or the source's
+instantiations.
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ BIG = 1e9  # the reference's "no neighbour" / "never wins" value
 
 LAUNCHES = {"sgm_dir": 0, "wta": 0, "derive_right": 0, "sgm_hwd": 0,
             "sgm_blocked": 0, "derive_right_wdh": 0, "cost_volume": 0,
-            "census": 0}
+            "census": 0, "knn_select": 0}
 
 
 def reset_launches() -> None:
@@ -887,3 +894,67 @@ def cost_volume(left: torch.Tensor, census_l, valid_l: torch.Tensor,
     _check("cost_volume", rc)
     LAUNCHES["cost_volume"] += 1
     return vol
+
+
+# ---------------------------------------------------------------------------
+# K8 knn_select
+# ---------------------------------------------------------------------------
+
+
+KNN_MAX_K1 = 32      # csrc/knn_select.cu: kMaxK1
+_KNN_THREADS = 128   # csrc/knn_select.cu: kThreads
+
+
+class KnnSelectPlan(NamedTuple):
+    """K8's launch plan: sorted lists of ``cap`` keys (the least power of
+    two >= k + 1, at least 2), ``queries`` queries a thread, ``tiles``
+    blocks of 128 x ``queries`` queries, each against every candidate."""
+    cap: int
+    queries: int
+    tiles: int
+
+
+def knn_select_plan(M: int, N: int, k: int) -> KnnSelectPlan:
+    """K8's plan for ``M`` queries against ``N`` candidates: lists of up to
+    8 keys take 4 queries a thread, of 16 keys 2, of 32 one (the fastest
+    at 327,680 points)."""
+    k1 = k + 1
+    if M < 1 or N < k1 or not 1 <= k1 <= KNN_MAX_K1:
+        raise ValueError(f"knn_select: no plan for M={M}, N={N}, k={k} "
+                         f"(1 <= k + 1 <= min(N, {KNN_MAX_K1}))")
+    cap = max(2, 1 << (k1 - 1).bit_length())
+    q = 4 if cap <= 8 else 2 if cap == 16 else 1
+    return KnnSelectPlan(cap, q, -(-M // (_KNN_THREADS * q)))
+
+
+def knn_select(queries: torch.Tensor, qnorm: torch.Tensor,
+               cands: torch.Tensor, k: int) -> torch.Tensor:
+    """K8 wrapper, on the card only: (M, k + 1) ascending, for each of the
+    (M, 3) ``queries`` (their squared norms ``qnorm``, (M,)) the ``k + 1``
+    smallest of ``((q . c) * -2 + |q|^2) + |c|^2``, clamped at 0, over the
+    (N, 4) ``cands`` packed as ``(-2x, -2y, -2z, |c|^2 + mask)``, all
+    float32. ``ops/pointcloud.knn_select`` packs them and holds the
+    semantics; one launch, which never forms the M x N block. ``k + 1`` is
+    at most :data:`KNN_MAX_K1`, else ``ValueError``."""
+    if queries.dim() != 2 or queries.shape[1] != 3 or \
+            qnorm.shape != queries.shape[:1] or \
+            cands.dim() != 2 or cands.shape[1] != 4:
+        raise ValueError(f"knn_select: expected (M, 3) queries, (M,) norms "
+                         f"and (N, 4) candidates, got "
+                         f"{[tuple(t.shape) for t in (queries, qnorm, cands)]}")
+    if not _on_cuda("knn_select", queries, qnorm, cands,
+                    dtypes=(torch.float32,)):
+        raise ValueError("knn_select: K8 runs on the card; "
+                         "ops/pointcloud.knn_select_plain is the CPU's")
+    m, n = queries.shape[0], cands.shape[0]
+    plan = knn_select_plan(m, n, k)
+    from pcmi_tpu_torch.ops.stereo._build import load
+
+    lib = load()
+    out = torch.empty((m, k + 1), device=queries.device)
+    rc = lib.pcmi_knn_select(
+        queries.data_ptr(), qnorm.data_ptr(), m, cands.data_ptr(), n, k + 1,
+        plan.cap, plan.queries, out.data_ptr(), _stream())
+    _check("knn_select", rc)
+    LAUNCHES["knn_select"] += 1
+    return out

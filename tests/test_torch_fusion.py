@@ -23,6 +23,7 @@ from pcmi_tpu_torch import convert
 from pcmi_tpu_torch.geometry import pairs as tpairs
 from pcmi_tpu_torch.ops import pointcloud as tpc
 from pcmi_tpu_torch.ops import segmented as tseg
+from pcmi_tpu_torch.ops.stereo import kernels as tk
 from pcmi_tpu_torch.pipelines import streaming as tst
 
 torch.set_num_threads(1)
@@ -263,6 +264,66 @@ def test_knn_mean_distance(chunk):
     np.testing.assert_array_equal(np.isinf(got), np.isinf(ref))
     fin = np.isfinite(ref)
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-4, atol=1e-4)
+
+
+def _jax_knn_select(pts, valid, k):
+    """The reference's selection (``pcmi_tpu/ops/pointcloud.py``,
+    ``knn_mean_distance``): its distances and masked ``lax.top_k``."""
+    p = jnp.asarray(pts)
+    d2 = jpc._pairwise_sqdist(p, p) + jnp.where(jnp.asarray(valid), 0.0,
+                                                jnp.inf)[None, :]
+    return np.asarray(-jax.lax.top_k(-d2, k + 1)[0])
+
+
+@pytest.mark.parametrize("chunk", [64, 700, 4096])
+@pytest.mark.parametrize("k", [1, 8, 12, 31])
+def test_knn_select_plain_is_lax_top_k(k, chunk):
+    """K8's plain version against the reference's ``lax.top_k`` values,
+    on a cloud with planted outliers, duplicates and invalid rows: +inf
+    where and only where the reference has it, finite values within the
+    distance product's float32 rounding (``test_pairwise_sqdist_expansion``
+    measured 1.5e-5 at ~3e5), ascending rows."""
+    pts, valid = _cloud(900, seed=k)
+    pts[600:620] = pts[100:120]
+    ref = _jax_knn_select(pts, valid, k)
+    got = _np(tpc.knn_select_plain(_t(pts), _t(valid), k, chunk=chunk))
+    assert got.shape == (900, k + 1)
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(ref))
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-2)
+    assert (np.diff(got, axis=1) >= 0).all()
+
+
+def test_knn_select_sparse_rows_and_refusals():
+    """With fewer than k + 1 valid candidates a row ends in +inf, as the
+    reference's; fewer than k + 1 points or a bad shape raise; a CPU call
+    is the plain version and launches nothing."""
+    pts, valid = _cloud(50, seed=9)
+    valid[:] = False
+    valid[[3, 17, 40]] = True
+    tk.reset_launches()
+    got = _np(tpc.knn_select(_t(pts), _t(valid), 5))
+    np.testing.assert_array_equal(got, _jax_knn_select(pts, valid, 5))
+    assert np.isfinite(got[:, :3]).all() and np.isinf(got[:, 3:]).all()
+    for bad in ((pts[:5], valid[:5], 5), (pts[:, :2], valid, 1),
+                (pts, valid[:10], 1)):
+        with pytest.raises(ValueError):
+            tpc.knn_select(*map(_t, bad[:2]), bad[2])
+    assert not any(tk.LAUNCHES.values())
+
+
+def test_knn_mean_distance_on_cpu_launches_nothing():
+    """On a CPU tensor ``knn_mean_distance`` takes the plain selection,
+    ``LAUNCHES["knn_select"]`` stays 0, and its values are the plain
+    selection's mean square roots."""
+    pts, valid = _cloud(400, seed=3)
+    tk.reset_launches()
+    got = tpc.knn_mean_distance(_t(pts), _t(valid), k=8, chunk=128)
+    assert tk.LAUNCHES["knn_select"] == 0
+    near = tpc.knn_select_plain(_t(pts), _t(valid), 8, chunk=128)
+    ref = torch.where(_t(valid), torch.sqrt(near[:, 1:]).mean(1),
+                      float("inf"))
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("n_valid_parity", ["odd", "even"])

@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from pcmi_tpu_torch.ops.pointcloud import knn_select
 from pcmi_tpu_torch.ops.stereo import _build
 from pcmi_tpu_torch.ops.stereo import kernels as K
 
@@ -218,7 +219,8 @@ def test_no_file_imports_jax():
 def test_nvcc_command_names_sm90a_and_every_source():
     srcs = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert srcs == ["cost_volume.cu", "derive_right.cu", "derive_right_wdh.cu",
-                    "sgm_blocked.cu", "sgm_dir.cu", "sgm_hwd.cu", "wta.cu"]
+                    "knn_select.cu", "sgm_blocked.cu", "sgm_dir.cu",
+                    "sgm_hwd.cu", "wta.cu"]
     compiles, link = _build.nvcc_commands(_build.library_path(), "nvcc")
     for cmd in compiles:  # one nvcc per source, each for sm_90a
         assert "arch=compute_90a,code=sm_90a" in cmd
@@ -272,10 +274,12 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     K.cost_volume(img, cen, img > 0.1, img.flip(1).contiguous(), cen,
                   img > 0.2, d_min=-2, planes=4, stride=1, block=3,
                   census_window=3, ad_weight=0.3)
+    knn_select(vol[0, :4, :3].contiguous(), torch.ones(4, dtype=torch.bool),
+               2)
     assert K.LAUNCHES == {"sgm_dir": 0, "wta": 0, "derive_right": 0,
                           "sgm_hwd": 0, "sgm_blocked": 0,
                           "derive_right_wdh": 0, "cost_volume": 0,
-                          "census": 0}
+                          "census": 0, "knn_select": 0}
 
 
 def _pow2(n: int) -> bool:
@@ -480,6 +484,41 @@ def test_cost_volume_generic_plan():
     for bad in ((0, 8, 8, 3), (8, 0, 8, 3), (8, 8, 8, 0)):
         with pytest.raises(ValueError):
             K.cost_volume_plan(*bad)
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 7, 8, 12, 15, 16, 31])
+def test_knn_select_plan_covers_and_fits(k):
+    """K8's plan over sizes from k + 1 to 2,621,440 points: its list holds
+    k + 1 keys and is one the source instantiates, as is its count of
+    queries a thread, the query tiles cover every query and the grid
+    fits; the constants are the source's."""
+    src = (PKG / "csrc" / "knn_select.cu").read_text()
+    assert f"constexpr int kThreads = {K._KNN_THREADS};" in src
+    assert f"constexpr int kMaxK1 = {K.KNN_MAX_K1};" in src
+    for n in sorted({k + 1, k + 2, 255, 257, 1000, 4096, 65537, 327680,
+                     655360, 2621440} - set(range(k + 1))):
+        p = K.knn_select_plan(n, n, k)
+        assert p.cap >= k + 1 and f"case {p.cap}: return (int)launch_cap<" \
+            f"{p.cap}>" in src
+        assert p.cap < 2 * (k + 1) or p.cap == 2
+        assert f"case {p.queries}:" in src
+        per_tile = K._KNN_THREADS * p.queries
+        assert p.tiles * per_tile >= n > (p.tiles - 1) * per_tile
+        assert 1 <= p.tiles < 2 ** 31
+
+
+def test_knn_select_plan_refuses():
+    """No plan for k + 1 past the longest list or past the points; the
+    wrapper takes card tensors of the packed shapes only, and refuses
+    before loading the library."""
+    for bad in ((100, 100, 32), (100, 100, -1), (8, 8, 8), (0, 8, 1)):
+        with pytest.raises(ValueError):
+            K.knn_select_plan(*bad)
+    q, n, c = torch.zeros(8, 3), torch.zeros(8), torch.zeros(8, 4)
+    for bad in ((q, n, c), (q[:, :2], n, c), (q, n[:4], c), (q, n, c[:, :3])):
+        with pytest.raises(ValueError):
+            K.knn_select(*bad, 2)
+    assert K.LAUNCHES["knn_select"] == 0
 
 
 def _global_kernels(path: Path) -> list:

@@ -56,9 +56,10 @@ def _fuse(scene):
     fusion = multiday.MultiDayFusion(CFG, device="cpu")
     metas = [ImageMeta(i, inc, az, date=30.0 * i)
              for i, (inc, az) in enumerate(VIEWS3)]
-    fusion.run(scene.images, scene.rpcs, metas, *aoi_lonlat_ranges(scene),
-               points_per_pair=1 << 10, with_kmeans=True, grid_cell=2.0)
-    return fusion
+    cloud = fusion.run(scene.images, scene.rpcs, metas,
+                       *aoi_lonlat_ranges(scene), points_per_pair=1 << 10,
+                       with_kmeans=True, grid_cell=2.0)
+    return fusion, cloud
 
 
 def _recorded(fn):
@@ -96,7 +97,7 @@ def test_tracing_off_records_nothing(pair, scene, monkeypatch):
     with profiling.span("x", "cuda") as s:
         s.count(n=2)
     pair()
-    fusion = _fuse(scene)
+    fusion, _ = _fuse(scene)
     assert fusion.stage_ms == {}
     assert len(profiling.spans()) == before
     assert "synchronize" not in inspect.getsource(multiday)
@@ -149,14 +150,19 @@ def test_spans_share_the_profiler_clock(pair):
 
 def test_aoi_stage_ms_under_recording(scene):
     """A recorded fusion: one ``aoi`` span of six stage spans that cover
-    it, the stereo stage counting its pairs, and ``stage_ms`` with its
-    five keys (device ms; the host's on the CPU)."""
-    fusion, rec = _recorded(lambda: _fuse(scene))
+    it, the stereo stage counting its pairs, the kNN mask its points and
+    its K8 launches (none on the CPU), and ``stage_ms`` with its five keys
+    (device ms; the host's on the CPU)."""
+    (fusion, cloud), rec = _recorded(lambda: _fuse(scene))
     top = next(s for s in rec if s.name == "aoi")
     assert top.parent is None
     _assert_partition(top, AOI_STAGES)
     stereo = top.children[1]
     assert stereo.counts == {"asked": 3, "fused": 3, "skipped": 0}
+    knn = top.children[3]
+    assert knn.counts == {"kernel_launches": 0,
+                          "points": cloud.points.shape[0]}
+    assert cloud.points.shape[0] > 1000
     assert [k.name for k in stereo.children] == ["pair"] * 3
     ms = fusion.stage_ms
     assert list(ms) == ["stereo", "icp", "knn_mask", "dsm", "kmeans"]
