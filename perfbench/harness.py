@@ -24,7 +24,9 @@ import importlib.util
 import json
 import math
 import random
+import statistics
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -86,15 +88,16 @@ class Cell:
 class Run:
     """What a run recorded, as the metric readers read it: the cell, the
     set-up time, each request's host times (``t0``, ``t1``), ``units`` and
-    the driver's ``info``, the window's length and, with a trace, the
-    device operations ``(name, start_us, end_us)`` and the device's busy
-    time."""
+    the driver's ``info``, the window's length, the SM clock's samples
+    over it (MHz; none without NVML) and, with a trace, the device
+    operations ``(name, start_us, end_us)`` and the device's busy time."""
 
     def __init__(self, cell: Cell):
         self.cell = cell
         self.setup_s = math.nan
         self.requests: List[dict] = []
         self.window_s = math.nan
+        self.sm_mhz: List[float] = []
         self.device_ops: List[tuple] = []
         self.busy_s = math.nan
 
@@ -110,6 +113,71 @@ class Run:
         ``perfbench/kernels/<group>/``."""
         return sorted(p.read_text().strip()
                       for p in (PERFBENCH / "kernels" / group).glob("*.txt"))
+
+
+class SMClock:
+    """The card's SM clock, sampled every ``period`` seconds by a thread
+    while the window runs, through NVML where ``torch.cuda`` found
+    ``pynvml`` (nothing is sampled otherwise, nor on the CPU). It only
+    queries: no clock or limit of the card is set."""
+
+    def __init__(self, device: str, period: float = 0.2):
+        self.samples: List[float] = []
+        self.device, self.period = device, period
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _read(self) -> Optional[float]:
+        try:
+            return float(torch.cuda.clock_rate())
+        except Exception:  # noqa: BLE001 (no NVML: nothing sampled)
+            return None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.period):
+            mhz = self._read()
+            if mhz is None:
+                return
+            self.samples.append(mhz)
+
+    def __enter__(self):
+        if torch.device(self.device).type == "cuda" and \
+                self._read() is not None:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+        return False
+
+
+def _quartiles(values: List[float]) -> Optional[List[float]]:
+    if len(values) < 2:
+        return list(values) or None
+    return statistics.quantiles(values, n=4)
+
+
+def window_note(run: Run, stretch_s: float = 10.0) -> dict:
+    """What a window's requests did, for standard error: the quartiles of
+    the request times, the mean request time of each ``stretch_s`` stretch
+    of the window (by when a request ended) and the quartiles of the SM
+    clock's samples. Reads ``run`` and changes nothing in it."""
+    lat = run.latencies_ms()
+    stretches: Dict[int, List[float]] = {}
+    if run.requests:
+        start = run.requests[0]["t0"]
+        for r, ms in zip(run.requests, lat):
+            stretches.setdefault(int((r["t1"] - start) // stretch_s),
+                                 []).append(ms)
+    return {"requests": len(lat), "request_ms_quartiles": _quartiles(lat),
+            "stretch_s": stretch_s,
+            "stretch_mean_ms": [statistics.fmean(v) for _, v in
+                                sorted(stretches.items())],
+            "sm_mhz_quartiles": _quartiles(run.sm_mhz),
+            "sm_samples": len(run.sm_mhz)}
 
 
 def _union_us(intervals) -> float:
@@ -293,10 +361,11 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         # the device alone (on a CPU run, which has none, the host)
         alone = (ProfilerActivity.CUDA if torch.device(device).type == "cuda"
                  else ProfilerActivity.CPU)
-        with profile(activities=[alone]) as prof:
+        with profile(activities=[alone]) as prof, SMClock(device) as clock:
             t_start = time.perf_counter()
             t_end = serve(first(n), record=True)
         run.window_s = t_end - t_start
+        run.sm_mhz = clock.samples
         ops = read_device_trace(prof, run)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -304,10 +373,12 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         breakdown = {"device_ops": ops, "idle_gaps": idle_gaps(prof)}
         del prof
     else:
-        t_start = time.perf_counter()
-        deadline = t_start + seconds
-        t_end = serve(lambda t: t < deadline, record=True)
+        with SMClock(device) as clock:
+            t_start = time.perf_counter()
+            deadline = t_start + seconds
+            t_end = serve(lambda t: t < deadline, record=True)
         run.window_s = t_end - t_start
+        run.sm_mhz = clock.samples
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
     return (run, driver, keep.answers(), counts["attempted"],
@@ -359,6 +430,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     cell = Cell(Path(root), name)
     run, driver, kept, attempted, failed, peak, breakdown = measure(
         cell, seed, seconds, trace, device, process_start, log)
+    log("window: " + json.dumps(window_note(run)))
     answers = [driver.to_host(a) for a in kept]
     del kept
     driver.release()
