@@ -23,7 +23,9 @@ import gc
 import importlib.util
 import json
 import math
+import os
 import random
+import resource
 import statistics
 import sys
 import threading
@@ -36,6 +38,9 @@ import torch
 PERFBENCH = Path(__file__).resolve().parent
 # modules that may not be loaded in a run, compared by top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "pcmi_tpu")
+# the window's line on standard error: request times averaged over
+# stretches this long
+STRETCH_S = 10.0
 
 
 def forbidden_modules() -> List[str]:
@@ -88,16 +93,16 @@ class Cell:
 class Run:
     """What a run recorded, as the metric readers read it: the cell, the
     set-up time, each request's host times (``t0``, ``t1``), ``units`` and
-    the driver's ``info``, the window's length, the SM clock's samples
-    over it (MHz; none without NVML) and, with a trace, the device
-    operations ``(name, start_us, end_us)`` and the device's busy time."""
+    the driver's ``info``, the window's length, :func:`host_reading` at
+    its start and end and, with a trace, the device operations
+    ``(name, start_us, end_us)`` and the device's busy time."""
 
     def __init__(self, cell: Cell):
         self.cell = cell
         self.setup_s = math.nan
         self.requests: List[dict] = []
         self.window_s = math.nan
-        self.sm_mhz: List[float] = []
+        self.host: List[dict] = []
         self.device_ops: List[tuple] = []
         self.busy_s = math.nan
 
@@ -115,43 +120,64 @@ class Run:
                       for p in (PERFBENCH / "kernels" / group).glob("*.txt"))
 
 
-class SMClock:
-    """The card's SM clock, sampled every ``period`` seconds by a thread
-    while the window runs, through NVML where ``torch.cuda`` found
-    ``pynvml`` (nothing is sampled otherwise, nor on the CPU). It only
-    queries: no clock or limit of the card is set."""
+def host_reading(device: str) -> dict:
+    """Counters of this process and its machine at one moment, read and
+    never set: the process's CPU seconds, the main thread's, its voluntary
+    and involuntary context switches (``getrusage``), the load average and
+    the mean clock of the cores it may run on (``/proc``, where the
+    machine gives them) and the card's SM clock (MHz, through NVML where
+    ``torch.cuda`` found ``pynvml``)."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    out = {"cpu_s": ru.ru_utime + ru.ru_stime,
+           "main_cpu_s": time.thread_time(),
+           "nvcsw": ru.ru_nvcsw, "nivcsw": ru.ru_nivcsw}
+    with contextlib.suppress(OSError, ValueError):
+        out["loadavg"] = [float(x) for x in
+                          Path("/proc/loadavg").read_text().split()[:3]]
+    with contextlib.suppress(OSError, ValueError, AttributeError):
+        cores = os.sched_getaffinity(0)
+        mhz, core = [], None
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() == "processor":
+                core = int(value)
+            elif key.strip() == "cpu MHz" and core in cores:
+                mhz.append(float(value))
+        if mhz:
+            out["cpu_mhz"] = statistics.fmean(mhz)
+    if torch.device(device).type == "cuda":
+        with contextlib.suppress(Exception):  # no NVML: no clock
+            out["sm_mhz"] = float(torch.cuda.clock_rate())
+    return out
 
-    def __init__(self, device: str, period: float = 0.2):
-        self.samples: List[float] = []
-        self.device, self.period = device, period
-        self._stop = threading.Event()
-        self._thread = None
 
-    def _read(self) -> Optional[float]:
-        try:
-            return float(torch.cuda.clock_rate())
-        except Exception:  # noqa: BLE001 (no NVML: nothing sampled)
-            return None
-
-    def _loop(self) -> None:
-        while not self._stop.wait(self.period):
-            mhz = self._read()
-            if mhz is None:
-                return
-            self.samples.append(mhz)
-
-    def __enter__(self):
-        if torch.device(self.device).type == "cuda" and \
-                self._read() is not None:
-            self._thread = threading.Thread(target=self._loop, daemon=True)
-            self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        if self._thread is not None:
-            self._thread.join()
-        return False
+@contextlib.contextmanager
+def pinned():
+    """Run the block with the calling (main) thread alone on the last core
+    the process may use and every other thread of the process on the rest;
+    each thread's cores are given back on exit (a thread started inside
+    gets all of the process's). Nothing is changed where the process has
+    one core or the system has no ``/proc/self/task``."""
+    try:
+        cores = sorted(os.sched_getaffinity(0))
+        tids = [int(t) for t in os.listdir("/proc/self/task")]
+    except (OSError, AttributeError):
+        cores, tids = [], []
+    main = threading.get_native_id()
+    before = {}
+    if len(cores) > 1:
+        for tid in tids:
+            with contextlib.suppress(OSError):  # a thread that has ended
+                before[tid] = os.sched_getaffinity(tid)
+                os.sched_setaffinity(
+                    tid, cores[-1:] if tid == main else cores[:-1])
+    try:
+        yield
+    finally:
+        for tid in ([int(t) for t in os.listdir("/proc/self/task")]
+                    if before else []):
+            with contextlib.suppress(OSError):
+                os.sched_setaffinity(tid, before.get(tid, cores))
 
 
 def _quartiles(values: List[float]) -> Optional[List[float]]:
@@ -160,24 +186,33 @@ def _quartiles(values: List[float]) -> Optional[List[float]]:
     return statistics.quantiles(values, n=4)
 
 
-def window_note(run: Run, stretch_s: float = 10.0) -> dict:
+def window_note(run: Run) -> dict:
     """What a window's requests did, for standard error: the quartiles of
-    the request times, the mean request time of each ``stretch_s`` stretch
-    of the window (by when a request ended) and the quartiles of the SM
-    clock's samples. Reads ``run`` and changes nothing in it."""
+    the request times, the mean request time and main-thread CPU time of
+    each :data:`STRETCH_S` stretch of the window (by when a request
+    ended), and how each of :func:`host_reading`'s counters moved over the
+    window (clocks and the load average: at its start and end). Reads
+    ``run`` and changes nothing in it."""
     lat = run.latencies_ms()
-    stretches: Dict[int, List[float]] = {}
+    stretches: Dict[int, List[tuple]] = {}
     if run.requests:
         start = run.requests[0]["t0"]
         for r, ms in zip(run.requests, lat):
-            stretches.setdefault(int((r["t1"] - start) // stretch_s),
-                                 []).append(ms)
+            stretches.setdefault(int((r["t1"] - start) // STRETCH_S),
+                                 []).append((ms, 1e3 * r.get("cpu_s", 0.0)))
+    host: Dict[str, object] = {}
+    if len(run.host) == 2:
+        a, b = run.host
+        for k in a.keys() & b.keys():
+            host[k] = ([a[k], b[k]] if k in ("loadavg", "cpu_mhz", "sm_mhz")
+                       else b[k] - a[k])
+    means = [[statistics.fmean(c) for c in zip(*v)]
+             for _, v in sorted(stretches.items())]
     return {"requests": len(lat), "request_ms_quartiles": _quartiles(lat),
-            "stretch_s": stretch_s,
-            "stretch_mean_ms": [statistics.fmean(v) for _, v in
-                                sorted(stretches.items())],
-            "sm_mhz_quartiles": _quartiles(run.sm_mhz),
-            "sm_samples": len(run.sm_mhz)}
+            "stretch_s": STRETCH_S,
+            "stretch_mean_ms": [m[0] for m in means],
+            "stretch_cpu_ms": [m[1] for m in means],
+            "host": dict(sorted(host.items()))}
 
 
 def _union_us(intervals) -> float:
@@ -330,7 +365,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         returns the end of the last one."""
         t_end = time.perf_counter()
         while more(t_end):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
             counts["attempted"] += 1
             try:
                 out = driver.request()
@@ -342,7 +377,9 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
                 continue
             t_end = time.perf_counter()
             if record:
-                run.requests.append(dict(t0=t0, t1=t_end, units=out["units"],
+                run.requests.append(dict(t0=t0, t1=t_end,
+                                         cpu_s=time.thread_time() - c0,
+                                         units=out["units"],
                                          **out.get("info", {})))
                 keep.offer(out["answer"])
             del out
@@ -361,11 +398,12 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         # the device alone (on a CPU run, which has none, the host)
         alone = (ProfilerActivity.CUDA if torch.device(device).type == "cuda"
                  else ProfilerActivity.CPU)
-        with profile(activities=[alone]) as prof, SMClock(device) as clock:
+        with profile(activities=[alone]) as prof:
+            run.host.append(host_reading(device))
             t_start = time.perf_counter()
             t_end = serve(first(n), record=True)
+            run.host.append(host_reading(device))
         run.window_s = t_end - t_start
-        run.sm_mhz = clock.samples
         ops = read_device_trace(prof, run)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -373,12 +411,13 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         breakdown = {"device_ops": ops, "idle_gaps": idle_gaps(prof)}
         del prof
     else:
-        with SMClock(device) as clock:
+        with pinned():
+            run.host.append(host_reading(device))
             t_start = time.perf_counter()
             deadline = t_start + seconds
             t_end = serve(lambda t: t < deadline, record=True)
+            run.host.append(host_reading(device))
         run.window_s = t_end - t_start
-        run.sm_mhz = clock.samples
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
     return (run, driver, keep.answers(), counts["attempted"],
