@@ -369,10 +369,11 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from pcmi_tpu_torch.ops.stereo import _build
+    from pcmi_tpu_torch.ops.stereo.kernels import library
 
     t0 = time.perf_counter()
     lib = _build.build()
-    _build.load()
+    library()
     print(f"build: {len(_build.sources())} sources "
           f"{[s.name for s in _build.sources()]} -> {lib.name} "
           f"in {time.perf_counter() - t0:.1f} s")
@@ -995,9 +996,8 @@ def phase_ragged() -> None:
     wholly outside the image, fills 1.0 and 1e4). K1, K2, K3, K5 and K6
     in float32 and in bfloat16; every output bit-exact."""
     from pcmi_tpu_torch.ops.stereo import kernels as K
-    from pcmi_tpu_torch.ops.stereo._build import load
 
-    lib = load()
+    lib = K.library()
     if (lib.pcmi_sgm_dir_max_disp(), lib.pcmi_sgm_hwd_max_disp(),
             lib.pcmi_sgm_blocked_max_disp()) != (
             K.SGM_DIR_MAX_DISP, K.SGM_HWD_MAX_DISP, K.SGM_BLOCKED_MAX_DISP):

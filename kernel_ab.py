@@ -217,22 +217,6 @@ def turn(root: str, dtype: str = "float32", shapes=SHAPES) -> dict:
     return res
 
 
-def _bind(lib):
-    import ctypes
-
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    argtypes = {
-        "pcmi_sgm_dir": [p, p, i, i, i, i, i, i, f, f, i, i, i, p],
-        "pcmi_sgm_hwd": [p, p, i, i, i, i, i, i, f, f, i, p],
-        "pcmi_sgm_blocked": [p, p, p, i, i, i, f, f, i, i, i, i, p],
-        "pcmi_wta": [p, p, i, i, i, f, f, f, i, p, p, p, p, i, p],
-    }
-    for name, types in argtypes.items():
-        getattr(lib, name).argtypes = types
-        getattr(lib, name).restype = i
-    return lib
-
-
 _ABLATED = ("sgm_dir.cu", "sgm_hwd.cu", "sgm_blocked.cu", "wta.cu")
 # variant: extra nvcc flags; the switches are in sgm_tile.cuh and wta.cu
 ABLATIONS = {
@@ -350,8 +334,9 @@ def _study(ablation: bool, dtype: str = "float32") -> None:
     sys.path.insert(0, str(root))
     from pcmi_tpu_torch.ops.stereo import kernels as K
 
-    libs = {n: _bind(lib) for n, lib in _ablation_libs(
-        root, ABLATIONS if ablation else PLANS).items()}
+    libs = {n: K.bind(lib, [src[:-3] for src in _ABLATED])
+            for n, lib in _ablation_libs(
+                root, ABLATIONS if ablation else PLANS).items()}
     esize = 2 if dtype == "bfloat16" else 4
     for (D, H, W), stride in SHAPES:
         vol, out = _volumes((D, H, W), dtype)

@@ -38,8 +38,10 @@ layout) before it runs anything. A tensor on the CPU then goes through the
 kernel's plain PyTorch version; a CUDA tensor launches the kernel on the
 current stream, or raises :class:`KernelError` (a failed build or a
 refused launch). There is no fallback from the card to the plain version.
-:data:`LAUNCHES` counts kernel launches per kernel; only a launch adds to
-it.
+Every launch goes through :func:`_launch`, with the C signatures of
+:data:`SIGNATURES`: it counts the launch in :data:`LAUNCHES` and in every
+span open on the thread (``launches``, and K1's ``plans``; see
+:func:`pcmi_tpu_torch.utils.profiling.launched`).
 
 Volumes are stored in float32 or, under
 ``StereoConfig.cost_dtype="bfloat16"``, in bfloat16, with the TPU kernels'
@@ -63,18 +65,37 @@ instantiations.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from pcmi_tpu_torch.ops.stereo._build import KernelError
+from pcmi_tpu_torch.ops.stereo._build import KernelError, load
+from pcmi_tpu_torch.utils.profiling import launched
 
 BIG = 1e9  # the reference's "no neighbour" / "never wins" value
 
-LAUNCHES = {"sgm_dir": 0, "wta": 0, "derive_right": 0, "sgm_hwd": 0,
-            "sgm_blocked": 0, "derive_right_wdh": 0, "cost_volume": 0,
-            "census": 0, "knn_select": 0}
+# the argument kinds of each entry point ``pcmi_<name>`` of ``csrc/*.cu``
+# (p a pointer, i an int, f a float; each returns an int): a launch's last
+# argument is the stream, a ``*_max_disp`` query takes none
+SIGNATURES = {
+    "sgm_dir": "ppiiiiiiffiiip", "sgm_dir_max_disp": "",
+    "wta": "ppiiifffippppip",
+    "derive_right": "ppiiiiifip",
+    "sgm_hwd": "ppiiiiiiffip", "sgm_hwd_max_disp": "",
+    "sgm_blocked": "pppiiiffiiiip", "sgm_blocked_max_disp": "",
+    "derive_right_wdh": "ppiiiiiiifip",
+    "census": "pppiiip",
+    "cost_volume": "ppppppppppiiiiiifiiiip",
+    "knn_select": "ppipiiiipp",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+# launches per kernel: every entry point but the queries
+LAUNCHES = dict.fromkeys((n for n in SIGNATURES
+                          if not n.endswith("_max_disp")), 0)
 
 
 def reset_launches() -> None:
@@ -107,13 +128,37 @@ def _on_cuda(name: str, *tensors: torch.Tensor | None,
     return dev.type == "cuda"
 
 
-def _check(name: str, rc: int) -> None:
-    if rc != 0:
-        raise KernelError(f"{name}: CUDA launch failed, cudaError_t {rc}")
+def bind(lib, names=SIGNATURES):
+    """Declare the entry points ``pcmi_<name>`` of ``lib`` for ``names`` as
+    :data:`SIGNATURES` gives them; returns ``lib``."""
+    for name in names:
+        fn = getattr(lib, f"pcmi_{name}")
+        fn.argtypes = [_CTYPES[k] for k in SIGNATURES[name]]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def library():
+    """The kernel library, built and loaded at first use, every entry point
+    declared."""
+    return bind(load())
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _launch(name: str, *args, plan: str | None = None) -> None:
+    """Launch ``pcmi_<name>(*args, stream)`` on the current stream. A
+    refused launch raises :class:`KernelError` naming the kernel and counts
+    nothing; a launch counts once in :data:`LAUNCHES` and in the spans open
+    on this thread, with its ``plan`` (K1's) where given."""
+    rc = getattr(library(), f"pcmi_{name}")(*args, _stream())
+    if rc != 0:
+        raise KernelError(f"{name}: CUDA launch failed, cudaError_t {rc}")
+    LAUNCHES[name] += 1
+    launched(name, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -229,18 +274,6 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
     raise ValueError(f"sgm_dir: no launch plan fits D={D}")
 
 
-def sgm_pair_plan_text(shape, horizontal: bool, esize: int = 4) -> str:
-    """K1's plans for :func:`sgm_pair` on a (D, H, W) volume, as a span's
-    count: the axis (``h`` or ``v``), then paths x tile steps of the
-    forward launch and of the accumulating one, e.g. ``"h 4x4+4x2"``."""
-    D, H, W = shape
-    span = H if horizontal else W
-    fwd, acc = (sgm_dir_plan(D, span, horizontal, a, esize)
-                for a in (False, True))
-    return (f"{'h' if horizontal else 'v'} {fwd.paths}x{fwd.tile}"
-            f"+{acc.paths}x{acc.tile}")
-
-
 def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
             reverse: bool, out: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: see :func:`sgm_dir_plain` for the semantics."""
@@ -250,21 +283,17 @@ def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,
         raise ValueError("sgm_dir: out must have the cost volume's shape")
     if not _on_cuda("sgm_dir", cost, out):
         return sgm_dir_plain(cost, p1, p2, horizontal, reverse, out)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     D, H, W = cost.shape
     acc = out is not None
     esize = _esize(cost.dtype)
     plan = sgm_dir_plan(D, H if horizontal else W, horizontal, acc, esize)
     if out is None:
         out = torch.empty_like(cost)
-    rc = lib.pcmi_sgm_dir(cost.data_ptr(), out.data_ptr(), D, H, W,
-                          int(horizontal), int(reverse), int(acc),
-                          float(p1), float(p2), plan.paths, plan.tile,
-                          int(esize == 2), _stream())
-    _check("sgm_dir", rc)
-    LAUNCHES["sgm_dir"] += 1
+    _launch("sgm_dir", cost.data_ptr(), out.data_ptr(), D, H, W,
+            int(horizontal), int(reverse), int(acc), float(p1), float(p2),
+            plan.paths, plan.tile, int(esize == 2),
+            plan=f"{'h' if horizontal else 'v'} {plan.paths}x{plan.tile} "
+                 f"{'acc' if acc else 'fwd'}")
     return out
 
 
@@ -346,22 +375,17 @@ def wta(a: torch.Tensor, b: torch.Tensor | None, scale: float, d_min: int,
     if not _on_cuda("wta", a, b):
         return wta_plain(a, b, scale, d_min, stride, subpixel, with_margin,
                          with_aggregate)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     D, H, W = a.shape
     disp = torch.empty((H, W), dtype=torch.float32, device=a.device)
     best = torch.empty_like(disp)
     margin = torch.empty_like(disp) if with_margin else None
     agg = torch.empty_like(a) if with_aggregate else None
-    rc = lib.pcmi_wta(a.data_ptr(), b.data_ptr() if b is not None else None,
-                      D, H, W, float(scale), float(d_min), float(stride),
-                      int(subpixel), disp.data_ptr(), best.data_ptr(),
-                      margin.data_ptr() if margin is not None else None,
-                      agg.data_ptr() if agg is not None else None,
-                      int(a.dtype == torch.bfloat16), _stream())
-    _check("wta", rc)
-    LAUNCHES["wta"] += 1
+    _launch("wta", a.data_ptr(), b.data_ptr() if b is not None else None,
+            D, H, W, float(scale), float(d_min), float(stride), int(subpixel),
+            disp.data_ptr(), best.data_ptr(),
+            margin.data_ptr() if margin is not None else None,
+            agg.data_ptr() if agg is not None else None,
+            int(a.dtype == torch.bfloat16))
     return (disp, best, margin, agg) if with_aggregate else (disp, best,
                                                              margin)
 
@@ -393,16 +417,11 @@ def derive_right(vol: torch.Tensor, d_min: int, fill: float = 1.0,
         raise ValueError(f"derive_right: expected (D, H, W), got {tuple(vol.shape)}")
     if not _on_cuda("derive_right", vol):
         return derive_right_plain(vol, d_min, fill, stride)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     D, H, W = vol.shape
     out = torch.empty_like(vol)
-    rc = lib.pcmi_derive_right(vol.data_ptr(), out.data_ptr(), D, H, W,
-                               int(d_min), int(stride), float(fill),
-                               int(vol.dtype == torch.bfloat16), _stream())
-    _check("derive_right", rc)
-    LAUNCHES["derive_right"] += 1
+    _launch("derive_right", vol.data_ptr(), out.data_ptr(), D, H, W,
+            int(d_min), int(stride), float(fill),
+            int(vol.dtype == torch.bfloat16))
     return out
 
 
@@ -468,19 +487,14 @@ def sgm_hwd(cost: torch.Tensor, p1: float, p2: float, scan_axis: int,
         raise ValueError("sgm_hwd: out must have the cost volume's shape")
     if not _on_cuda("sgm_hwd", cost, out, dtypes=(torch.float32,)):
         return sgm_hwd_plain(cost, p1, p2, scan_axis, reverse, out)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     H, W, D = cost.shape
     acc = out is not None
     plan = sgm_hwd_plan(D, acc)
     if out is None:
         out = torch.empty_like(cost)
-    rc = lib.pcmi_sgm_hwd(cost.data_ptr(), out.data_ptr(), H, W, D,
-                          int(scan_axis), int(reverse), int(acc), float(p1),
-                          float(p2), plan.tile, _stream())
-    _check("sgm_hwd", rc)
-    LAUNCHES["sgm_hwd"] += 1
+    _launch("sgm_hwd", cost.data_ptr(), out.data_ptr(), H, W, D,
+            int(scan_axis), int(reverse), int(acc), float(p1), float(p2),
+            plan.tile)
     return out
 
 
@@ -528,22 +542,16 @@ def sgm_blocked(cost: torch.Tensor, p1: float, p2: float, reverse: bool,
         raise ValueError("sgm_blocked: prev must have the cost volume's shape")
     if not _on_cuda("sgm_blocked", cost, prev):
         return sgm_blocked_plain(cost, p1, p2, reverse, prev)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     nb, S, Dp, _ = cost.shape
     esize = _esize(cost.dtype)
     plan = sgm_blocked_plan(Dp, nb, prev is not None, esize)
     if any(t.data_ptr() % 16 for t in (cost, prev) if t is not None):
         raise ValueError("sgm_blocked: inputs must be 16-byte aligned")
     out = torch.empty_like(cost)
-    rc = lib.pcmi_sgm_blocked(cost.data_ptr(),
-                              prev.data_ptr() if prev is not None else None,
-                              out.data_ptr(), nb, S, Dp, float(p1), float(p2),
-                              int(reverse), plan.paths, plan.tile,
-                              int(esize == 2), _stream())
-    _check("sgm_blocked", rc)
-    LAUNCHES["sgm_blocked"] += 1
+    _launch("sgm_blocked", cost.data_ptr(),
+            prev.data_ptr() if prev is not None else None, out.data_ptr(),
+            nb, S, Dp, float(p1), float(p2), int(reverse), plan.paths,
+            plan.tile, int(esize == 2))
     return out
 
 
@@ -583,17 +591,10 @@ def derive_right_wdh(vol: torch.Tensor, d_real: int, w: int, d_min: int,
                          f"the padded volume {tuple(vol.shape)}")
     if not _on_cuda("derive_right_wdh", vol):
         return derive_right_wdh_plain(vol, d_real, w, d_min, stride, fill)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     out = torch.empty_like(vol)
-    rc = lib.pcmi_derive_right_wdh(vol.data_ptr(), out.data_ptr(), wp, dp, hp,
-                                   int(d_real), int(w), int(d_min),
-                                   int(stride), float(fill),
-                                   int(vol.dtype == torch.bfloat16),
-                                   _stream())
-    _check("derive_right_wdh", rc)
-    LAUNCHES["derive_right_wdh"] += 1
+    _launch("derive_right_wdh", vol.data_ptr(), out.data_ptr(), wp, dp, hp,
+            int(d_real), int(w), int(d_min), int(stride), float(fill),
+            int(vol.dtype == torch.bfloat16))
     return out
 
 
@@ -683,16 +684,11 @@ def census(img: torch.Tensor, window: int = 7):
         return census_plain(img, window)
     img = img.contiguous()
     _on_cuda("census", img, dtypes=(torch.float32,))
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     h, w = img.shape
     bits0 = torch.empty((h, w), dtype=torch.int32, device=img.device)
     bits1 = torch.empty_like(bits0)
-    rc = lib.pcmi_census(img.data_ptr(), bits0.data_ptr(), bits1.data_ptr(),
-                         h, w, int(window), _stream())
-    _check("census", rc)
-    LAUNCHES["census"] += 1
+    _launch("census", img.data_ptr(), bits0.data_ptr(), bits1.data_ptr(),
+            h, w, int(window))
     return bits0, bits1
 
 
@@ -874,9 +870,6 @@ def cost_volume(left: torch.Tensor, census_l, valid_l: torch.Tensor,
     _on_cuda("cost_volume", *census_l, *census_r, dtypes=(torch.int32,))
     if dtype not in VOLUME_DTYPES:
         raise TypeError(f"cost_volume: cannot store a volume in {dtype}")
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     h, w = left.shape
     plan = cost_volume_plan(planes, h, w, block)
     vl = valid_l.bool().contiguous().view(torch.uint8)
@@ -885,14 +878,12 @@ def cost_volume(left: torch.Tensor, census_l, valid_l: torch.Tensor,
     table = _census_table(left.device, census_window, ad_weight)
     vol = torch.empty((planes, h, w), dtype=dtype, device=left.device)
     (l0, l1), (r0, r1) = census_l, census_r
-    rc = lib.pcmi_cost_volume(
-        left.data_ptr(), l0.data_ptr(), l1.data_ptr(), vl.data_ptr(),
-        right.data_ptr(), r0.data_ptr(), r1.data_ptr(), vr.data_ptr(),
-        table.data_ptr(), vol.data_ptr(), planes, h, w, int(d_min),
-        int(stride), int(block), float(ad_weight), plan.tile_h, plan.tile_w,
-        plan.group, int(dtype == torch.bfloat16), _stream())
-    _check("cost_volume", rc)
-    LAUNCHES["cost_volume"] += 1
+    _launch("cost_volume",
+            left.data_ptr(), l0.data_ptr(), l1.data_ptr(), vl.data_ptr(),
+            right.data_ptr(), r0.data_ptr(), r1.data_ptr(), vr.data_ptr(),
+            table.data_ptr(), vol.data_ptr(), planes, h, w, int(d_min),
+            int(stride), int(block), float(ad_weight), plan.tile_h,
+            plan.tile_w, plan.group, int(dtype == torch.bfloat16))
     return vol
 
 
@@ -948,13 +939,8 @@ def knn_select(queries: torch.Tensor, qnorm: torch.Tensor,
                          "ops/pointcloud.knn_select_plain is the CPU's")
     m, n = queries.shape[0], cands.shape[0]
     plan = knn_select_plan(m, n, k)
-    from pcmi_tpu_torch.ops.stereo._build import load
-
-    lib = load()
     out = torch.empty((m, k + 1), device=queries.device)
-    rc = lib.pcmi_knn_select(
-        queries.data_ptr(), qnorm.data_ptr(), m, cands.data_ptr(), n, k + 1,
-        plan.cap, plan.queries, out.data_ptr(), _stream())
-    _check("knn_select", rc)
-    LAUNCHES["knn_select"] += 1
+    _launch("knn_select", queries.data_ptr(), qnorm.data_ptr(), m,
+            cands.data_ptr(), n, k + 1, plan.cap, plan.queries,
+            out.data_ptr())
     return out

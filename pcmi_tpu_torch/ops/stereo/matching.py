@@ -58,10 +58,7 @@ from pcmi_tpu_torch.ops.fused import mul_add
 from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo.kernels import _edge_pad, _sliding_sum
 from pcmi_tpu_torch.ops.stereo.layouts import right_disparity_fused
-from pcmi_tpu_torch.utils.profiling import active, span
-
-# the kernels of the spans stereo.sgm and stereo.right: K1, K2, K3
-_VIEW_KERNELS = ("sgm_dir", "wta", "derive_right")
+from pcmi_tpu_torch.utils.profiling import span
 
 
 class DisparityResult(NamedTuple):
@@ -198,8 +195,7 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
     dev = left.device
     planes = len(range(0, cfg.max_disp, cfg.disp_stride))
     with span("stereo.cost_volume", dev, planes=planes, rows=h, cols=w,
-              census_window=cfg.census_window) as rec:
-        launched = K.LAUNCHES["cost_volume"], K.LAUNCHES["census"]
+              census_window=cfg.census_window):
         cl0, cl1 = census_transform(left, cfg.census_window)
         cr0, cr1 = census_transform(right, cfg.census_window)
         if row_shift is not None:
@@ -209,14 +205,11 @@ def build_cost_volume(left: torch.Tensor, right: torch.Tensor,
                                  chunk=ck)
             cr0 = shift_rows(cr0, row_shift, sp, 0, chunk=ck)
             cr1 = shift_rows(cr1, row_shift, sp, 0, chunk=ck)
-        vol = K.cost_volume(left, (cl0, cl1), valid_l, right, (cr0, cr1),
-                            valid_r, d_min=cfg.min_disparity, planes=planes,
-                            stride=cfg.disp_stride, block=cfg.block_size,
-                            census_window=cfg.census_window,
-                            ad_weight=cfg.ad_weight, dtype=cost_dtype(cfg))
-        rec.count(kernel_launches=K.LAUNCHES["cost_volume"] - launched[0],
-                 census_launches=K.LAUNCHES["census"] - launched[1])
-        return vol
+        return K.cost_volume(left, (cl0, cl1), valid_l, right, (cr0, cr1),
+                             valid_r, d_min=cfg.min_disparity, planes=planes,
+                             stride=cfg.disp_stride, block=cfg.block_size,
+                             census_window=cfg.census_window,
+                             ad_weight=cfg.ad_weight, dtype=cost_dtype(cfg))
 
 
 def sgm_aggregate(vol: torch.Tensor, cfg: StereoConfig,
@@ -294,33 +287,10 @@ def diag_right_disparity(s_dhw: torch.Tensor, d_min: int,
     return d_min + stride * shifted.argmin(0).float()
 
 
-def _view_launches() -> int:
-    return sum(K.LAUNCHES[k] for k in _VIEW_KERNELS)
-
-
 def _nbytes(*vols: torch.Tensor) -> int:
+    """The bytes of the (D, H, W) volumes a view holds at once at its peak:
+    the ``volume_bytes`` of its span (``stereo.sgm``, ``stereo.right``)."""
     return sum(v.numel() * v.element_size() for v in vols)
-
-
-def _count_view(rec, vol: torch.Tensor, axes: str, launched: int,
-                held: int) -> None:
-    """The counts of a view's span (``stereo.sgm``, ``stereo.right``) over
-    a volume shaped and stored as ``vol``: the planes, K1's plans along
-    ``axes`` (``"plain"`` off the card, ``"none"`` without a K1 launch),
-    the launches of K1-K3 since ``launched`` and ``volume_bytes``: ``held``,
-    the bytes of the (D, H, W) volumes the view held at once at its peak;
-    nothing when spans do not record."""
-    if not active():
-        return
-    if vol.device.type != "cuda":
-        plan = "plain"
-    else:
-        esize = vol.element_size()
-        plan = ", ".join(K.sgm_pair_plan_text(tuple(vol.shape), a == "h",
-                                              esize) for a in axes) or "none"
-    rec.count(planes=vol.shape[0], plan=plan,
-              launches=_view_launches() - launched,
-              volume_bytes=held)
 
 
 def compute_disparity(left: torch.Tensor, right: torch.Tensor,
@@ -375,20 +345,17 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
         # aggregate (no combine pass, no derive, no second WTA)
         diagonal = cfg.right_sgm == "diagonal"
         dev = left.device
-        with span("stereo.sgm", dev) as rec:
-            launched = _view_launches()
+        with span("stereo.sgm", dev, planes=vol_l.shape[0]) as rec:
             horiz = K.sgm_pair(vol_l, p1, p2, horizontal=True)
             vert = K.sgm_pair(vol_l, p1, p2, horizontal=False)
             disp_l, cost_l, margin, *agg_l = K.wta(
                 horiz, vert, 0.25, d_min, stride, subpixel=True,
                 with_margin=True, with_aggregate=diagonal)
-            _count_view(rec, vol_l, "hv", launched,
-                        _nbytes(vol_l, horiz, vert, *agg_l))
+            rec.count(volume_bytes=_nbytes(vol_l, horiz, vert, *agg_l))
             del horiz, vert
-        with span("stereo.right", dev) as rec:
-            launched = _view_launches()
+        with span("stereo.right", dev, planes=vol_l.shape[0]) as rec:
             if diagonal:
-                _count_view(rec, vol_l, "", launched, _nbytes(vol_l, *agg_l))
+                rec.count(volume_bytes=_nbytes(vol_l, *agg_l))
                 del vol_l
                 disp_r = diag_right_disparity(agg_l.pop(), d_min, stride)
             elif cfg.right_sgm == "full":
@@ -396,18 +363,17 @@ def compute_disparity(left: torch.Tensor, right: torch.Tensor,
                 del vol_l
                 horiz = K.sgm_pair(vol_r, p1, p2, horizontal=True)
                 vert = K.sgm_pair(vol_r, p1, p2, horizontal=False)
-                held = _nbytes(vol_r, horiz, vert)
+                rec.count(volume_bytes=_nbytes(vol_r, horiz, vert))
                 del vol_r
                 disp_r, _, _ = K.wta(horiz, vert, 0.25, d_min, stride,
                                      subpixel=sub_r, with_margin=False)
-                _count_view(rec, horiz, "hv", launched, held)
                 del horiz, vert
             else:
                 disp_r = right_disparity_fused(vol_l, p1, p2, d_min,
                                                stride=stride, subpixel=sub_r)
                 # at its peak: the left volume, K3's right volume and the
                 # right view's horizontal aggregate
-                _count_view(rec, vol_l, "h", launched, 3 * _nbytes(vol_l))
+                rec.count(volume_bytes=3 * _nbytes(vol_l))
                 del vol_l
 
     ok = lr_consistency(disp_l, disp_r, cfg.lr_threshold_eff, d_min=d_min,

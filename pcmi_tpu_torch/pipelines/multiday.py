@@ -28,7 +28,6 @@ import torch
 from pcmi_tpu_torch.config import FusionConfig, PipelineConfig
 from pcmi_tpu_torch.geometry.pairs import ImageMeta, select_pairs, take_pairs
 from pcmi_tpu_torch.ops import pointcloud as pc
-from pcmi_tpu_torch.ops.stereo import kernels as K
 from pcmi_tpu_torch.ops.stereo._build import KernelError
 from pcmi_tpu_torch.pipelines.height_map import (
     HeightMapPipeline, product_point_cloud)
@@ -206,13 +205,10 @@ class MultiDayFusion:
                 allpts = torch.cat(registered)
                 allw = torch.cat(weights)
 
-            with span("aoi.knn_mask", dev) as knn:
-                launched = K.LAUNCHES["knn_select"]
+            with span("aoi.knn_mask", dev, points=allpts.shape[0]):
                 keep = pc.knn_outlier_mask(allpts, allw > 0, k=fus.knn_k,
                                            sigma=fus.knn_sigma, chunk=2048)
                 w_final = (allw > 0) & keep
-                knn.count(kernel_launches=K.LAUNCHES["knn_select"] - launched,
-                          points=allpts.shape[0])
 
             with span("aoi.dsm", dev):
                 cell = float(grid_cell if grid_cell is not None

@@ -10,7 +10,8 @@ innermost span open on its thread) and its root's id, its host times
 device it also records a CUDA event on the current stream at its start
 and at its end (not while the stream captures a graph), read into
 ``device_ms`` only when the span is first read. On the CPU ``device_ms``
-is the host time.
+is the host time. :func:`launched`, called by every kernel launch, counts
+the launch in every span open on the thread.
 
 Recorded spans go into a fixed-capacity buffer that drops the oldest and
 is never cleared, so spans recorded under one profiler session are still
@@ -186,6 +187,19 @@ def span(name: str, device=None, **counts):
     dev = torch.device(device) if device is not None else None
     return Span(name, dev if dev is not None and dev.type == "cuda"
                 else None, counts)
+
+
+def launched(kernel: str, plan: Optional[str] = None) -> None:
+    """Count one launch of ``kernel`` in every span open on this thread:
+    ``launches`` maps kernels to launches, ``plans`` the launch plans given
+    to launches; one flag check when spans do not record."""
+    if not active():
+        return
+    for s in getattr(_open, "stack", ()):
+        for key, name in (("launches", kernel), ("plans", plan)):
+            if name is not None:
+                n = s.counts.setdefault(key, {})
+                n[name] = n.get(name, 0) + 1
 
 
 @contextlib.contextmanager

@@ -177,10 +177,10 @@ def test_k1_plan_at_highrise_depth(rows, cols):
     assert {h_fwd.tile, h_acc.tile} <= {2, 4}
     assert all(p.smem <= K.SMEM_BLOCK_MAX
                for p in (h_fwd, h_acc, v_fwd, v_acc))
-    assert K.sgm_pair_plan_text((D, rows, cols), True) == "h 4x4+4x2"
-    assert K.sgm_pair_plan_text((D, rows, cols), False) == "v 16x1+8x1"
+    assert (h_fwd[:2], h_acc[:2]) == ((4, 4), (4, 2))
     # at the 288-plane cell's depth the 16-column blocks still fit
-    assert K.sgm_pair_plan_text((288, rows, cols), False) == "v 16x4+16x2"
+    assert [K.sgm_dir_plan(288, cols, False, a)[:2]
+            for a in (False, True)] == [(16, 4), (16, 2)]
     # the fallback starts at 727 planes
     assert K.sgm_dir_plan(726, cols, False, True).paths == 16
     assert K.sgm_dir_plan(727, cols, False, True).paths == 8
@@ -231,10 +231,10 @@ def test_view_spans_nest_inside_pair_match(products):
     for name in ("stereo.sgm", "stereo.right"):
         s = got[name]
         assert s.parent == match.id and s.root == got["pair"].id
-        # the plain versions run on the CPU: no plan, no launch; three
+        # the plain versions run on the CPU: no launch, no plan; three
         # volumes at once: the cost volume and the horizontal and vertical
         # aggregates, then the cost, the right volume and its aggregate
-        assert s.counts == {"planes": 784, "plan": "plain", "launches": 0,
+        assert s.counts == {"planes": 784,
                             "volume_bytes": 3 * 784 * H * W * 4}
         assert s.device_ms > 0
     assert got["stereo.sgm"].t1 <= got["stereo.right"].t0

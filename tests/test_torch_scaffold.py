@@ -551,30 +551,90 @@ def test_kernel_names_outside_the_stereo_roofline():
 
 def test_entry_points_declared_as_the_sources_define_them():
     """Every ``extern "C"`` entry point of ``csrc/*.cu`` has its argument
-    types declared in ``_build.load``: as many, a pointer for each pointer,
-    a float for each float and an int for each int (ctypes would pass an
-    undeclared pointer as a 32-bit int)."""
+    kinds in ``kernels.SIGNATURES``, and nothing else there: as many, a
+    pointer for each pointer, a float for each float and an int for each
+    int (ctypes would pass an undeclared pointer as a 32-bit int)."""
     import re
 
-    declared = dict(re.findall(
-        r"lib\.(pcmi_\w+)\.argtypes = (\[[^\]]*\])",
-        Path(_build.__file__).read_text()))
     defined = {}
     for src in sorted((PKG / "csrc").glob("*.cu")):
-        for name, args in re.findall(r'extern "C" int (pcmi_\w+)\(([^)]*)\)',
+        for name, args in re.findall(r'extern "C" int pcmi_(\w+)\(([^)]*)\)',
                                      src.read_text()):
             kinds = []
             for arg in (a.strip() for a in args.split(",") if a.strip()):
                 kinds.append("p" if "*" in arg else
                              "f" if arg.startswith("float") else "i")
-            defined[name] = kinds
-    assert {"pcmi_census", "pcmi_cost_volume", "pcmi_sgm_dir",
-            "pcmi_wta"} <= set(defined)
-    assert set(defined) <= set(declared)
-    for name, kinds in defined.items():
-        got = [a for a in re.sub(r"\s", "", declared[name]).strip(
-            "[]").split(",") if a]
-        assert got == kinds, name
+            defined[name] = "".join(kinds)
+    assert {"census", "cost_volume", "sgm_dir", "wta", "knn_select",
+            "sgm_dir_max_disp"} <= set(defined)
+    assert defined == K.SIGNATURES
+    # each launch takes the stream last; the library module names none
+    assert all(k.endswith("p") for n, k in K.SIGNATURES.items()
+               if n in K.LAUNCHES)
+    text = Path(_build.__file__).read_text()
+    assert not any(f"pcmi_{name}" in text for name in defined)
+
+
+class _FakeLib:
+    """A stand-in for the loaded library: each entry point records its
+    arguments and returns ``rc``."""
+
+    def __init__(self, rc: int = 0):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+        return entry
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """``kernels`` launching into a :class:`_FakeLib` on stream 77."""
+    lib = _FakeLib()
+    monkeypatch.setattr(K, "library", lambda: lib)
+    monkeypatch.setattr(K, "_stream", lambda: 77)
+    K.reset_launches()
+    yield lib
+    K.reset_launches()
+
+
+def test_launch_passes_the_stream_last(fake_lib):
+    K._launch("census", 1, 2, 3, 8, 9, 5)
+    assert fake_lib.calls == [("pcmi_census", (1, 2, 3, 8, 9, 5, 77))]
+
+
+def test_refused_launch_raises_and_counts_nothing(fake_lib):
+    fake_lib.rc = 700
+    with pytest.raises(_build.KernelError, match="^wta: .* 700"):
+        K._launch("wta", 0)
+    assert not any(K.LAUNCHES.values())
+
+
+def test_launch_counts_once(fake_lib):
+    K._launch("knn_select", 0)
+    assert K.LAUNCHES == {**dict.fromkeys(K.LAUNCHES, 0), "knn_select": 1}
+
+
+def test_k1_wrapper_launches_with_its_plan(fake_lib, monkeypatch):
+    """K1's wrapper, past its device check: the forward and accumulating
+    launches of one axis with their plans' paths and tiles, each plan
+    counted in the open span."""
+    from pcmi_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(K, "_on_cuda", lambda *a, **k: True)
+    cost = torch.zeros(288, 8, 96)
+    with profiling.recording(), profiling.span("view") as rec:
+        out = K.sgm_pair(cost, 0.03, 0.48, horizontal=False)
+    fwd, acc = (K.sgm_dir_plan(288, 96, False, a) for a in (False, True))
+    assert [args[-4:-1] for _, args in fake_lib.calls] == [
+        (fwd.paths, fwd.tile, 0), (acc.paths, acc.tile, 0)]
+    assert fake_lib.calls[1][1][1] == out.data_ptr()
+    assert rec.counts == {
+        "launches": {"sgm_dir": 2},
+        "plans": {f"v {fwd.paths}x{fwd.tile} fwd": 1,
+                  f"v {acc.paths}x{acc.tile} acc": 1}}
 
 
 def test_cost_volume_wrappers_refuse_before_running():

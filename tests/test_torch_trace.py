@@ -121,8 +121,7 @@ def test_pair_is_five_stages(pair):
     assert len(volumes) == 2 and volumes[1].parent == match.children[3].id
     # on the CPU the plain versions run: no kernel launch is counted
     assert volumes[0].counts == {"planes": 24, "rows": 128, "cols": 128,
-                                 "census_window": 5, "kernel_launches": 0,
-                                 "census_launches": 0}
+                                 "census_window": 5}
     assert all(s.root == top.id for s in rec)
 
 
@@ -150,8 +149,8 @@ def test_spans_share_the_profiler_clock(pair):
 
 def test_aoi_stage_ms_under_recording(scene):
     """A recorded fusion: one ``aoi`` span of six stage spans that cover
-    it, the stereo stage counting its pairs, the kNN mask its points and
-    its K8 launches (none on the CPU), and ``stage_ms`` with its five keys
+    it, the stereo stage counting its pairs, the kNN mask its points (no
+    K8 launch on the CPU), and ``stage_ms`` with its five keys
     (device ms; the host's on the CPU)."""
     (fusion, cloud), rec = _recorded(lambda: _fuse(scene))
     top = next(s for s in rec if s.name == "aoi")
@@ -160,8 +159,7 @@ def test_aoi_stage_ms_under_recording(scene):
     stereo = top.children[1]
     assert stereo.counts == {"asked": 3, "fused": 3, "skipped": 0}
     knn = top.children[3]
-    assert knn.counts == {"kernel_launches": 0,
-                          "points": cloud.points.shape[0]}
+    assert knn.counts == {"points": cloud.points.shape[0]}
     assert cloud.points.shape[0] > 1000
     assert [k.name for k in stereo.children] == ["pair"] * 3
     ms = fusion.stage_ms
@@ -216,6 +214,38 @@ def test_cuda_spans_time_the_stream(monkeypatch):
     assert [e.synced for e in _Event.made] == [None, True, None, True]
     assert outer._events is None and inner._events is None
     assert captured.device_ms is None and captured.host_ms >= 0
+
+
+def test_launches_count_in_every_open_span():
+    """A launch counts in every span open on its thread, with its plan
+    where one is given, and in no span closed before it or open on
+    another thread; with spans off nothing is recorded."""
+    import threading
+
+    before = len(profiling.spans())
+    with profiling.span("off") as off:
+        profiling.launched("wta")
+    assert off is profiling._OFF and len(profiling.spans()) == before
+    with profiling.recording():
+        with profiling.span("outer") as outer:
+            with profiling.span("first") as first:
+                profiling.launched("census")
+            with profiling.span("inner") as inner:
+                profiling.launched("sgm_dir", "h 4x4 fwd")
+                profiling.launched("sgm_dir", "h 4x2 acc")
+                other = threading.Thread(target=profiling.launched,
+                                         args=("wta",))
+                other.start()
+                other.join(timeout=10)
+            profiling.launched("wta")
+        profiling.launched("wta")
+    profiling.launched("wta")
+    assert not other.is_alive()
+    plans = {"h 4x4 fwd": 1, "h 4x2 acc": 1}
+    assert first.counts == {"launches": {"census": 1}}
+    assert inner.counts == {"launches": {"sgm_dir": 2}, "plans": plans}
+    assert outer.counts == {
+        "launches": {"census": 1, "sgm_dir": 2, "wta": 1}, "plans": plans}
 
 
 def test_buffer_keeps_spans_across_sessions(monkeypatch):
