@@ -29,10 +29,11 @@ card's name and power limit come first.
     python3 kernel_ab.py --deep ROOT[:DTYPE] [ROOT[:DTYPE] ...]
 
 runs the same turns at the depths past 512 planes (``DEEP_SHAPES``:
-(600, 256, 1024) and (1024, 256, 1024), stride 1), where the SGM kernels
-take their one kernel of 32 disparities per lane.
+(600, 256, 1024), (1024, 256, 1024) and the high-rise cell's depth
+(992, 512, 1536), stride 1), where the SGM kernels take their one kernel
+of 32 disparities per lane and K1's horizontal scans their deep form.
 
-    python3 kernel_ab.py --ablate [--dtype DTYPE]
+    python3 kernel_ab.py --ablate [--dtype DTYPE] [--deep]
 
 takes K1, K4, K5 and K2 of this checkout apart through build-time
 switches: each launch kind at both shapes timed as built (``full``), as
@@ -47,11 +48,15 @@ place of the walk (``-DWTA_NO_CHAIN``: loads, combine and stores alone) and
 ``torch.profiler``'s device time of the kernels one ``sgm_pair`` per axis
 launches.
 
-    python3 kernel_ab.py --plans [--dtype DTYPE]
+    python3 kernel_ab.py --plans [--dtype DTYPE] [--deep]
 
 times this checkout's K5 at blocks of 8 and 16 lanes with every tile
-length that fits, and K4 at tiles of 1 to 32 steps, beside the plan the
-wrappers choose (one JSON line per launch kind and shape).
+length that fits, K4 at tiles of 1 to 32 steps and K1's horizontal scans
+at the 4-row plans and the deep form's blocks of 1 and 2 rows
+(``K1_H_PLANS``), the deep ones also with each L2 prefetch of its copies
+(``DEEP_L2``: ``-DSGM_DEEP_L2`` builds), beside the plan the wrappers
+choose (one JSON line per launch kind and shape). ``--deep`` takes either
+study to ``DEEP_SHAPES``.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ from chip_smoke import WORK, WTA_FORMS
 
 HBM_BYTES_PER_S = 3.35e12
 SHAPES = (((80, 896, 896), 1), ((144, 1152, 1152), 2))
-DEEP_SHAPES = (((600, 256, 1024), 1), ((1024, 256, 1024), 1))
+DEEP_SHAPES = (((600, 256, 1024), 1), ((1024, 256, 1024), 1),
+               ((992, 512, 1536), 1))
 P1, P2 = 0.03, 0.48
 AXES = ((True, "h"), (False, "v"))   # (horizontal, name)
 
@@ -224,7 +230,13 @@ ABLATIONS = {
     "copy_only": ("-DSGM_NO_SCAN", "-DWTA_NO_CHAIN"),
     "scan_only": ("-DSGM_NO_COPY", "-DWTA_NO_LOADS"),
 }
-PLANS = {"full": ()}
+# the deep form's L2 prefetch of its 16-byte copies, in bytes (the
+# library's is 128)
+DEEP_L2 = {"full": (), **{f"l2_{n}": (f"-DSGM_DEEP_L2={n}",)
+                          for n in (0, 64, 256)}}
+# K1's horizontal plans swept: 4-row blocks, and the deep form's 1 and 2
+K1_H_PLANS = ((4, 8), (4, 4), (4, 2), (2, 16), (2, 8), (2, 4), (1, 32),
+              (1, 16), (1, 8))
 
 
 def _ablation_libs(root: Path, variants: dict) -> dict:
@@ -327,7 +339,7 @@ def _wta_ablation(libs: dict, vol, second, d_min: int, stride: int) -> None:
         print(json.dumps(row), flush=True)
 
 
-def _study(ablation: bool, dtype: str = "float32") -> None:
+def _study(ablation: bool, dtype: str = "float32", shapes=SHAPES) -> None:
     import torch
 
     root = Path(__file__).resolve().parent
@@ -336,9 +348,10 @@ def _study(ablation: bool, dtype: str = "float32") -> None:
 
     libs = {n: K.bind(lib, [src[:-3] for src in _ABLATED])
             for n, lib in _ablation_libs(
-                root, ABLATIONS if ablation else PLANS).items()}
+                root, ABLATIONS if ablation else DEEP_L2 if shapes
+                == DEEP_SHAPES else {"full": ()}).items()}
     esize = 2 if dtype == "bfloat16" else 4
-    for (D, H, W), stride in SHAPES:
+    for (D, H, W), stride in shapes:
         vol, out = _volumes((D, H, W), dtype)
         if ablation:
             _wta_ablation(libs, vol, out, -(D * stride) // 2, stride)
@@ -352,7 +365,7 @@ def _study(ablation: bool, dtype: str = "float32") -> None:
             if name == "sgm_dir":
                 chosen = K.sgm_dir_plan(D, H if horizontal else W,
                                         horizontal, acc, esize)[:2]
-                plans = [chosen]
+                plans = list(K1_H_PLANS) if horizontal else [chosen]
             elif name == "sgm_hwd":
                 chosen = (K.sgm_hwd_plan(D, acc).tile,)
                 plans = [(t,) for t in (1, 2, 4, 8, 16, 32)]
@@ -372,6 +385,13 @@ def _study(ablation: bool, dtype: str = "float32") -> None:
                     "x".join(map(str, plan)): _timed(
                         calls[name], libs["full"], horizontal, acc, plan)
                     for plan in plans}
+                if name == "sgm_dir" and horizontal:
+                    row["ms_by_l2"] = {
+                        variant: {"x".join(map(str, plan)): _timed(
+                            calls[name], lib, horizontal, acc, plan)
+                            for plan in plans if plan[0] < 4}
+                        for variant, lib in libs.items()
+                        if variant != "full"}
             print(json.dumps(row), flush=True)
         del hwd, hwd_out, blocked, calls
         if ablation:
@@ -409,13 +429,13 @@ def _root_dtype(arg: str) -> tuple[str, str]:
 
 
 def main() -> int:
+    opts = [a for a in sys.argv[2:] if a != "--deep"]
     if sys.argv[1:2] in (["--ablate"], ["--plans"]) and (
-            len(sys.argv) == 2 or (len(sys.argv) == 4
-                                   and sys.argv[2] == "--dtype")):
-        dtype = _root_dtype(":" + sys.argv[3])[1] if len(sys.argv) == 4 \
-            else "float32"
+            not opts or (len(opts) == 2 and opts[0] == "--dtype")):
+        dtype = _root_dtype(":" + opts[1])[1] if opts else "float32"
         print(_smi())
-        _study(ablation=sys.argv[1] == "--ablate", dtype=dtype)
+        _study(ablation=sys.argv[1] == "--ablate", dtype=dtype,
+               shapes=DEEP_SHAPES if "--deep" in sys.argv[2:] else SHAPES)
         return 0
     if len(sys.argv) >= 3 and sys.argv[1] == "--turn":
         shapes = DEEP_SHAPES if sys.argv[3:] == ["--deep"] else SHAPES

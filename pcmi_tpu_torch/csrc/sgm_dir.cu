@@ -35,6 +35,12 @@
 // the copies alone stay near 60 % of the bound, and the scan of a tile,
 // serial over its steps, overlaps them only in part. Horizontal scans
 // come closer (runs of 64-128 bytes, 4 steps per shared-memory access).
+// Past ~800 planes (~400 accumulating) 4-row horizontal blocks fit only
+// runs of 8-16 bytes, and their copies alone took over 90 % of a launch;
+// there the plan takes the deep form of sgm_tile.cuh: blocks of 1 or 2 rows,
+// tiles of 16 steps or more, scanning and copying warps apart, the
+// accumulate input read at the store. Its one scanning warp a block then
+// sets the pace (the scan alone 96 % of a forward launch at 992 planes).
 // P and T come from the wrapper's launch plan (kernels.sgm_dir_plan).
 
 #define SGM_TILE_KERNEL  // this source holds the tile kernel (also K5's)
@@ -46,8 +52,8 @@ extern "C" int pcmi_sgm_dir_max_disp() { return 32 * kMaxPer; }
 // the current device.
 // horizontal != 0 scans along W (L->R, or R->L with reverse), else along H
 // (T->B, or B->T with reverse). The launch plan: blocks of `paths` paths
-// (4, 8 or 16), tiles of `tile` steps (a power of 2 up to 32) that fit the
-// shared memory. Returns a cudaError_t.
+// (4, 8 or 16; horizontal 1 or 2: the deep form), tiles of `tile` steps (a
+// power of 2 up to 32) that fit the shared memory. Returns a cudaError_t.
 extern "C" int pcmi_sgm_dir(const void* cost, void* out, int D, int H,
                             int W, int horizontal, int reverse,
                             int accumulate, float p1, float p2, int paths,

@@ -45,6 +45,19 @@
 // * Runs that are not 16-byte aligned take 4-byte copies and stores into
 //   the same layout, and are scanned a step at a time.
 //
+// The deep horizontal form (sgm_tile_kernel_deep). Deep enough, a block of
+// 4 rows fits only tiles of 16 bytes or less a row (float32: 4 steps from
+// 808 planes, accumulating from 404, 2 from 727; bfloat16: 8 steps from
+// 808, accumulating from 404), so each copy reads 8-16 bytes of a row and
+// L2 loses the rest of its line before the next tile asks for it. There a
+// block takes 1 or 2 rows and tiles of 16 steps or more (runs of 64 bytes
+// and more), and its warps take roles: the scanning warps (one a row)
+// only scan; the others store tile j - 1 and load tile j + 1 while tile j
+// is scanned, one barrier a tile. The second input leaves the ring: it is
+// read from device memory in the store's own 16-byte items, a tile ahead
+// into the copying threads' registers, so the accumulating launch fits
+// the forward launch's tile. Same recurrence, same adds, same results.
+//
 // The helpers live in an unnamed namespace (each source that includes this
 // file gets its own), but the tile kernel is compiled once: only the source
 // that defines SGM_TILE_KERNEL before the include (csrc/sgm_dir.cu) gets
@@ -276,7 +289,8 @@ static inline int copy_mode(int esize, int W, int run, const void* a,
 
 // Launch the tile kernel over `bands` bands of g.span paths each: blocks of
 // g.P paths (a power of 2 from 4 to 16) and 8 warps or one warp per path,
-// whichever is more; tiles of g.T steps (a power of 2 up to 32) that fit
+// whichever is more, or, horizontal only, the deep form's blocks of 1 or 2
+// paths and 8 warps; tiles of g.T steps (a power of 2 up to 32) that fit
 // the shared memory. acc_in may be null (no second input) or `out`. The
 // pointers are float32 or, with g.bf16, bfloat16 volumes.
 // Returns a cudaError_t.
@@ -294,19 +308,23 @@ inline bool pow2(int n) { return n > 0 && (n & (n - 1)) == 0; }
 // One thread's share of a tile's copies and stores: the element (or the
 // vector of w elements) at offset `off` of each plane d0, d0 + dstep, ...;
 // `off` lies on path `p` (0 .. P-1) at step `ls` of the tile.
+// Thread `tid` of the `threads` that copy (all of the block's, or the deep
+// form's copying warps).
 template <typename E>
 struct Part {
   int off, p, ls, d0, dstep;
-  __device__ __forceinline__ explicit Part(const Scan& g) {
+  __device__ __forceinline__ explicit Part(const Scan& g)
+      : Part(g, threadIdx.x, blockDim.x) {}
+  __device__ __forceinline__ Part(const Scan& g, int tid, int threads) {
     const int w = sizeof(E) == 4 ? (g.vec ? 4 : 1)
                                  : (g.vec == 1 ? 8 : g.vec == 2 ? 2 : 1);
     const int n = g.O * g.R / w;       // items of one plane (divides threads)
-    off = (threadIdx.x % n) * w;
+    off = (tid % n) * w;
     const int o = off / g.R, r = off % g.R;
     p = g.horizontal ? o : r;
     ls = g.horizontal ? r : o;
-    d0 = threadIdx.x / n;
-    dstep = blockDim.x / n;
+    d0 = tid / n;
+    dstep = threads / n;
   }
 };
 
@@ -334,6 +352,127 @@ __device__ __forceinline__ float& comp(float4& v, int e) {
 
 __device__ __forceinline__ float4 reversed(float4 v) {
   return make_float4(v.w, v.z, v.y, v.x);
+}
+
+// The scan of the tile at `buf` (nt steps) along path `warp` of the block:
+// its results replace its costs; with kAcc 2 the second input's tile lies
+// `tile` elements past it and is added in the scan.
+template <typename E, int kPer, int kAcc>
+__device__ __forceinline__ void scan_tile(const Scan& g, E* buf, int tile,
+                                          int nt, int lane, int warp,
+                                          int nvalid, float (&prev)[kPer],
+                                          float& m, float p1, float p2) {
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  const int kstride = 32 * g.Sp;
+  // horizontal tiles of whole 16-byte runs are scanned 4 steps at a time:
+  // one read and write of 4 elements per disparity (in float32 16 bytes,
+  // free of bank conflicts)
+  const bool by4 = g.horizontal && (kF32 ? g.vec : g.vec == 1);
+  // one scan step moves this many elements through the tile
+  const int dat = (g.horizontal ? 1 : g.R) * (g.reverse ? -1 : 1);
+  if (by4) {
+    E* row = buf + lane * g.Sp + warp * g.R;
+    for (int q = 0; q < nt; q += 4) {
+      using Q = typename Quad<E>::type;
+      Q* at = reinterpret_cast<Q*>(row + (g.reverse ? nt - 4 - q : q));
+      float4 cc[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        cc[k] = k < nvalid ? widen(at[k * (kstride / 4)])
+                           : make_float4(0, 0, 0, 0);
+        if (g.reverse) cc[k] = reversed(cc[k]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float c[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) c[k] = comp(cc[k], e);
+        scan_step<kPer>(prev, c, m, lane, g.D, nvalid, p1, p2);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) comp(cc[k], e) = prev[k];
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        if (k < nvalid)
+          narrow(at[k * (kstride / 4)], g.reverse ? reversed(cc[k]) : cc[k]);
+    }
+  } else {
+    const int ls0 = g.reverse ? nt - 1 : 0;
+    E* at = buf + lane * g.Sp +
+            (g.horizontal ? warp * g.R + ls0 : ls0 * g.R + warp);
+    float c[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      c[k] = k < nvalid ? ld(at + k * kstride) : 0.f;
+    for (int q = 0; q < nt; ++q) {
+      // the next step's costs, read before this step's results land
+      float cn[kPer];
+      if (q + 1 < nt) {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          cn[k] = k < nvalid ? ld(at + dat + k * kstride) : 0.f;
+      }
+      scan_step<kPer>(prev, c, m, lane, g.D, nvalid, p1, p2);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (k < nvalid)
+          st(at + k * kstride,
+             kAcc == 2 ? prev[k] + ld(at + tile + k * kstride) : prev[k]);
+        c[k] = cn[k];
+      }
+      at += dat;
+    }
+  }
+}
+
+// Store the scanned tile at `res` (the tile [s_lo, s_lo + nt) of the paths
+// from `lo`) into `out`; with kAcc 1 each item is the second input's
+// item at second(gi, si) plus the result, rounded as stored.
+template <typename E, int kAcc, typename A>
+__device__ __forceinline__ void store_tile(const Scan& g, const Part<E>& part,
+                                           int lo, int s_lo, int nt,
+                                           const E* res, E* out,
+                                           A&& second) {
+  if constexpr (std::is_same<E, float>::value) {
+    if (g.vec) {
+      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+        float4 v = *reinterpret_cast<const float4*>(res + si);
+        if (kAcc) {
+          const float4 a = *reinterpret_cast<const float4*>(second(gi, si));
+          v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+        }
+        *reinterpret_cast<float4*>(out + gi) = v;
+      });
+    } else {
+      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+        out[gi] = kAcc ? *second(gi, si) + res[si] : res[si];
+      });
+    }
+  } else if (g.vec == 1) {
+    for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+      uint4 v = *reinterpret_cast<const uint4*>(res + si);
+      if (kAcc == 1) {
+        const uint4 a = *reinterpret_cast<const uint4*>(second(gi, si));
+        v = make_uint4(add2(a.x, v.x), add2(a.y, v.y), add2(a.z, v.z),
+                       add2(a.w, v.w));
+      }
+      *reinterpret_cast<uint4*>(out + gi) = v;
+    });
+  } else if (g.vec == 2) {
+    for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+      unsigned v = *reinterpret_cast<const unsigned*>(res + si);
+      if (kAcc == 1)
+        v = add2(*reinterpret_cast<const unsigned*>(second(gi, si)), v);
+      *reinterpret_cast<unsigned*>(out + gi) = v;
+    });
+  } else {
+    for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
+      if (kAcc == 1)
+        st(out + gi, ld(second(gi, si)) + ld(res + si));
+      else
+        out[gi] = res[si];
+    });
+  }
 }
 
 // One direction over the band blockIdx.y of `cost`: out = L, or with kAcc
@@ -391,13 +530,6 @@ sgm_tile_kernel(const E* __restrict__ cost, const E* acc_in, E* out, Scan g,
 
   // this lane's disparities: d = lane + 32 k, valid for k < nvalid
   const int nvalid = (g.D - lane + 31) >> 5;
-  const int kstride = 32 * g.Sp;
-  // horizontal tiles of whole 16-byte runs are scanned 4 steps at a time:
-  // one read and write of 4 elements per disparity (in float32 16 bytes,
-  // free of bank conflicts)
-  const bool by4 = g.horizontal && (kF32 ? g.vec : g.vec == 1);
-  // one scan step moves this many elements through the tile
-  const int dat = (g.horizontal ? 1 : g.R) * (g.reverse ? -1 : 1);
   float prev[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) prev[k] = 0.f;
@@ -411,115 +543,211 @@ sgm_tile_kernel(const E* __restrict__ cost, const E* acc_in, E* out, Scan g,
 
     int s_lo, nt;
     tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
-    if (active && by4) {
-      E* row = cbuf(j) + lane * g.Sp + warp * g.R;
-      for (int q = 0; q < nt; q += 4) {
-        using Q = typename Quad<E>::type;
-        Q* at = reinterpret_cast<Q*>(row + (g.reverse ? nt - 4 - q : q));
-        float4 cc[kPer];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          cc[k] = k < nvalid ? widen(at[k * (kstride / 4)])
-                             : make_float4(0, 0, 0, 0);
-          if (g.reverse) cc[k] = reversed(cc[k]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float c[kPer];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k) c[k] = comp(cc[k], e);
-          scan_step<kPer>(prev, c, m, lane, g.D, nvalid, p1, p2);
-#pragma unroll
-          for (int k = 0; k < kPer; ++k) comp(cc[k], e) = prev[k];
-        }
-#pragma unroll
-        for (int k = 0; k < kPer; ++k)
-          if (k < nvalid)
-            narrow(at[k * (kstride / 4)], g.reverse ? reversed(cc[k]) : cc[k]);
-      }
-    } else if (active) {
-      const int ls0 = g.reverse ? nt - 1 : 0;
-      E* at = cbuf(j) + lane * g.Sp +
-              (g.horizontal ? warp * g.R + ls0 : ls0 * g.R + warp);
-      float c[kPer];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k)
-        c[k] = k < nvalid ? ld(at + k * kstride) : 0.f;
-      for (int q = 0; q < nt; ++q) {
-        // the next step's costs, read before this step's results land
-        float cn[kPer];
-        if (q + 1 < nt) {
-#pragma unroll
-          for (int k = 0; k < kPer; ++k)
-            cn[k] = k < nvalid ? ld(at + dat + k * kstride) : 0.f;
-        }
-        scan_step<kPer>(prev, c, m, lane, g.D, nvalid, p1, p2);
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          if (k < nvalid)
-            st(at + k * kstride,
-               kAcc == 2 ? prev[k] + ld(at + tile + k * kstride) : prev[k]);
-          c[k] = cn[k];
-        }
-        at += dat;
-      }
-    }
+    if (active)
+      scan_tile<E, kPer, kAcc>(g, cbuf(j), tile, nt, lane, warp, nvalid,
+                               prev, m, p1, p2);
     __syncthreads();  // the tile's results are complete
     if (!kCopy) continue;
     const E* res = cbuf(j);
-    if constexpr (kF32) {
-      if (g.vec) {
-        for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-          float4 v = *reinterpret_cast<const float4*>(res + si);
-          if (kAcc) {
-            const float4 a = *reinterpret_cast<const float4*>(res + tile + si);
-            v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
-          }
-          *reinterpret_cast<float4*>(out + gi) = v;
-        });
-      } else {
-        for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-          out[gi] = kAcc ? res[tile + si] + res[si] : res[si];
-        });
-      }
-    } else if (g.vec == 1) {
+    store_tile<E, kAcc>(g, part, lo, s_lo, nt, res, out,
+                        [&](long long, int si) { return res + tile + si; });
+  }
+  cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// The deep horizontal form
+// ---------------------------------------------------------------------------
+
+constexpr int kDeepThreads = 256;  // 8 warps: P scan, the others copy
+constexpr int kDeepItems = 32;     // 16-byte items a copying thread holds
+
+// 16-byte prefetch of the deep form's copies into L2 (kernel_ab.py --plans
+// --deep builds 0, 64 and 256 beside it)
+#ifndef SGM_DEEP_L2
+#define SGM_DEEP_L2 128
+#endif
+
+__device__ __forceinline__ void cp_async_deep(void* dst, const void* src,
+                                              bool vec) {
+  if (!vec) return cp_async(dst, src, false);
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+#if SGM_DEEP_L2 == 256
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#elif SGM_DEEP_L2 == 128
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#elif SGM_DEEP_L2 == 64
+  asm volatile("cp.async.cg.shared.global.L2::64B [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#else
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#endif
+}
+
+// All of the block's threads meet here: the deep form's scanning and
+// copying warps reach it from their own loops (a named barrier, not
+// __syncthreads).
+__device__ __forceinline__ void meet() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(blockDim.x) : "memory");
+}
+
+// a + v over 16 bytes: four float32 or eight bfloat16 adds, each rounded
+template <typename E>
+__device__ __forceinline__ uint4 add16(uint4 a, uint4 v) {
+  if constexpr (std::is_same<E, float>::value)
+    return make_uint4(
+        __float_as_uint(__uint_as_float(a.x) + __uint_as_float(v.x)),
+        __float_as_uint(__uint_as_float(a.y) + __uint_as_float(v.y)),
+        __float_as_uint(__uint_as_float(a.z) + __uint_as_float(v.z)),
+        __float_as_uint(__uint_as_float(a.w) + __uint_as_float(v.w)));
+  else
+    return make_uint4(add2(a.x, v.x), add2(a.y, v.y), add2(a.z, v.z),
+                      add2(a.w, v.w));
+}
+
+// f(i, device index, shared index) for this thread's i-th item of the tile,
+// i < N, as for_tile; N a compile-time bound, so that what f keeps per
+// item can live in registers.
+template <int N, typename E, typename F>
+__device__ __forceinline__ void for_items(const Scan& g, const Part<E>& t,
+                                          int lo, int s_lo, int nt, F&& f) {
+  const int path = lo + t.p;
+  if (t.ls >= nt || path >= g.span) return;
+  const long long gi = t.d0 * g.sD + (long long)path * g.sL +
+                       (long long)(s_lo + t.ls) * g.sS;
+  const int si = t.d0 * g.Sp + t.off;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (t.d0 + i * t.dstep < g.D)
+      f(i, gi + i * t.dstep * g.sD, si + i * t.dstep * g.Sp);
+}
+
+// One horizontal direction in blocks of P = 1 or 2 rows, for volumes whose
+// 4-row tiles would hold runs of under 32 bytes (kernels.sgm_dir_plan).
+// Warps 0 .. P-1 scan, one row each, and do nothing else; the other warps
+// copy: while tile j is scanned they store tile j - 1 and load tile j + 1
+// into the slot it leaves, so the ring holds the cost tiles alone. The
+// second input (kAcc 1) is read from device memory in the store's own
+// 16-byte items, one tile ahead into registers (a thread's items of a
+// tile, at most kDeepItems; else at the store itself), and added there as
+// sgm_tile_kernel adds it. acc_in may be out: each item is read and then
+// written by the same thread.
+template <typename E, int kPer, int kAcc>
+__global__ void __launch_bounds__(kDeepThreads, 1)
+sgm_tile_kernel_deep(const E* __restrict__ cost, const E* acc_in, E* out,
+                     Scan g, float p1, float p2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* const smem = reinterpret_cast<E*>(smem_raw);
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  const int tile = g.D * g.Sp;
+  const int lo = blockIdx.x * g.P;
+  const int ntiles = (g.S + g.T - 1) / g.T;
+  const int warp = threadIdx.x >> 5;
+  auto cbuf = [&](int j) { return smem + (j % kStages) * tile; };
+
+  if (warp < g.P) {  // a scanning warp: meets the copying ones per tile
+    const int lane = threadIdx.x & 31;
+    const bool active = kScan && lo + warp < g.span;
+    const int nvalid = (g.D - lane + 31) >> 5;
+    float prev[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) prev[k] = 0.f;
+    float m = 0.f;
+    for (int j = 0; j < ntiles; ++j) {
+      meet();  // tile j landed
+      int s_lo, nt;
+      tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
+      if (active)
+        scan_tile<E, kPer, 0>(g, cbuf(j), tile, nt, lane, warp, nvalid,
+                              prev, m, p1, p2);
+    }
+    meet();  // the last tile is scanned
+    return;
+  }
+
+  const Part<E> part(g, threadIdx.x - 32 * g.P, blockDim.x - 32 * g.P);
+  const long long band = blockIdx.y * g.sB;
+  cost += band;
+  out += band;
+  if (kAcc) acc_in += band;
+  const bool held = kAcc && g.vec == 1 &&
+                    (g.D + part.dstep - 1) / part.dstep <= kDeepItems;
+  uint4 pre[kDeepItems];  // the second input of the tile stored next
+
+  auto load = [&](int j) {
+    int s_lo, nt;
+    tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
+    E* c = cbuf(j);
+    if (kF32 || g.vec) {
       for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        uint4 v = *reinterpret_cast<const uint4*>(res + si);
-        if (kAcc == 1) {
-          const uint4 a = *reinterpret_cast<const uint4*>(res + tile + si);
-          v = make_uint4(add2(a.x, v.x), add2(a.y, v.y), add2(a.z, v.z),
-                         add2(a.w, v.w));
-        }
-        *reinterpret_cast<uint4*>(out + gi) = v;
-      });
-    } else if (g.vec == 2) {
-      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        unsigned v = *reinterpret_cast<const unsigned*>(res + si);
-        if (kAcc == 1)
-          v = add2(*reinterpret_cast<const unsigned*>(res + tile + si), v);
-        *reinterpret_cast<unsigned*>(out + gi) = v;
+        cp_async_deep(c + si, cost + gi, kF32 ? g.vec : g.vec == 1);
       });
     } else {
-      for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        if (kAcc == 1)
-          st(out + gi, ld(res + tile + si) + ld(res + si));
-        else
-          out[gi] = res[si];
+      for_tile(g, part, lo, s_lo, nt,
+               [&](long long gi, int si) { c[si] = cost[gi]; });
+    }
+  };
+
+  if (kCopy) load(0);
+  cp_async_commit();
+  for (int j = 0; j <= ntiles; ++j) {
+    cp_async_wait_all();
+    meet();  // tile j landed; tile j - 1 is scanned
+    if (!kCopy) continue;
+    if (j > 0) {
+      int s_lo, nt;
+      tile_range(g.S, g.T, g.reverse, j - 1, s_lo, nt);
+      const E* res = cbuf(j - 1);
+      if (held) {
+        for_items<kDeepItems>(g, part, lo, s_lo, nt,
+                              [&](int i, long long gi, int si) {
+          const uint4 v = *reinterpret_cast<const uint4*>(res + si);
+          *reinterpret_cast<uint4*>(out + gi) = add16<E>(pre[i], v);
+        });
+      } else {
+        store_tile<E, kAcc>(g, part, lo, s_lo, nt, res, out,
+                            [&](long long gi, int) { return acc_in + gi; });
+      }
+    }
+    // the slot is read above before the copies below refill it
+    asm volatile("" ::: "memory");
+    if (j + 1 < ntiles) load(j + 1);
+    cp_async_commit();
+    if (held && j < ntiles) {
+      int s_lo, nt;
+      tile_range(g.S, g.T, g.reverse, j, s_lo, nt);
+      for_items<kDeepItems>(g, part, lo, s_lo, nt,
+                            [&](int i, long long gi, int) {
+        pre[i] = *reinterpret_cast<const uint4*>(acc_in + gi);
       });
     }
   }
-  cp_async_wait_all();
 }
 
 template <typename E>
 using TileKernel = void (*)(const E*, const E*, E*, Scan, float, float);
 
-// The kernel for per = per_lane(D) disparities per lane, per <= kPer, and
-// the rule `mode` (kAcc above) for the second input.
-template <typename E, int kPer>
+// The deep form is built for the disparities per lane that a deep plan
+// can take (kernels.sgm_dir_plan): from 404 planes (13 per lane,
+// accumulating).
+template <int kPer>
+constexpr bool kDeepBuilt = kBuilt<kPer> && kPer >= 13;
+
+// The kernel for per = per_lane(D) disparities per lane, per <= kPer, the
+// rule `mode` (kAcc above) for the second input, and the deep form or not;
+// null where none is built.
+template <typename E, int kPer, bool kDeep>
 struct TileKernels {
   static TileKernel<E> get(int per, int mode) {
-    if constexpr (kBuilt<kPer>) {
+    if constexpr (kDeep) {
+      if constexpr (kDeepBuilt<kPer>)
+        if (per == kPer)
+          return mode ? sgm_tile_kernel_deep<E, kPer, 1>
+                      : sgm_tile_kernel_deep<E, kPer, 0>;
+    } else if constexpr (kBuilt<kPer>) {
       if (per == kPer) {
         if constexpr (!std::is_same<E, float>::value)
           if (mode == 2) return sgm_tile_kernel<E, kPer, 2>;
@@ -527,18 +755,19 @@ struct TileKernels {
                     : sgm_tile_kernel<E, kPer, 0>;
       }
     }
-    return TileKernels<E, kPer - 1>::get(per, mode);
+    return TileKernels<E, kPer - 1, kDeep>::get(per, mode);
   }
 };
 
-template <typename E>
-struct TileKernels<E, 0> {
+template <typename E, bool kDeep>
+struct TileKernels<E, 0, kDeep> {
   static TileKernel<E> get(int, int) { return nullptr; }
 };
 
 // Shared memory of one block: the ring of two tiles of D planes of
-// paths * tile elements plus 16 bytes, twice that with a second input (its
-// tile beside the cost tile).
+// paths * tile elements plus 16 bytes, twice that with a second input in
+// the ring (its tile beside the cost tile; the deep form reads it from
+// device memory instead).
 inline long long tile_smem_bytes(int D, int paths, int tile, bool acc,
                                  int esize) {
   return (long long)kStages * D * (paths * tile + 16 / esize) *
@@ -549,15 +778,17 @@ template <typename E>
 int launch_typed(const E* cost, const E* acc_in, E* out, Scan g, int bands,
                  float p1, float p2, void* stream) {
   const int esize = (int)sizeof(E);
-  const int threads = g.P * 32 > 256 ? g.P * 32 : 256;
+  // horizontal blocks of 1 or 2 rows take the deep form
+  const bool deep = g.horizontal && g.P < 4;
+  const int threads = deep ? kDeepThreads : g.P * 32 > 256 ? g.P * 32 : 256;
   const int per = per_lane(g.D);
   const bool acc = acc_in != nullptr;
   const int mode = !acc ? 0 : (esize == 2 && g.once ? 2 : 1);
-  const long long smem = tile_smem_bytes(g.D, g.P, g.T, acc, esize);
+  const long long smem = tile_smem_bytes(g.D, g.P, g.T, acc && !deep, esize);
   if (per == 0 || g.S < 1 || g.span < 1 || bands < 1 ||
-      bands > 65535 || !pow2(g.P) || g.P < 4 || threads > kTileThreads ||
-      !pow2(g.T) || g.T > 32 || g.P * g.T > threads || smem > kSmemMax ||
-      (mode == 2 && g.horizontal))
+      bands > 65535 || !pow2(g.P) || (g.P < 4 && !deep) ||
+      threads > kTileThreads || !pow2(g.T) || g.T > 32 ||
+      g.P * g.T > threads || smem > kSmemMax || (mode == 2 && g.horizontal))
     return (int)cudaErrorInvalidValue;
   g.R = g.horizontal ? g.T : g.P;
   g.O = g.horizontal ? g.P : g.T;
@@ -565,7 +796,10 @@ int launch_typed(const E* cost, const E* acc_in, E* out, Scan g, int bands,
   const int w = g.vec == 1 ? 16 / esize : g.vec == 2 ? 2 : 1;
   if (g.vec < 0 || g.vec > (esize == 2 ? 2 : 1) || g.R % w)
     return (int)cudaErrorInvalidValue;
-  const TileKernel<E> fn = TileKernels<E, kMaxPer>::get(per, mode);
+  const TileKernel<E> fn =
+      deep ? TileKernels<E, kMaxPer, true>::get(per, mode)
+           : TileKernels<E, kMaxPer, false>::get(per, mode);
+  if (!fn) return (int)cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(fn));
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((g.span + g.P - 1) / g.P, bands);

@@ -226,7 +226,8 @@ SMEM_BLOCK_MAX = 232_448     # shared memory one block may use on sm_90
 class SgmDirPlan(NamedTuple):
     """K1's launch plan: blocks of ``paths`` paths (one warp each; the
     kernel adds warps that only copy, up to 8), tiles of ``tile`` scan
-    steps, ``smem`` bytes of shared memory per block."""
+    steps, ``smem`` bytes of shared memory per block. Horizontal blocks of
+    fewer than 4 paths are the deep form (:func:`sgm_dir_plan`)."""
     paths: int
     tile: int
     smem: int
@@ -242,9 +243,28 @@ def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool,
     (``tile_smem_bytes`` in ``csrc/sgm_tile.cuh``): a ring of two tiles of
     ``D`` planes of ``paths * tile`` elements of ``esize`` bytes plus 16
     bytes, twice that with ``accumulate`` (the tile of the second input
-    beside the cost tile)."""
+    beside the cost tile; the deep form, which reads the second input from
+    device memory, passes False)."""
     return (2 * D * (paths * tile + 16 // esize) * (2 if accumulate else 1)
             * esize)
+
+
+SECTOR_BYTES = 32  # an L2 sector: the least run a copy should read of a row
+# the deep form's blocks: (paths, tiles), the first that fits; at 992 planes
+# one row and 16 steps took 6.2 / 7.6 ms forward / accumulating at
+# (992, 512, 1536), two rows and 8 steps 7.6-9.0 / 12.6-13.4 on an H100
+# (kernel_ab.py --plans --deep)
+SGM_DIR_DEEP = ((1, (32, 16)),)
+
+
+def _first_fit(D: int, options, accumulate: bool,
+               esize: int) -> SgmDirPlan | None:
+    for paths, tiles in options:
+        for tile in tiles:
+            smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
+            if smem <= SMEM_BLOCK_MAX:
+                return SgmDirPlan(paths, tile, smem)
+    return None
 
 
 def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
@@ -258,20 +278,25 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
     16 columns where that still gives 64 blocks, else 8, and tiles of 8, 4,
     2 or 1 rows; each the longest that fits. Past 512 disparities a
     vertical block of 16 columns may not fit at all (accumulating, from
-    D = 727 in float32): it then takes 8."""
+    D = 727 in float32): it then takes 8.
+
+    Where a 4-row horizontal tile's runs fall under one 32-byte sector
+    (from D = 808, accumulating from 404, in either element size), the
+    scan takes the deep form (``csrc/sgm_tile.cuh``):
+    :data:`SGM_DIR_DEEP`'s blocks of 1 row and the longest tile that fits
+    with the second input outside the ring."""
     if not 1 <= D <= SGM_DIR_MAX_DISP:
         raise ValueError(f"sgm_dir: D={D} outside [1, {SGM_DIR_MAX_DISP}]")
     if horizontal:
-        options = ((4, (32, 16, 8, 4, 2, 1)),)
+        plan = _first_fit(D, ((4, (32, 16, 8, 4, 2, 1)),), accumulate, esize)
+        if plan is not None and plan.tile * esize < SECTOR_BYTES:
+            plan = _first_fit(D, SGM_DIR_DEEP, False, esize)
     else:
-        options = tuple((p, (8, 4, 2, 1))
-                        for p in ((16, 8) if span >= 16 * 64 else (8,)))
-    for paths, tiles in options:
-        for tile in tiles:
-            smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
-            if smem <= SMEM_BLOCK_MAX:
-                return SgmDirPlan(paths, tile, smem)
-    raise ValueError(f"sgm_dir: no launch plan fits D={D}")
+        plan = _first_fit(D, tuple((p, (8, 4, 2, 1)) for p in (
+            (16, 8) if span >= 16 * 64 else (8,))), accumulate, esize)
+    if plan is None:
+        raise ValueError(f"sgm_dir: no launch plan fits D={D}")
+    return plan
 
 
 def sgm_dir(cost: torch.Tensor, p1: float, p2: float, horizontal: bool,

@@ -1,6 +1,6 @@
 """The strict single-pair height map past 727 planes, on the CPU: the depth
 from which K1 takes its deep-volume launch plan on the card (8-column
-accumulating vertical blocks, 2-4-step horizontal tiles), as the
+accumulating vertical blocks, the deep horizontal form), as the
 ``highrise_pair`` configuration of the benchmark runs it.
 
 * ``process_pair`` on a tiny scene (48x48 views of 32 m of ground at
@@ -166,18 +166,19 @@ def test_deep_pair_matches_the_plain_reference(products):
                                        (1280, 1280)])
 def test_k1_plan_at_highrise_depth(rows, cols):
     """At 992 planes in float32 the accumulating vertical launch takes
-    8-column blocks of 1-row tiles and the horizontal ones 2-4-step
-    tiles; the forward vertical launch still fits 16 columns."""
+    8-column blocks of 1-row tiles and the horizontal ones the deep form:
+    blocks of one row and 16-step tiles (64-byte runs), the accumulating
+    launch on the forward launch's tile; the forward vertical launch still
+    fits 16 columns."""
     D = 992
     h_fwd, h_acc = (K.sgm_dir_plan(D, rows, True, a) for a in (False, True))
     v_fwd, v_acc = (K.sgm_dir_plan(D, cols, False, a) for a in (False, True))
     assert (v_acc.paths, v_acc.tile) == (8, 1)
     assert (v_fwd.paths, v_fwd.tile) == (16, 1)
-    assert h_fwd.paths == h_acc.paths == 4
-    assert {h_fwd.tile, h_acc.tile} <= {2, 4}
+    assert h_fwd == h_acc == (1, 16, K.sgm_dir_smem(D, 1, 16, False))
+    assert h_fwd.tile * 4 >= 64
     assert all(p.smem <= K.SMEM_BLOCK_MAX
                for p in (h_fwd, h_acc, v_fwd, v_acc))
-    assert (h_fwd[:2], h_acc[:2]) == ((4, 4), (4, 2))
     # at the 288-plane cell's depth the 16-column blocks still fit
     assert [K.sgm_dir_plan(288, cols, False, a)[:2]
             for a in (False, True)] == [(16, 4), (16, 2)]

@@ -294,9 +294,12 @@ def test_sgm_dir_plan_fits_every_disparity_count(span, horizontal):
     for D in range(1, K.SGM_DIR_MAX_DISP + 1):
         for acc in (False, True):
             p = K.sgm_dir_plan(D, span, horizontal, acc)
-            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, acc) \
+            deep = p.paths < 4  # the deep form: no second-input tile
+            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile,
+                                            acc and not deep) \
                 <= K.SMEM_BLOCK_MAX
-            assert _pow2(p.paths) and 4 <= p.paths <= 16
+            assert _pow2(p.paths) and (1 if horizontal else 4) <= p.paths \
+                <= 16
             assert _pow2(p.tile) and p.tile <= 32
             assert p.paths * p.tile <= max(256, 32 * p.paths)
     for D in (0, K.SGM_DIR_MAX_DISP + 1):
@@ -341,21 +344,108 @@ def test_sgm_dir_plan_bf16_fits_every_disparity_count(span, horizontal):
     for D in range(1, K.SGM_DIR_MAX_DISP + 1):
         for acc in (False, True):
             p = K.sgm_dir_plan(D, span, horizontal, acc, esize=2)
-            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, acc, 2) \
-                == 2 * D * (p.paths * p.tile + 8) * (2 if acc else 1) * 2 \
+            ring = acc and p.paths >= 4  # the deep form: no second input
+            assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, ring, 2) \
+                == 2 * D * (p.paths * p.tile + 8) * (2 if ring else 1) * 2 \
                 <= K.SMEM_BLOCK_MAX
-            assert _pow2(p.paths) and 4 <= p.paths <= 16
+            assert _pow2(p.paths) and (1 if horizontal else 4) <= p.paths \
+                <= 16
             assert _pow2(p.tile) and p.tile <= 32
             assert p.paths * p.tile <= max(256, 32 * p.paths)
             p4 = K.sgm_dir_plan(D, span, horizontal, acc)
-            # past 726 planes float32 may fall back to blocks of 8
-            # columns where bfloat16 still fits 16
-            assert p.paths == p4.paths or (D > 512 and p.paths > p4.paths)
-            assert p.paths > p4.paths or p.tile >= p4.tile
+            if p4.paths >= 4:
+                # past 726 planes float32 may fall back to blocks of 8
+                # columns where bfloat16 still fits 16
+                assert p.paths == p4.paths or (D > 512
+                                               and p.paths > p4.paths)
+                assert p.paths > p4.paths or p.tile >= p4.tile
+            else:
+                # both take the deep form at one depth, bfloat16 with a
+                # tile as long or longer
+                assert p.paths < 4 and p.tile >= p4.tile
             assert K.sgm_dir_plan(D, span, horizontal, acc, esize=4) == p4
     # a deep volume takes a longer tile in half the bytes
     assert K.sgm_dir_plan(144, 1152, True, True).tile == 16
     assert K.sgm_dir_plan(144, 1152, True, True, esize=2).tile == 32
+
+
+# K1's plans before the deep form, as runs (last D, paths, tile) from D = 1:
+# horizontal ("h"), vertical on 1,024 columns or more ("v16") or fewer
+# ("v8"), by element size and accumulate
+PARENT_K1_PLANS = {
+    ("h", 4, False): [(220, 4, 32), (427, 4, 16), (807, 4, 8), (1024, 4, 4)],
+    ("h", 4, True): [(110, 4, 32), (213, 4, 16), (403, 4, 8), (726, 4, 4),
+                     (1024, 4, 2)],
+    ("h", 2, False): [(427, 4, 32), (807, 4, 16), (1024, 4, 8)],
+    ("h", 2, True): [(213, 4, 32), (403, 4, 16), (726, 4, 8), (1024, 4, 4)],
+    ("v16", 4, False): [(220, 16, 8), (427, 16, 4), (807, 16, 2),
+                        (1024, 16, 1)],
+    ("v16", 4, True): [(110, 16, 8), (213, 16, 4), (403, 16, 2),
+                       (726, 16, 1), (1024, 8, 1)],
+    ("v16", 2, False): [(427, 16, 8), (807, 16, 4), (1024, 16, 2)],
+    ("v16", 2, True): [(213, 16, 8), (403, 16, 4), (726, 16, 2),
+                       (1024, 16, 1)],
+    ("v8", 4, False): [(427, 8, 8), (807, 8, 4), (1024, 8, 2)],
+    ("v8", 4, True): [(213, 8, 8), (403, 8, 4), (726, 8, 2), (1024, 8, 1)],
+    ("v8", 2, False): [(807, 8, 8), (1024, 8, 4)],
+    ("v8", 2, True): [(403, 8, 8), (726, 8, 4), (1024, 8, 2)],
+}
+
+
+@pytest.mark.parametrize("esize", [4, 2])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_sgm_dir_deep_plan_exactly_where_runs_fall_under_a_sector(
+        esize, accumulate):
+    """K1 takes the deep horizontal form exactly where a 4-row tile's runs
+    (tile x element size) fall under one 32-byte sector: from 808 planes
+    (404 accumulating) in float32 and in bfloat16. There
+    its runs are 64 bytes or more; everywhere else the plan is the one
+    K1 took before the deep form."""
+    first = 404 if accumulate else 808
+    for key, span in (("h", 53), ("h", 1536), ("v8", 896), ("v16", 1152)):
+        runs = PARENT_K1_PLANS[key, esize, accumulate]
+        for D in range(1, K.SGM_DIR_MAX_DISP + 1):
+            parent = next((p, t) for last, p, t in runs if D <= last)
+            p = K.sgm_dir_plan(D, span, key == "h", accumulate, esize)
+            deep = key == "h" and parent[1] * esize < K.SECTOR_BYTES
+            assert deep == (key == "h" and D >= first)
+            assert (p.paths < 4) == deep
+            if deep:
+                assert p.tile * esize >= 64
+                assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, False,
+                                                esize)
+            else:
+                assert p == (*parent, K.sgm_dir_smem(D, *parent, accumulate,
+                                                     esize))
+
+
+def test_sgm_dir_deep_form_matches_the_source():
+    """The deep form as ``csrc/sgm_tile.cuh`` launches it: horizontal
+    blocks of 1 or 2 paths, shared memory ``tile_smem_bytes`` with no
+    second-input tile (``sgm_dir_smem(..., False)``), a kernel built for
+    the disparities per lane of every D a deep plan takes, and a copying
+    thread's 16-byte items of a tile within the registers it holds them
+    in (``kDeepItems``) wherever the rows are 16-byte aligned."""
+    src = (PKG / "csrc" / "sgm_tile.cuh").read_text()
+    assert "const bool deep = g.horizontal && g.P < 4;" in src
+    assert "tile_smem_bytes(g.D, g.P, g.T, acc && !deep, esize)" in src
+    assert "constexpr bool kDeepBuilt = kBuilt<kPer> && kPer >= 13;" in src
+    assert "constexpr int kDeepThreads = 256;" in src
+    assert "constexpr int kDeepItems = 32;" in src
+    for esize in (4, 2):
+        for D in range(1, K.SGM_DIR_MAX_DISP + 1):
+            for acc in (False, True):
+                p = K.sgm_dir_plan(D, 1536, True, acc, esize)
+                if p.paths >= 4:
+                    continue
+                per = -(-D // 32)
+                assert (per if per <= 16 else 32) >= 13
+                assert p.smem == 2 * D * (p.paths * p.tile + 16 // esize) \
+                    * esize <= K.SMEM_BLOCK_MAX
+                items_per_plane = p.paths * p.tile * esize // 16
+                dstep = (256 - 32 * p.paths) // items_per_plane
+                assert (256 - 32 * p.paths) % items_per_plane == 0
+                assert -(-D // dstep) <= 32
 
 
 @pytest.mark.parametrize("nb", [1, 7, 9])
@@ -635,6 +725,29 @@ def test_k1_wrapper_launches_with_its_plan(fake_lib, monkeypatch):
         "launches": {"sgm_dir": 2},
         "plans": {f"v {fwd.paths}x{fwd.tile} fwd": 1,
                   f"v {acc.paths}x{acc.tile} acc": 1}}
+
+
+@pytest.mark.parametrize("dtype,tile", [(torch.float32, 16),
+                                        (torch.bfloat16, 32)])
+def test_k1_wrapper_launches_the_deep_plan(fake_lib, monkeypatch, dtype,
+                                           tile):
+    """At 992 planes K1's wrapper passes the deep horizontal plan (one row
+    a block) to both launches of the axis and records its plan strings in
+    the open span."""
+    from pcmi_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(K, "_on_cuda", lambda *a, **k: True)
+    cost = torch.zeros(992, 2, 64, dtype=dtype)
+    with profiling.recording(), profiling.span("view") as rec:
+        K.sgm_pair(cost, 0.03, 0.48, horizontal=True)
+    bf16 = int(dtype == torch.bfloat16)
+    assert [args[-4:-1] for _, args in fake_lib.calls] == [
+        (1, tile, bf16), (1, tile, bf16)]
+    assert [args[5:8] for _, args in fake_lib.calls] == [(1, 0, 0),
+                                                         (1, 1, 1)]
+    assert rec.counts == {
+        "launches": {"sgm_dir": 2},
+        "plans": {f"h 1x{tile} fwd": 1, f"h 1x{tile} acc": 1}}
 
 
 def test_cost_volume_wrappers_refuse_before_running():
