@@ -39,8 +39,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain versions on small awkward volumes (``RAGGED``,
    ``RAGGED_BLOCKED``; both hold volumes of 600 and of 1024 planes, the
    most the SGM kernels take, and ``RAGGED`` K1's deep horizontal form
-   at 808, 992 and 1024 planes), K2 ``wta`` in every instantiation (one or
-   two inputs, parabola, margin, combined aggregate) on the same volumes
+   at 450, 600, 808, 992 and 1024 planes), K2 ``wta`` in every
+   instantiation (one or two inputs, parabola, margin, combined
+   aggregate) on the same volumes
    and on ``RAGGED_WTA`` (D from 1 to 5 and past its 4- and 8-slice
    chunks, odd and even H * W), K6 ``derive_right_wdh`` on
    ``RAGGED_WDH`` (rows that are not a multiple of 16 bytes, Dp ==
@@ -322,10 +323,13 @@ RAGGED = (((7, 37, 53), 1), ((1, 33, 129), 1), ((144, 19, 1030), 2),
           # SGM kernels take, 1024, on 1030 columns (blocks of 16 columns
           # fall back to 8 where accumulating in float32; rows not 16-byte
           # aligned); K1's deep horizontal form (kernels.sgm_dir_plan) on
-          # 16-byte rows with a partial last tile and at its threshold
-          # depth, forward and accumulating in place
+          # 16-byte rows with a partial last tile, at its threshold depth
+          # and at the high-rise cell's row shape (992 planes over 1536
+          # columns: whole tiles only), forward and accumulating in place,
+          # and its two-row blocks (float32 accumulating, 404-807 planes)
+          # with the second input held (450) and read at the store (600)
           ((600, 13, 67), 1), ((1024, 3, 1030), 2), ((992, 9, 1028), 1),
-          ((808, 5, 1536), 1))
+          ((808, 5, 1536), 1), ((992, 3, 1536), 1), ((450, 7, 1028), 1))
 # blocked (nb, S, Dp, 128) volumes for K5: Dp = 8, not a multiple of 32 and
 # above 256, one band and several, fewer steps than a tile and ring tails,
 # 600 and 1024 planes (8 bands: blocks of 16 lanes, or 8 with `prev`)

@@ -53,10 +53,8 @@ launches.
 times this checkout's K5 at blocks of 8 and 16 lanes with every tile
 length that fits, K4 at tiles of 1 to 32 steps and K1's horizontal scans
 at the 4-row plans and the deep form's blocks of 1 and 2 rows
-(``K1_H_PLANS``), the deep ones also with each L2 prefetch of its copies
-(``DEEP_L2``: ``-DSGM_DEEP_L2`` builds), beside the plan the wrappers
-choose (one JSON line per launch kind and shape). ``--deep`` takes either
-study to ``DEEP_SHAPES``.
+(``K1_H_PLANS``), beside the plan the wrappers choose (one JSON line per
+launch kind and shape). ``--deep`` takes either study to ``DEEP_SHAPES``.
 """
 
 from __future__ import annotations
@@ -230,10 +228,7 @@ ABLATIONS = {
     "copy_only": ("-DSGM_NO_SCAN", "-DWTA_NO_CHAIN"),
     "scan_only": ("-DSGM_NO_COPY", "-DWTA_NO_LOADS"),
 }
-# the deep form's L2 prefetch of its 16-byte copies, in bytes (the
-# library's is 128)
-DEEP_L2 = {"full": (), **{f"l2_{n}": (f"-DSGM_DEEP_L2={n}",)
-                          for n in (0, 64, 256)}}
+PLANS = {"full": ()}
 # K1's horizontal plans swept: 4-row blocks, and the deep form's 1 and 2
 K1_H_PLANS = ((4, 8), (4, 4), (4, 2), (2, 16), (2, 8), (2, 4), (1, 32),
               (1, 16), (1, 8))
@@ -348,8 +343,7 @@ def _study(ablation: bool, dtype: str = "float32", shapes=SHAPES) -> None:
 
     libs = {n: K.bind(lib, [src[:-3] for src in _ABLATED])
             for n, lib in _ablation_libs(
-                root, ABLATIONS if ablation else DEEP_L2 if shapes
-                == DEEP_SHAPES else {"full": ()}).items()}
+                root, ABLATIONS if ablation else PLANS).items()}
     esize = 2 if dtype == "bfloat16" else 4
     for (D, H, W), stride in shapes:
         vol, out = _volumes((D, H, W), dtype)
@@ -365,7 +359,8 @@ def _study(ablation: bool, dtype: str = "float32", shapes=SHAPES) -> None:
             if name == "sgm_dir":
                 chosen = K.sgm_dir_plan(D, H if horizontal else W,
                                         horizontal, acc, esize)[:2]
-                plans = list(K1_H_PLANS) if horizontal else [chosen]
+                plans = (list(dict.fromkeys((chosen, *K1_H_PLANS)))
+                         if horizontal else [chosen])
             elif name == "sgm_hwd":
                 chosen = (K.sgm_hwd_plan(D, acc).tile,)
                 plans = [(t,) for t in (1, 2, 4, 8, 16, 32)]
@@ -385,13 +380,6 @@ def _study(ablation: bool, dtype: str = "float32", shapes=SHAPES) -> None:
                     "x".join(map(str, plan)): _timed(
                         calls[name], libs["full"], horizontal, acc, plan)
                     for plan in plans}
-                if name == "sgm_dir" and horizontal:
-                    row["ms_by_l2"] = {
-                        variant: {"x".join(map(str, plan)): _timed(
-                            calls[name], lib, horizontal, acc, plan)
-                            for plan in plans if plan[0] < 4}
-                        for variant, lib in libs.items()
-                        if variant != "full"}
             print(json.dumps(row), flush=True)
         del hwd, hwd_out, blocked, calls
         if ablation:

@@ -560,32 +560,13 @@ sgm_tile_kernel(const E* __restrict__ cost, const E* acc_in, E* out, Scan g,
 // ---------------------------------------------------------------------------
 
 constexpr int kDeepThreads = 256;  // 8 warps: P scan, the others copy
-constexpr int kDeepItems = 32;     // 16-byte items a copying thread holds
-
-// 16-byte prefetch of the deep form's copies into L2 (kernel_ab.py --plans
-// --deep builds 0, 64 and 256 beside it)
-#ifndef SGM_DEEP_L2
-#define SGM_DEEP_L2 128
-#endif
-
-__device__ __forceinline__ void cp_async_deep(void* dst, const void* src,
-                                              bool vec) {
-  if (!vec) return cp_async(dst, src, false);
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-#if SGM_DEEP_L2 == 256
-  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#elif SGM_DEEP_L2 == 128
-  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#elif SGM_DEEP_L2 == 64
-  asm volatile("cp.async.cg.shared.global.L2::64B [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#else
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#endif
-}
+// 16-byte items of the second input a copying thread holds: a one-row
+// block's share of a tile up to 1,120 planes (19 at 1,024), a two-row
+// block's up to 480 (past that it reads them at the store). Holding 32
+// took the accumulating kernels to 255 registers and spills (7.61 against
+// 6.55 ms at (992, 512, 1536) on an H100); reading every item at the store
+// instead was up to 8 % slower (kernel_ab.py --plans --deep).
+constexpr int kDeepItems = 20;
 
 // All of the block's threads meet here: the deep form's scanning and
 // copying warps reach it from their own loops (a named barrier, not
@@ -683,7 +664,7 @@ sgm_tile_kernel_deep(const E* __restrict__ cost, const E* acc_in, E* out,
     E* c = cbuf(j);
     if (kF32 || g.vec) {
       for_tile(g, part, lo, s_lo, nt, [&](long long gi, int si) {
-        cp_async_deep(c + si, cost + gi, kF32 ? g.vec : g.vec == 1);
+        cp_async(c + si, cost + gi, kF32 ? g.vec : g.vec == 1);
       });
     } else {
       for_tile(g, part, lo, s_lo, nt,

@@ -250,17 +250,20 @@ def sgm_dir_smem(D: int, paths: int, tile: int, accumulate: bool,
 
 
 SECTOR_BYTES = 32  # an L2 sector: the least run a copy should read of a row
-# the deep form's blocks: (paths, tiles), the first that fits; at 992 planes
-# one row and 16 steps took 6.2 / 7.6 ms forward / accumulating at
-# (992, 512, 1536), two rows and 8 steps 7.6-9.0 / 12.6-13.4 on an H100
-# (kernel_ab.py --plans --deep)
-SGM_DIR_DEEP = ((1, (32, 16)),)
+DEEP_RUN_BYTES = 64  # the least run of a row the deep form's tiles hold
+# the deep form's blocks: (paths, tiles), the first that fits with runs of
+# DEEP_RUN_BYTES or more. On an H100 (kernel_ab.py --plans --deep) two rows
+# of 16 steps in float32, two scanning warps a block, beat one row of 32
+# where they fit: accumulating at 600 planes 1.54 against 2.05 ms, at 807
+# within 4 % behind it. At (992, 512, 1536) one row of 16 steps took 6.20 /
+# 6.55 ms forward / accumulating, two rows of 8 steps 9.00 / 13.36.
+SGM_DIR_DEEP = ((2, (16,)), (1, (32, 16)))
 
 
-def _first_fit(D: int, options, accumulate: bool,
-               esize: int) -> SgmDirPlan | None:
+def _first_fit(D: int, options, accumulate: bool, esize: int,
+               min_tile: int = 1) -> SgmDirPlan | None:
     for paths, tiles in options:
-        for tile in tiles:
+        for tile in (t for t in tiles if t >= min_tile):
             smem = sgm_dir_smem(D, paths, tile, accumulate, esize)
             if smem <= SMEM_BLOCK_MAX:
                 return SgmDirPlan(paths, tile, smem)
@@ -282,15 +285,17 @@ def sgm_dir_plan(D: int, span: int, horizontal: bool, accumulate: bool,
 
     Where a 4-row horizontal tile's runs fall under one 32-byte sector
     (from D = 808, accumulating from 404, in either element size), the
-    scan takes the deep form (``csrc/sgm_tile.cuh``):
-    :data:`SGM_DIR_DEEP`'s blocks of 1 row and the longest tile that fits
-    with the second input outside the ring."""
+    scan takes the deep form (``csrc/sgm_tile.cuh``): the first of
+    :data:`SGM_DIR_DEEP`'s blocks that fits with the second input outside
+    the ring and runs of :data:`DEEP_RUN_BYTES` or more (float32: 2 rows of
+    16 steps to 807 planes, else 1 row of 16; bfloat16: 1 row of 32)."""
     if not 1 <= D <= SGM_DIR_MAX_DISP:
         raise ValueError(f"sgm_dir: D={D} outside [1, {SGM_DIR_MAX_DISP}]")
     if horizontal:
         plan = _first_fit(D, ((4, (32, 16, 8, 4, 2, 1)),), accumulate, esize)
         if plan is not None and plan.tile * esize < SECTOR_BYTES:
-            plan = _first_fit(D, SGM_DIR_DEEP, False, esize)
+            plan = _first_fit(D, SGM_DIR_DEEP, False, esize,
+                              DEEP_RUN_BYTES // esize)
     else:
         plan = _first_fit(D, tuple((p, (8, 4, 2, 1)) for p in (
             (16, 8) if span >= 16 * 64 else (8,))), accumulate, esize)

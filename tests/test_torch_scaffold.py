@@ -399,8 +399,8 @@ def test_sgm_dir_deep_plan_exactly_where_runs_fall_under_a_sector(
     """K1 takes the deep horizontal form exactly where a 4-row tile's runs
     (tile x element size) fall under one 32-byte sector: from 808 planes
     (404 accumulating) in float32 and in bfloat16. There
-    its runs are 64 bytes or more; everywhere else the plan is the one
-    K1 took before the deep form."""
+    its runs are 64 bytes, in blocks of two rows where they fit; everywhere
+    else the plan is the one K1 took before the deep form."""
     first = 404 if accumulate else 808
     for key, span in (("h", 53), ("h", 1536), ("v8", 896), ("v16", 1152)):
         runs = PARENT_K1_PLANS[key, esize, accumulate]
@@ -412,6 +412,9 @@ def test_sgm_dir_deep_plan_exactly_where_runs_fall_under_a_sector(
             assert (p.paths < 4) == deep
             if deep:
                 assert p.tile * esize >= 64
+                # two rows of 64-byte runs where they fit, else one
+                assert (p.paths, p.tile) == (
+                    (2, 16) if esize == 4 and D <= 807 else (1, 64 // esize))
                 assert p.smem == K.sgm_dir_smem(D, p.paths, p.tile, False,
                                                 esize)
             else:
@@ -425,13 +428,14 @@ def test_sgm_dir_deep_form_matches_the_source():
     second-input tile (``sgm_dir_smem(..., False)``), a kernel built for
     the disparities per lane of every D a deep plan takes, and a copying
     thread's 16-byte items of a tile within the registers it holds them
-    in (``kDeepItems``) wherever the rows are 16-byte aligned."""
+    in (``kDeepItems``) in every one-row block whose rows are 16-byte
+    aligned (two-row blocks past 480 planes read them at the store)."""
     src = (PKG / "csrc" / "sgm_tile.cuh").read_text()
     assert "const bool deep = g.horizontal && g.P < 4;" in src
     assert "tile_smem_bytes(g.D, g.P, g.T, acc && !deep, esize)" in src
     assert "constexpr bool kDeepBuilt = kBuilt<kPer> && kPer >= 13;" in src
     assert "constexpr int kDeepThreads = 256;" in src
-    assert "constexpr int kDeepItems = 32;" in src
+    assert "constexpr int kDeepItems = 20;" in src
     for esize in (4, 2):
         for D in range(1, K.SGM_DIR_MAX_DISP + 1):
             for acc in (False, True):
@@ -445,7 +449,7 @@ def test_sgm_dir_deep_form_matches_the_source():
                 items_per_plane = p.paths * p.tile * esize // 16
                 dstep = (256 - 32 * p.paths) // items_per_plane
                 assert (256 - 32 * p.paths) % items_per_plane == 0
-                assert -(-D // dstep) <= 32
+                assert -(-D // dstep) <= 20 or (p.paths == 2 and D > 480)
 
 
 @pytest.mark.parametrize("nb", [1, 7, 9])
